@@ -1,0 +1,141 @@
+"""Inference / evaluation CLI for the cognitive VAE/GAN (stage 2 or 3
+checkpoints): fMRI -> image reconstruction, PCC/SSIM/MSE, 2/5/10-way
+objective assessment with CSV and bar chart, optional PNG dump.
+
+    python -m fmri_tpu_torch.eval.inference --family vgan --stage 3 \\
+        --preset res64 --ckpt model.pth --dataset synthetic -o out
+
+Weights come from a reference-layout ``.pth``, as written by
+``python -m fmri_tpu.checkpoints.torch_import --export --kind
+vae-gan-cognitive``. Data is ``--dataset synthetic`` or a packed pair
+directory (``--input``). Runs on ``cuda`` unless ``--device cpu``.
+
+Not in this port yet: the Inception Score (the summary has no ``is_*``
+keys), the other families and stage 1, the raw BOLD5000/COCO/MNIST loaders.
+Counterpart of ``fmri_tpu/eval/inference.py:40-154``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--family", choices=["vgan", "wae", "wae-vgan"], required=True)
+    p.add_argument("--stage", type=int, choices=[1, 2, 3], default=3)
+    p.add_argument("--preset", default="res64")
+    p.add_argument("--ckpt", required=True,
+                   help="reference-layout VaeGanCognitive .pth state dict")
+    p.add_argument("--dataset", default="synthetic",
+                   choices=["coco", "bold", "mnist69", "synthetic"])
+    p.add_argument("--input", "-i", default=None, help="packed pair directory")
+    p.add_argument("--valid-input", default=None,
+                   help="packed validation directory (default: hold out "
+                        "part of --input)")
+    p.add_argument("--output", "-o", default="inference_out")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--num-voxels", type=int, default=None,
+                   help="override the preset's fMRI voxel count (must match "
+                        "the checkpoint's CognitiveEncoder)")
+    p.add_argument("--max-batches", type=int, default=0, help="0 = all")
+    p.add_argument("--no-evaluate", action="store_true",
+                   help="skip metrics; just reconstruct + save images")
+    p.add_argument("--sample", action="store_true",
+                   help="reparameterize at eval")
+    p.add_argument("--save-images", action="store_true")
+    p.add_argument("--resize", type=int, default=200)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--synthetic-n", type=int, default=None,
+                   help="synthetic dataset size (default 4*batch)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p
+
+
+def _holdout(arrays, k):
+    return {key: v[:k] for key, v in arrays.items()}
+
+
+def load_valid_pairs(args, cfg):
+    """The validation {'fmri', 'image'} arrays, split as the reference CLI
+    splits them (``fmri_tpu/train/run.py:_load_pairs``): the first
+    max(n // 10, batch) examples."""
+    from fmri_tpu_torch.data.packed import is_packed_dir, open_packed
+
+    bs = cfg.train.batch_size
+    if args.input and is_packed_dir(args.input):
+        if args.valid_input:
+            return open_packed(args.valid_input)
+        arrays = open_packed(args.input)
+        return _holdout(arrays, max(len(arrays["fmri"]) // 10, bs))
+    if args.dataset != "synthetic":
+        raise SystemExit(f"--dataset {args.dataset} is not ported yet; use "
+                         "--dataset synthetic or a packed --input directory")
+    from fmri_tpu_torch.data.synthetic import synthetic_pairs
+
+    n = args.synthetic_n or max(4 * bs, 64)
+    data = synthetic_pairs(n, cfg.data.image_size, cfg.model.num_voxels, seed=0)
+    return _holdout(data, max(n // 10, bs))
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.family != "vgan" or args.stage not in (2, 3):
+        raise SystemExit(f"--family {args.family} --stage {args.stage} is not "
+                         "ported yet; this port serves --family vgan --stage 2|3")
+
+    from fmri_tpu_torch.checkpoints.convert import load_pth
+    from fmri_tpu_torch.configs.presets import get_config, override_num_voxels
+    from fmri_tpu_torch.device import resolve_device
+    from fmri_tpu_torch.eval.evaluate import (
+        objective_scores, quality_metrics, reconstruct_dataset,
+        save_objective_bar_chart, save_objective_csv, save_reconstructions,
+    )
+    from fmri_tpu_torch.eval.steps import VaeGanCognitive
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.preset)
+    if args.batch_size:
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, batch_size=args.batch_size))
+    if args.num_voxels is not None:
+        cfg = override_num_voxels(cfg, args.num_voxels)
+
+    valid = load_valid_pairs(args, cfg)
+    model = VaeGanCognitive(cfg.model)
+    model.load_state_dict(load_pth(args.ckpt), strict=True)
+    model.to(device)
+
+    n, bs = len(valid["fmri"]), cfg.train.batch_size
+    batches = ({k: v[lo:lo + bs] for k, v in valid.items()}
+               for lo in range(0, n, bs))
+    recons, targets = reconstruct_dataset(
+        model, batches, mean=cfg.data.mean, std=cfg.data.std,
+        sample=args.sample, seed=args.seed, max_batches=args.max_batches)
+
+    os.makedirs(args.output, exist_ok=True)
+    summary = {"checkpoint": args.ckpt, "device": str(device),
+               "num_images": int(len(recons))}
+    if not args.no_evaluate:
+        summary.update(quality_metrics(recons, targets))
+        scores = objective_scores(recons, targets, seed=args.seed)
+        save_objective_csv(scores, os.path.join(args.output, "objective.csv"))
+        save_objective_bar_chart(
+            scores, os.path.join(args.output, "objective.png"))
+        summary["objective"] = scores
+    if args.save_images:
+        save_reconstructions(recons, os.path.join(args.output, "images"),
+                             resize_to=args.resize)
+    with open(os.path.join(args.output, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    print(json.dumps(summary, indent=2))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
