@@ -23,7 +23,23 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      alone equals it reconstructed inside a padded batch (float output
      within 1e-5; uint8 within 1 LSB, as cuDNN may pick another algorithm
      per batch size);
-  6. kernels: one JSON line per the port's kernels with launches on the
+  6. train: the stage-I VAE/GAN step at res64 (full published widths,
+     batch 64, fp32) with ``pallas_bn`` and ``pallas_backward`` on, so the
+     BatchNorm backward and the conv/deconv weight grads run through the
+     CUDA kernels ``bn_bwd_reduce``, ``bn_bwd_apply`` and ``tap_matmul``.
+     Random weights from a seed in the JAX layout through
+     ``from_jax_groups``, RMSprop moments started at ones, 64 synthetic
+     images in [-1, 1]. Checks: one step against the same step with both
+     flags off (the library backward) on the card, and one step at batch 8
+     against the same step on the CPU, under the printed tolerances (losses
+     1e-5 relative; parameter updates 2% and 3% in L2 per tensor, moments
+     2%, BN statistics 1e-4); 5 timed
+     steps with finite metrics, gates in {0, 1} and moved parameters; every
+     kernel launched on the step; every kernel against its plain version at
+     every shape the step gave it, with fp32 and with bf16 operands (BN
+     1e-5 and dW 1e-4, relative to the largest magnitude of the plain
+     result; bf16 products are exact in fp32, so the bound is the same);
+  7. kernels: one JSON line per the port's kernels with launches on the
      main path, error against the plain version, warm times from CUDA
      events, and the bound computed from this run's shapes.
 
@@ -93,8 +109,316 @@ def ssim_bound(shape, window: int = 11):
                  + 3 * h * w + 18 * ho * wo)
     flops = per_plane * b * c
     nbytes = 2 * b * h * w * c * 4 + b * c * 4
+    return bound(flops, nbytes)
+
+
+def bound(flops: float, nbytes: float):
+    """(ms, bound_by): the larger of the FLOP at the fp32 peak and the bytes
+    at the memory rate."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bn_cost(x, kind: str):
+    """(FLOP, bytes) of one BatchNorm backward pass over x [B, C, ...]: x
+    and dy read once; the reduce writes [2, C] (5 FLOP per element: xhat,
+    dy * xhat, two sums), the apply writes fp32 dx (10 FLOP per element);
+    the per-channel vectors are counted too."""
+    n, c, esz = x.numel(), x.shape[1], x.element_size()
+    if kind == "reduce":
+        return 5 * n, 2 * n * esz + 4 * c * 4
+    return 10 * n, 2 * n * esz + 4 * n + 8 * c * 4
+
+
+def taps_inside(n_in: int, n_out: int, k: int, stride: int, pad: int) -> int:
+    """Sum over the k tap offsets of the output positions whose input index
+    p * stride - pad + tap lies inside [0, n_in)."""
+    return sum(0 <= p * stride - pad + t < n_in for t in range(k) for p in range(n_out))
+
+
+def dw_cost(shifted, direct, k: int, stride: int, pad: int):
+    """(FLOP, bytes) of one weight grad: 2 FLOP per product over the (tap,
+    position) pairs that land inside the shifted operand (the zero padding
+    needs none), both operands read once, the fp32 [Cu, Cs, k, k] written."""
+    b, cs, hs, ws = shifted.shape
+    _, cu, ph, pw = direct.shape
+    pairs = taps_inside(hs, ph, k, stride, pad) * taps_inside(ws, pw, k, stride, pad)
+    nbytes = (shifted.numel() + direct.numel()) * shifted.element_size() + cu * cs * k * k * 4
+    return 2 * b * cs * cu * pairs, nbytes
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    ref = ref.float()
+    return float((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+class Recorder:
+    """Stands in for a kernel wrapper ``module.name`` while one step runs:
+    each distinct call signature keeps a copy of its first arguments and a
+    count, and the call goes on to the wrapper. ``launches`` reads and writes
+    the wrapper's own count, which the wrapper bumps by its module-level
+    name, so the launches still land on the wrapper."""
+
+    def __init__(self, module, name: str, calls: dict):
+        self.module, self.name, self.calls = module, name, calls
+        self.orig = getattr(module, name)
+        setattr(module, name, self)
+
+    @property
+    def launches(self) -> int:
+        return self.orig.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.orig.launches = value
+
+    def __call__(self, *args):
+        import torch
+
+        key = tuple((tuple(a.shape), str(a.dtype)) if torch.is_tensor(a) else a
+                    for a in args)
+        if key not in self.calls:
+            self.calls[key] = [tuple(a.detach().clone() if torch.is_tensor(a) else a
+                                     for a in args), 0]
+        self.calls[key][1] += 1
+        return self.orig(*args)
+
+    def restore(self) -> None:
+        setattr(self.module, self.name, self.orig)
+
+
+def compare_steps(a, ma, b, mb, start) -> dict:
+    """Worst relative differences of train state ``a`` (metrics ``ma``)
+    from ``b``: losses; per tensor, the L2 norm of the difference over how
+    far ``b`` moved the parameter from ``start`` (``param``) or over b's
+    norm (BN running statistics, RMSprop moments); gate flags equal."""
+    def rel(x, y, scale):
+        return float((x.cpu().double() - y.cpu().double()).norm()
+                     / max(float(scale.cpu().double().norm()), 1e-30))
+
+    out = {"loss": max(abs(float(ma[k]) - float(mb[k])) / max(abs(float(mb[k])), 1e-12)
+                       for k in ma if k.startswith("loss")),
+           "gates_equal": all(float(ma[k]) == float(mb[k])
+                              for k in ("train_dec", "train_dis")),
+           "param": 0.0, "stats": 0.0, "sq": 0.0}
+    sa, sb = a.nets.state_dict(), b.nets.state_dict()
+    for k, v in sb.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if "running" in k:
+            out["stats"] = max(out["stats"], rel(sa[k], v, v))
+        else:
+            out["param"] = max(out["param"], rel(sa[k], v, v.cpu() - start[k]))
+    for g, moments in b.opt_state.items():
+        for k, v in moments.items():
+            out["sq"] = max(out["sq"], rel(a.opt_state[g][k], v, v))
+    return out
+
+
+def train_phase(dev, cfg):
+    """Phase 6; returns the kernels-line entries of the three train kernels."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups, random_groups
+    from fmri_tpu_torch.data.synthetic import synthetic_images
+    from fmri_tpu_torch.ops import bn, dw
+    from fmri_tpu_torch.train.optim import RmsProp
+    from fmri_tpu_torch.train.state import GROUPS, VaeGan, make_state
+    from fmri_tpu_torch.train.steps_vgan import make_vgan_stage1_step
+
+    t = cfg.train
+    cfg_on = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, pallas_bn=True, pallas_backward=True))
+    weights = from_jax_groups(random_groups(cfg, seed=0, kind="vae-gan"), cfg, "vae-gan")
+
+    def new_state(c, device):
+        nets = VaeGan(c)
+        nets.load_state_dict(weights, strict=True)
+        state = make_state(nets.to(device), {g: RmsProp(t.rms_decay, t.rms_eps, t.grad_clip)
+                                             for g in GROUPS})
+        for moments in state.opt_state.values():  # warm, as tests/ref_oracle.py:110
+            for v in moments.values():
+                v.fill_(1.0)
+        return state
+
+    b, latent = t.batch_size, cfg.model.latent_dim
+    x = torch.from_numpy(2.0 * synthetic_images(b, cfg.model.image_size, seed=0)[0]
+                         - 1.0).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    eps, z_p = (torch.randn((b, latent), generator=gen, device=dev) for _ in range(2))
+    hyper = (t.margin, t.equilibrium, t.lambda_mse)
+    step_on, step_off = make_vgan_stage1_step(cfg_on), make_vgan_stage1_step(cfg)
+    kernels = {"bn_bwd_reduce": bn.bn_bwd_reduce, "bn_bwd_apply": bn.bn_bwd_apply,
+               "tap_matmul": dw.tap_matmul}
+
+    # the main path: one step with both flags on, every call recorded
+    on = new_state(cfg_on, dev)
+    calls = {n: {} for n in ("bn_bwd_reduce", "bn_bwd_apply", "conv2d_dw",
+                             "conv2d_transpose_dw")}
+    recorders = [Recorder(mod, n, calls[n]) for mod, n in (
+        (bn, "bn_bwd_reduce"), (bn, "bn_bwd_apply"), (dw, "conv2d_dw"),
+        (dw, "conv2d_transpose_dw"))]
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on, m_on = step_on.train_step(on, x, eps, z_p, *hyper)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    for r in recorders:
+        r.restore()
+    print(f"[train] {cfg.model.image_size} px stage-I step, batch {b}, both kernel flags on: first step "
+          f"{cold:.3f} s; launches per step {launches}; metrics "
+          f"{ {k: round(float(v), 6) for k, v in m_on.items()} }", flush=True)
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the train step")
+
+    # 1. against the library backward (both flags off) on the card
+    off, m_off = step_off.train_step(new_state(cfg, dev), x, eps, z_p, *hyper)
+    d = compare_steps(on, m_on, off, m_off, weights)
+    tol = {"loss": 1e-5, "param": 2e-2, "stats": 1e-4, "sq": 2e-2}
+    print(f"[train] kernels vs library backward on the card: {d} (bounds {tol})",
+          flush=True)
+    check(d["gates_equal"] and all(d[k] <= v for k, v in tol.items()),
+          f"flags on vs off: {d} outside {tol}")
+
+    # 2. card against the CPU, batch 8
+    small = (x[:8], eps[:8], z_p[:8])
+    card, m_card = step_on.train_step(new_state(cfg_on, dev), *small, *hyper)
+    cpu, m_cpu = step_on.train_step(new_state(cfg_on, "cpu"),
+                                    *(a.cpu() for a in small), *hyper)
+    d = compare_steps(card, m_card, cpu, m_cpu, weights)
+    # batch 8 is ill-conditioned at res64 (BatchNorm over 8 images, KL terms
+    # near 900 per image): fp32 runs differ from float64 by up to 3% of an
+    # update on the decoder's FC BatchNorm (tests/test_torch_train.py)
+    tol = {"loss": 1e-5, "param": 3e-2, "stats": 1e-4, "sq": 2e-2}
+    print(f"[train] card vs CPU at batch 8: {d} (bounds {tol})", flush=True)
+    check(d["gates_equal"] and all(d[k] <= v for k, v in tol.items()),
+          f"card vs CPU: {d} outside {tol}")
+
+    # 3. five timed steps (host clock, one synchronize at the end)
+    before = {k: v.clone() for k, v in on.nets.state_dict().items()}
+    for fn in kernels.values():
+        fn.launches = 0
+    n_steps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = []
+    for _ in range(n_steps):
+        e, z = (torch.randn((b, latent), generator=gen, device=dev) for _ in range(2))
+        on, m = step_on.train_step(on, x, e, z, *hyper)
+        history.append(m)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / n_steps
+    print(f"[train] {n_steps} steps: {seconds:.4f} s per step, {b / seconds:.1f} "
+          f"images/s (host clock, warm)", flush=True)
+    for m in history:
+        check(all(np.isfinite(float(v)) for v in m.values()), f"non-finite metrics {m}")
+        check(all(float(m[k]) in (0.0, 1.0) for k in ("train_dec", "train_dis")),
+              f"gates not in {{0, 1}}: {m}")
+    moved = [k for k, v in on.nets.state_dict().items()
+             if k.endswith("weight") and not torch.equal(v, before[k])]
+    check(any(k.startswith("encoder.") for k in moved), "the timed steps moved no weight")
+    for n, fn in kernels.items():
+        check(fn.launches == n_steps * launches[n],
+              f"{n}: {fn.launches} launches over {n_steps} steps, {launches[n]} per step")
+
+    # 4. every kernel against its plain version at every shape of the step
+    def bn_reduce_lib(x_, dy, mu, inv):
+        return torch.ops.aten.batch_norm_backward_reduce(dy, x_, mu, inv, None,
+                                                         True, False, False)
+
+    def bn_apply_lib(x_, dy, mu, inv, gamma, sums, a0, a1):
+        count = torch.tensor([x_.numel() // x_.shape[1]], dtype=torch.int32,
+                             device=x_.device)
+        return torch.ops.aten.batch_norm_backward_elemt(dy, x_, mu, inv, gamma,
+                                                        sums[0], sums[1], count)
+
+    def conv_lib(x_, dy, stride, pad, k):
+        w = torch.zeros((dy.shape[1], x_.shape[1], k, k), dtype=x_.dtype, device=x_.device)
+        return torch.ops.aten.convolution_backward(
+            dy, x_, w, None, [stride] * 2, [pad] * 2, [1, 1], False, [0, 0], 1,
+            [False, True, False])[1]
+
+    def deconv_lib(x_, dy, stride, pad, output_padding, k):
+        w = torch.zeros((x_.shape[1], dy.shape[1], k, k), dtype=x_.dtype, device=x_.device)
+        return torch.ops.aten.convolution_backward(
+            dy, x_, w, None, [stride] * 2, [pad] * 2, [1, 1], True,
+            [output_padding] * 2, 1, [False, True, False])[1]
+
+    def bn_rows_err(got, ref):
+        return max(rel_err(g, r) for g, r in zip(got, ref))
+
+    specs = [  # (kernel name, recorded entry, kernel, plain, library, error, tol, cost)
+        ("bn_bwd_reduce", "bn_bwd_reduce", bn.bn_bwd_reduce, bn.bn_bwd_reduce_plain,
+         bn_reduce_lib, bn_rows_err, TOL, lambda a: bn_cost(a[0], "reduce")),
+        ("bn_bwd_apply", "bn_bwd_apply", bn.bn_bwd_apply, bn.bn_bwd_apply_plain,
+         bn_apply_lib, rel_err, TOL, lambda a: bn_cost(a[0], "apply")),
+        ("tap_matmul", "conv2d_dw", dw.conv2d_dw, dw.conv2d_dw_plain, conv_lib,
+         rel_err, 1e-4, lambda a: dw_cost(a[0], a[1], a[4], a[2], a[3])),
+        ("tap_matmul", "conv2d_transpose_dw", dw.conv2d_transpose_dw,
+         dw.conv2d_transpose_dw_plain, deconv_lib, rel_err, 1e-4,
+         lambda a: dw_cost(a[1], a[0], a[5], a[2], a[3])),
+    ]
+    totals = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
+                  "bytes": 0, "max_abs_err": 0.0, "max_rel_err": 0.0,
+                  "max_rel_err_bf16": 0.0, "shapes": []}
+              for n in kernels}
+    for name, entry, kern, plain, lib, err_fn, tol, cost in specs:
+        tot = totals[name]
+        for args, count in calls[entry].values():
+            got, ref = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = err_fn(got, ref)
+            check(err <= tol, f"{entry} {[tuple(a.shape) for a in args[:2]]}: "
+                              f"relative error {err} > {tol}")
+            tot["max_rel_err"] = max(tot["max_rel_err"], err)
+            tot["max_abs_err"] = max(tot["max_abs_err"], float((got - ref).abs().max()))
+            check(torch.equal(got, kern(*args)), f"{entry}: two runs differ")
+            # bf16 activations (the -bf16 presets' operands): products are
+            # exact in fp32 and sums fp32 on both sides, so the same bound
+            half = tuple(a.bfloat16() if torch.is_tensor(a) and a.dim() == 4 else a
+                         for a in args)
+            err = err_fn(kern(*half), plain(*half))
+            check(err <= tol, f"{entry} bf16 {[tuple(a.shape) for a in args[:2]]}: "
+                              f"relative error {err} > {tol}")
+            tot["max_rel_err_bf16"] = max(tot["max_rel_err_bf16"], err)
+            ms = cuda_ms(lambda: kern(*args), iters=20)
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * cuda_ms(lambda: plain(*args), iters=5, warmup=1)
+            tot["library_ms"] += count * cuda_ms(lambda: lib(*args), iters=20)
+            flops, nbytes = cost(args)
+            tot["flops"] += count * flops
+            tot["bytes"] += count * nbytes
+            tot["shapes"].append({"call": entry, "count": count, "ms": ms, "args": [
+                list(a.shape) if torch.is_tensor(a) else a for a in args]})
+    entries = []
+    for name, tot in totals.items():
+        bound_ms, bound_by = bound(tot["flops"], tot["bytes"])
+        print(f"[train] {name}: {launches[name]} launches per step over "
+              f"{len(tot['shapes'])} shapes; kernel {tot['ms']:.4f} ms, plain "
+              f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); max |kernel - plain| "
+              f"{tot['max_abs_err']:.3g} ({tot['max_rel_err']:.3g} of the largest "
+              f"plain value; {tot['max_rel_err_bf16']:.3g} with bf16 operands)",
+              flush=True)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "fmri_tpu_torch/ops/csrc/" + ("dw.cu" if name == "tap_matmul"
+                                                    else "bn.cu"),
+            "replaces": {"bn_bwd_reduce": "fmri_tpu/ops/pallas_bn.py:63",
+                         "bn_bwd_apply": "fmri_tpu/ops/pallas_bn.py:97",
+                         "tap_matmul": "fmri_tpu/ops/pallas_dw.py:71"}[name],
+            "launches": launches[name], "max_abs_err": tot["max_abs_err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": tot["library_ms"],
+            "shapes": tot["shapes"]})
+    return entries
 
 
 def main() -> None:
@@ -248,7 +572,10 @@ def main() -> None:
     print(f"[serving] padded batch vs alone: float {ferr:.3g}, uint8 {lsb} LSB",
           flush=True)
 
-    # 6. kernels line, at the main path's quality_metrics shape
+    # 6. train
+    train_kernels = train_phase(dev, cfg)
+
+    # 7. kernels line; ssim at the main path's quality_metrics shape
     a, b = recons, targets
     ms = cuda_ms(lambda: ssim_plane_sums(a, b))
     entry_ms = cuda_ms(lambda: ssim(a, b))
@@ -270,7 +597,7 @@ def main() -> None:
         "bound_by": bound_by,
         "library_ms": None,
         "shape": list(a.shape),
-    }]
+    }] + train_kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

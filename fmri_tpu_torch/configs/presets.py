@@ -2,10 +2,11 @@
 
 The port's own copy of ``fmri_tpu/configs/presets.py`` (the port imports
 nothing from ``fmri_tpu``); ``tests/test_torch_models.py`` holds every preset
-field-for-field against the reference. Fields that select alternative JAX
-kernels or fusions (``pallas_backward``, ``alt_backward``, ``pallas_bn``,
-``fused_decoder_batch``) are kept so presets stay comparable; the inference
-slice reads none of them.
+field-for-field against the reference. ``pallas_bn`` and ``pallas_backward``
+route the train step's BatchNorm backward and conv weight grads through the
+port's CUDA kernels (off in every preset, as in the JAX package);
+``alt_backward`` and ``fused_decoder_batch`` are kept so presets stay
+comparable, and nothing in the port reads them yet.
 
 Presets:
   * ``res64``  — image_size=64,  latent_dim=128

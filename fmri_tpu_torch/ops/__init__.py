@@ -1,3 +1,4 @@
-"""Convolution geometry (``conv``), the SSIM kernel and its plain version
-(``ssim``), and the build of the CUDA sources under ``csrc/`` (``build``).
-Importing this package builds nothing."""
+"""Convolution geometry and its optional weight-grad backward (``conv``),
+the CUDA kernels and their plain versions (``ssim``; ``bn``, the BatchNorm
+backward; ``dw``, the conv/deconv weight grad), and the build of the CUDA
+sources under ``csrc/`` (``build``). Importing this package builds nothing."""

@@ -9,8 +9,9 @@ plain C interface::
 The ``.so`` lands in ``fmri_tpu_torch/ops/_build/`` (listed in
 ``.gitignore``), named by a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one loads the existing library. No torch
-headers are included: a build takes seconds, not minutes. Nothing builds at
-import time; a failed build raises with nvcc's output.
+headers are included: a build takes seconds, not minutes, and the sources
+compile side by side. Nothing builds at import time; a failed build raises
+with nvcc's output.
 """
 
 from __future__ import annotations
@@ -49,8 +50,9 @@ def library_path(name: str) -> str:
 
 
 def build(names: list[str] | None = None) -> None:
-    """Compile the named kernels (default: all) that are not built yet, one
-    nvcc per source."""
+    """Compile the named kernels (default: all) that are not built yet: one
+    nvcc per source, all started together, each waited for."""
+    jobs = []
     for name in names or kernel_names():
         out = library_path(name)
         if os.path.exists(out):
@@ -59,13 +61,18 @@ def build(names: list[str] | None = None) -> None:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
+        jobs.append((out, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for out, tmp, cmd, proc in jobs:
+        log = proc.communicate()[0]
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                               f"{proc.stdout}")
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+            failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    if failures:
+        raise RuntimeError("\n".join(failures))
 
 
 def load(name: str) -> ctypes.CDLL:

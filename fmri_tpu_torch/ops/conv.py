@@ -1,10 +1,19 @@
-"""Forward convolutions and dense layers with the reference's geometry.
+"""Forward convolutions and dense layers with the reference's geometry, and
+the optional hand-written weight-grad backward of the 5x5 convs.
 
 NCHW activations, torch weight layouts (Conv2d OIHW, ConvTranspose2d IOHW,
-Linear [out, in]). These stay cuDNN/cuBLAS calls: the JAX package leaves them
-to XLA, not to Pallas. ``compute_dtype='bfloat16'`` casts both operands to
-bf16 and the result back to fp32, as ``fmri_tpu/ops/conv.py:27-37`` does, so
-BatchNorm and everything after it stays fp32.
+Linear [out, in]). The forwards stay cuDNN/cuBLAS calls: the JAX package
+leaves them to XLA, not to Pallas. ``compute_dtype='bfloat16'`` casts both
+operands to bf16 and the result back to fp32, as ``fmri_tpu/ops/conv.py:27-37``
+does, so BatchNorm and everything after it stays fp32.
+
+``pallas_backward=True`` (``ModelConfig.pallas_backward``) routes
+:func:`conv2d` and :func:`conv2d_transpose` through ``torch.autograd``
+Functions whose backward takes dx from the stock input grad and dW from
+``ops/dw.py`` (the CUDA kernel on the card), as ``fmri_tpu/ops/conv.py:86-117,
+194-231`` do. The gate is the JAX one (:62-63, :176-177): stride 1, or
+k5/p2/s2 (deconv: k5/p2/s2 only); any other geometry takes the stock
+backward in both packages.
 
 No tap flip happens in :func:`conv2d_transpose`: torch's transposed conv
 already scatters its kernel the way the reference's ``ConvTranspose2d`` does;
@@ -17,6 +26,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from fmri_tpu_torch.ops import dw
+
 
 def _operands(compute_dtype: str | None, *ts):
     if compute_dtype in (None, "float32"):
@@ -25,29 +36,108 @@ def _operands(compute_dtype: str | None, *ts):
     return tuple(None if t is None else t.to(cd) for t in ts)
 
 
+def _result(y: torch.Tensor, compute_dtype: str | None) -> torch.Tensor:
+    """fp32 after a cast to the compute dtype; otherwise the operands' own
+    dtype, as ``fmri_tpu/ops/conv.py:27-37`` casts back only what it cast."""
+    return y if compute_dtype in (None, "float32") else y.float()
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: torch.Tensor | None = None,
            compute_dtype: str | None = None) -> torch.Tensor:
     """``x @ weight.T + bias``; bf16 operands (bias included, as a flax
     ``Dense(dtype=bf16)`` does) give an fp32 result."""
     x, weight, bias = _operands(compute_dtype, x, weight, bias)
-    return F.linear(x, weight, bias).float()
+    return _result(F.linear(x, weight, bias), compute_dtype)
+
+
+def _conv(x, weight, stride, padding, compute_dtype):
+    x, weight = _operands(compute_dtype, x, weight)
+    return _result(F.conv2d(x, weight, stride=stride, padding=padding), compute_dtype)
+
+
+def _deconv(x, weight, stride, padding, output_padding, compute_dtype):
+    x, weight = _operands(compute_dtype, x, weight)
+    return _result(F.conv_transpose2d(x, weight, stride=stride, padding=padding,
+                                      output_padding=output_padding), compute_dtype)
+
+
+def _input_grad(dy, x, weight, stride, padding, output_padding, transposed,
+                compute_dtype):
+    """The stock input grad, as autograd of the forward computes it: dy
+    cast to the compute dtype, ``convolution_backward`` for the input only,
+    the result cast back to x's dtype."""
+    dyc, xc, wc = _operands(compute_dtype, dy, x, weight)
+    dx = torch.ops.aten.convolution_backward(
+        dyc.to(xc.dtype), xc, wc, None, [stride] * 2, [padding] * 2, [1, 1],
+        transposed, [output_padding] * 2, 1, [True, False, False])[0]
+    return dx.to(x.dtype)
+
+
+class _Conv2dDW(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, stride, padding, compute_dtype):
+        ctx.save_for_backward(x, weight)
+        ctx.geometry = (stride, padding, compute_dtype)
+        return _conv(x, weight, stride, padding, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        stride, padding, cd = ctx.geometry
+        dx = dw_ = None
+        if ctx.needs_input_grad[0]:
+            dx = _input_grad(dy, x, weight, stride, padding, 0, False, cd)
+        if ctx.needs_input_grad[1]:
+            xc, dyc = _operands(cd, x, dy)
+            dw_ = dw.conv2d_dw(xc.contiguous(), dyc.contiguous(), stride, padding,
+                               weight.shape[-1]).to(weight.dtype)
+        return dx, dw_, None, None, None
+
+
+class _Deconv2dDW(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, stride, padding, output_padding, compute_dtype):
+        ctx.save_for_backward(x, weight)
+        ctx.geometry = (stride, padding, output_padding, compute_dtype)
+        return _deconv(x, weight, stride, padding, output_padding, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        stride, padding, output_padding, cd = ctx.geometry
+        dx = dw_ = None
+        if ctx.needs_input_grad[0]:
+            dx = _input_grad(dy, x, weight, stride, padding, output_padding, True, cd)
+        if ctx.needs_input_grad[1]:
+            xc, dyc = _operands(cd, x, dy)
+            dw_ = dw.conv2d_transpose_dw(xc.contiguous(), dyc.contiguous(), stride,
+                                         padding, output_padding,
+                                         weight.shape[-1]).to(weight.dtype)
+        return dx, dw_, None, None, None, None
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
-           padding: int = 0, compute_dtype: str | None = None) -> torch.Tensor:
+           padding: int = 0, compute_dtype: str | None = None,
+           pallas_backward: bool = False) -> torch.Tensor:
     """``nn.Conv2d(k, s, p)`` forward, no bias. x: [B, Ci, H, W];
-    weight: [Co, Ci, k, k]."""
-    x, weight = _operands(compute_dtype, x, weight)
-    return F.conv2d(x, weight, stride=stride, padding=padding).float()
+    weight: [Co, Ci, k, k]. ``pallas_backward`` takes dW from ``ops/dw.py``
+    for stride 1 or k5/p2/s2."""
+    k = weight.shape[-1]
+    if pallas_backward and (stride == 1 or (stride == 2 and k == 5 and padding == 2)):
+        return _Conv2dDW.apply(x, weight, stride, padding, compute_dtype)
+    return _conv(x, weight, stride, padding, compute_dtype)
 
 
 def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor, stride: int = 2,
                      padding: int = 2, output_padding: int = 0,
-                     compute_dtype: str | None = None) -> torch.Tensor:
+                     compute_dtype: str | None = None,
+                     pallas_backward: bool = False) -> torch.Tensor:
     """``nn.ConvTranspose2d(k, s, p, output_padding)`` forward, no bias:
     out = (in - 1) * stride - 2 * padding + k + output_padding.
-    x: [B, Ci, H, W]; weight: [Ci, Co, k, k]."""
-    x, weight = _operands(compute_dtype, x, weight)
-    return F.conv_transpose2d(x, weight, stride=stride, padding=padding,
-                              output_padding=output_padding).float()
+    x: [B, Ci, H, W]; weight: [Ci, Co, k, k]. ``pallas_backward`` takes dW
+    from ``ops/dw.py`` for k5/p2/s2."""
+    if pallas_backward and stride == 2 and padding == 2 and weight.shape[-1] == 5:
+        return _Deconv2dDW.apply(x, weight, stride, padding, output_padding,
+                                 compute_dtype)
+    return _deconv(x, weight, stride, padding, output_padding, compute_dtype)

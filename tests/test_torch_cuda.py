@@ -1,6 +1,7 @@
 """The port on the card (``cuda`` marker; each test skips without one): the
-SSIM kernel against its plain version, the wrapper's checks, and the
-inference and serving path on the card against the same path on the CPU.
+SSIM, BatchNorm-backward and weight-grad kernels against their plain
+versions, the wrappers' checks, and the inference, serving and stage-I
+train paths on the card against the same paths on the CPU.
 
 Imports only torch, numpy and the port, so it runs where the JAX package's
 dependencies are not installed:
@@ -22,6 +23,8 @@ from fmri_tpu_torch.configs import get_config
 from fmri_tpu_torch.data.synthetic import synthetic_pairs
 from fmri_tpu_torch.eval import evaluate
 from fmri_tpu_torch.eval.serve import ServingModel
+from fmri_tpu_torch.ops import bn as port_bn
+from fmri_tpu_torch.ops import dw as port_dw
 from fmri_tpu_torch.ops import ssim as port
 
 pytestmark = pytest.mark.cuda
@@ -87,3 +90,137 @@ def test_serving_on_the_card_matches_the_cpu(cuda_device, tiny):
     cpu = ServingModel(cfg, port_model(groups, cfg), max_batch=8, device="cpu")
     np.testing.assert_allclose(card.reconstruct(x), cpu.reconstruct(x), atol=1e-4)
     assert card.generate(3).shape == (3, 16, 16, 3)
+
+
+# ------------------------------------------------ the train kernels and step
+
+BN_SHAPES = [(64, 64, 32, 32), (192, 128, 32, 32), (64, 256, 8, 8), (5, 3, 7, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_kernels_match_plain(cuda_device, shape, dtype):
+    """BN reduce and apply at res64 step shapes: within 1e-5 of the plain
+    version's largest magnitude (fp32 sums in another order), and the same
+    bits from run to run."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    mu = x.float().mean((0, 2, 3))
+    inv = torch.rsqrt(x.float().var((0, 2, 3), unbiased=False) + 1e-5)
+    gamma, a0, a1 = torch.randn((3, shape[1]), generator=g, device=cuda_device).unbind(0)
+    before = (port_bn.bn_bwd_reduce.launches, port_bn.bn_bwd_apply.launches)
+    sums = port_bn.bn_bwd_reduce(x, dy, mu, inv)
+    ref = port_bn.bn_bwd_reduce_plain(x, dy, mu, inv)
+    for got_row, ref_row in zip(sums, ref):
+        assert float((got_row - ref_row).abs().max()) <= 1e-5 * float(ref_row.abs().max())
+    assert torch.equal(sums, port_bn.bn_bwd_reduce(x, dy, mu, inv))
+    a0, a1 = a0.contiguous(), a1.contiguous()
+    dx = port_bn.bn_bwd_apply(x, dy, mu, inv, gamma, sums, a0, a1)
+    ref_dx = port_bn.bn_bwd_apply_plain(x, dy, mu, inv, gamma, sums, a0, a1)
+    assert float((dx - ref_dx).abs().max()) <= 1e-5 * float(ref_dx.abs().max())
+    assert (port_bn.bn_bwd_reduce.launches, port_bn.bn_bwd_apply.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+DW_CASES = [("conv", 192, 3, 64, 32, 1), ("conv", 64, 64, 32, 128, 2),
+            ("conv", 64, 64, 64, 3, 1), ("deconv", 64, 256, 8, 256, 2),
+            ("deconv", 64, 128, 32, 64, 2), ("conv", 3, 5, 9, 7, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,b,ci,h,co,stride", DW_CASES)
+def test_dw_kernel_matches_plain(cuda_device, kind, b, ci, h, co, stride, dtype):
+    """The weight-grad kernel at res64 step shapes: within 1e-4 of the plain
+    version's largest magnitude (fp32 and bf16 operands both multiply
+    exactly in fp32 and sum in fp32), and the same bits from run to run."""
+    g = torch.Generator(device=cuda_device).manual_seed(b + ci + h + co)
+    x = torch.randn((b, ci, h, h), generator=g, device=cuda_device).to(dtype)
+    if kind == "conv":
+        oh = (h + 4 - 5) // stride + 1
+        dy = torch.randn((b, co, oh, oh), generator=g, device=cuda_device).to(dtype)
+        got, ref = port_dw.conv2d_dw(x, dy, stride, 2, 5), port_dw.conv2d_dw_plain(x, dy, stride, 2, 5)
+        again = port_dw.conv2d_dw(x, dy, stride, 2, 5)
+    else:
+        dy = torch.randn((b, co, 2 * h, 2 * h), generator=g, device=cuda_device).to(dtype)
+        got = port_dw.conv2d_transpose_dw(x, dy, 2, 2, 1, 5)
+        ref = port_dw.conv2d_transpose_dw_plain(x, dy, 2, 2, 1, 5)
+        again = port_dw.conv2d_transpose_dw(x, dy, 2, 2, 1, 5)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(got, again)
+
+
+def test_train_wrappers_check_their_operands(cuda_device):
+    x = torch.randn((4, 3, 8, 8), device=cuda_device)
+    v = torch.ones(3, device=cuda_device)
+    with pytest.raises(ValueError, match="devices"):
+        port_bn.bn_bwd_reduce(x, x.cpu(), v, v)
+    with pytest.raises(TypeError):
+        port_bn.bn_bwd_reduce(x.double(), x.double(), v, v)
+    with pytest.raises(TypeError):
+        port_bn.bn_bwd_apply(x, x.bfloat16(), v, v, v, torch.ones((2, 3), device=cuda_device), v, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_bn.bn_bwd_reduce(x.transpose(2, 3), x.transpose(2, 3), v, v)
+    dy = torch.randn((4, 5, 8, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="operands on"):
+        port_dw.conv2d_dw(x, dy.cpu(), 1, 2, 5)
+    with pytest.raises(TypeError):
+        port_dw.conv2d_dw(x.half(), dy.half(), 1, 2, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_dw.conv2d_dw(x.transpose(2, 3), dy, 1, 2, 5)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """The stage-I step at tiny with both kernel flags on, on the card
+    (kernels) and on the CPU (plain versions), from the same state and
+    noise: losses within 1e-5 relative, parameters, moments and BN running
+    statistics within 1e-3 relative in L2 per tensor (parameters: of how far
+    the CPU step moved them); every kernel launched."""
+    import dataclasses
+
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups
+    from fmri_tpu_torch.train.optim import RmsProp
+    from fmri_tpu_torch.train.state import GROUPS, VaeGan, make_state
+    from fmri_tpu_torch.train.steps_vgan import make_vgan_stage1_step
+
+    cfg = get_config("tiny")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, pallas_bn=True, pallas_backward=True))
+    weights = from_jax_groups(random_groups(cfg, 0, "vae-gan"), cfg, "vae-gan")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(-1, 1, (8, 16, 16, 3)).astype(np.float32))
+    eps, z_p = (torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32))
+                for _ in range(2))
+    fns = make_vgan_stage1_step(cfg)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        nets = VaeGan(cfg)
+        nets.load_state_dict(weights, strict=True)
+        state = make_state(nets.to(dev), {g: RmsProp() for g in GROUPS})
+        for moments in state.opt_state.values():
+            for v in moments.values():
+                v.fill_(1.0)
+        before = (port_bn.bn_bwd_reduce.launches, port_bn.bn_bwd_apply.launches,
+                  port_dw.tap_matmul.launches)
+        state, m = fns.train_step(state, x.to(dev), eps.to(dev), z_p.to(dev),
+                                  0.35, 0.68, 1e-6)
+        after = (port_bn.bn_bwd_reduce.launches, port_bn.bn_bwd_apply.launches,
+                 port_dw.tap_matmul.launches)
+        out[dev.type] = (state, m, [a - b for a, b in zip(after, before)])
+    (card, m_card, n_card), (cpu, m_cpu, n_cpu) = out["cuda"], out["cpu"]
+    assert all(n > 0 for n in n_card) and n_cpu == [0, 0, 0]
+    for k in m_cpu:
+        assert float(m_card[k]) == pytest.approx(float(m_cpu[k]), rel=1e-5, abs=1e-7), k
+    sd_card, sd_cpu = card.nets.state_dict(), cpu.nets.state_dict()
+    for k, ref in sd_cpu.items():
+        got = sd_card[k].cpu()
+        if k.endswith("num_batches_tracked"):
+            assert torch.equal(got, ref)
+            continue
+        scale = ref if "running" in k else ref - weights[k]
+        assert float((got - ref).norm()) <= 1e-3 * max(float(scale.norm()), 1e-12), k
+    for g in GROUPS:
+        for k, ref in cpu.opt_state[g].items():
+            got = card.opt_state[g][k].cpu()
+            assert float((got - ref).norm()) <= 1e-3 * float(ref.norm()), (g, k)

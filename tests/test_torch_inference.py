@@ -257,7 +257,8 @@ def _run(args, cwd):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, fmri_tpu_torch.eval.inference, fmri_tpu_torch.eval.serve;"
+    code = ("import sys, fmri_tpu_torch.eval.inference, fmri_tpu_torch.eval.serve,"
+            " fmri_tpu_torch.train.steps_vgan;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r);"
             "assert not bad, bad" % (FORBIDDEN,))
     r = _run(["-c", code], REPO)
