@@ -35,13 +35,19 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      1e-5 relative; parameter updates 2% and 3% in L2 per tensor, moments
      2%, BN statistics 1e-4); 5 timed
      steps with finite metrics, gates in {0, 1} and moved parameters; every
-     kernel launched on the step; every kernel against its plain version at
-     every shape the step gave it, with fp32 and with bf16 operands (BN
-     1e-5 and dW 1e-4, relative to the largest magnitude of the plain
-     result; bf16 products are exact in fp32, so the bound is the same);
+     kernel launched on the step, ``tap_matmul`` exactly 15 times (one per
+     conv/deconv weight use: encoder 3, decoder 4 x 2 passes,
+     discriminator 4); every kernel against its plain version at every
+     shape the step gave it, with fp32 and with bf16 operands (BN 1e-5 and
+     dW 1e-4, relative to the largest magnitude of the plain result; fp32
+     dW runs as 3xTF32, bf16 products are exact in fp32), and the same bits
+     twice; the weight grad's time per shape beside the library's;
   7. kernels: one JSON line per the port's kernels with launches on the
      main path, error against the plain version, warm times from CUDA
-     events, and the bound computed from this run's shapes.
+     events, and the bound computed from this run's shapes: FLOP at the
+     rate of the unit the kernel uses (``tap_matmul``: 3xTF32 on the tensor
+     cores, with the fp32 CUDA-core bound beside it as
+     ``bound_ms_fp32_cuda_cores``), or bytes at the memory rate.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -55,9 +61,15 @@ import subprocess
 import sys
 import time
 
-# NVIDIA H100 SXM, dense fp32 outside the tensor cores, and HBM3 bandwidth
+# NVIDIA H100 SXM (data sheet, dense): fp32 outside the tensor cores, TF32
+# and bf16 on the tensor cores, HBM3 bandwidth. 3xTF32 makes three TF32
+# passes for one fp32 product, so its rate is a third of TF32's.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+DW_LAUNCHES_PER_STEP = 15  # encoder 3, decoder 4 x 2 passes, discriminator 4
 TOL = 1e-5
 
 
@@ -112,10 +124,10 @@ def ssim_bound(shape, window: int = 11):
     return bound(flops, nbytes)
 
 
-def bound(flops: float, nbytes: float):
-    """(ms, bound_by): the larger of the FLOP at the fp32 peak and the bytes
-    at the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    """(ms, bound_by): the larger of the FLOP at ``peak`` (default the fp32
+    CUDA-core rate) and the bytes at the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -277,6 +289,9 @@ def train_phase(dev, cfg):
           f"{ {k: round(float(v), 6) for k, v in m_on.items()} }", flush=True)
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the train step")
+    check(launches["tap_matmul"] == DW_LAUNCHES_PER_STEP,
+          f"tap_matmul: {launches['tap_matmul']} launches per step, want "
+          f"{DW_LAUNCHES_PER_STEP} (one per conv/deconv weight use)")
 
     # 1. against the library backward (both flags off) on the card
     off, m_off = step_off.train_step(new_state(cfg, dev), x, eps, z_p, *hyper)
@@ -389,21 +404,35 @@ def train_phase(dev, cfg):
                               f"relative error {err} > {tol}")
             tot["max_rel_err_bf16"] = max(tot["max_rel_err_bf16"], err)
             ms = cuda_ms(lambda: kern(*args), iters=20)
+            lib_ms = cuda_ms(lambda: lib(*args), iters=20)
             tot["ms"] += count * ms
             tot["plain_ms"] += count * cuda_ms(lambda: plain(*args), iters=5, warmup=1)
-            tot["library_ms"] += count * cuda_ms(lambda: lib(*args), iters=20)
+            tot["library_ms"] += count * lib_ms
             flops, nbytes = cost(args)
             tot["flops"] += count * flops
             tot["bytes"] += count * nbytes
-            tot["shapes"].append({"call": entry, "count": count, "ms": ms, "args": [
-                list(a.shape) if torch.is_tensor(a) else a for a in args]})
+            shape = {"call": entry, "count": count, "ms": ms, "library_ms": lib_ms,
+                     "gflop": flops / 1e9, "args": [
+                         list(a.shape) if torch.is_tensor(a) else a for a in args]}
+            if name == "tap_matmul":
+                print(f"[train] tap_matmul {entry} {shape['args'][:2]} x{count}: "
+                      f"{ms:.4f} ms per call ({flops / ms / 1e9:.1f} TFLOP/s), "
+                      f"library {lib_ms:.4f} ms", flush=True)
+            tot["shapes"].append(shape)
     entries = []
     for name, tot in totals.items():
         bound_ms, bound_by = bound(tot["flops"], tot["bytes"])
+        extra = {}
+        if name == "tap_matmul":  # fp32 operands run as 3xTF32 on the tensor cores
+            extra = {"bound_rate": "3xTF32 tensor cores, 164.9 TFLOP/s",
+                     "bound_ms_fp32_cuda_cores": bound_ms, "gflop": tot["flops"] / 1e9}
+            bound_ms, bound_by = bound(tot["flops"], tot["bytes"], PEAK_3XTF32_FLOPS)
         print(f"[train] {name}: {launches[name]} launches per step over "
               f"{len(tot['shapes'])} shapes; kernel {tot['ms']:.4f} ms, plain "
               f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}); max |kernel - plain| "
+              f"{bound_ms:.4f} ms ({bound_by}{', 3xTF32' if extra else ''}"
+              f"{'; fp32 CUDA cores %.4f ms' % extra['bound_ms_fp32_cuda_cores'] if extra else ''})"
+              f"; max |kernel - plain| "
               f"{tot['max_abs_err']:.3g} ({tot['max_rel_err']:.3g} of the largest "
               f"plain value; {tot['max_rel_err_bf16']:.3g} with bf16 operands)",
               flush=True)
@@ -416,7 +445,7 @@ def train_phase(dev, cfg):
                          "tap_matmul": "fmri_tpu/ops/pallas_dw.py:71"}[name],
             "launches": launches[name], "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": tot["library_ms"],
+            "bound_by": bound_by, "library_ms": tot["library_ms"], **extra,
             "shapes": tot["shapes"]})
     return entries
 

@@ -8,10 +8,11 @@ operands to bf16 and the result back to fp32, as ``fmri_tpu/ops/conv.py:27-37``
 does, so BatchNorm and everything after it stays fp32.
 
 ``pallas_backward=True`` (``ModelConfig.pallas_backward``) routes
-:func:`conv2d` and :func:`conv2d_transpose` through ``torch.autograd``
-Functions whose backward takes dx from the stock input grad and dW from
-``ops/dw.py`` (the CUDA kernel on the card), as ``fmri_tpu/ops/conv.py:86-117,
-194-231`` do. The gate is the JAX one (:62-63, :176-177): stride 1, or
+:func:`conv2d` and :func:`conv2d_transpose` through two ``torch.autograd``
+Functions per layer: one takes dx from the stock input grad, the other
+(:class:`_WeightGrad`, its own graph node) takes dW from ``ops/dw.py`` (the
+CUDA kernel on the card) and runs only when the weight's gradient is asked
+for, as ``fmri_tpu/ops/conv.py:86-117, 194-231`` compute them. The gate is the JAX one (:62-63, :176-177): stride 1, or
 k5/p2/s2 (deconv: k5/p2/s2 only); any other geometry takes the stock
 backward in both packages.
 
@@ -74,9 +75,42 @@ def _input_grad(dy, x, weight, stride, padding, output_padding, transposed,
     return dx.to(x.dtype)
 
 
-class _Conv2dDW(torch.autograd.Function):
+class _WeightGrad(torch.autograd.Function):
+    """The weight-grad node of a ``pallas_backward`` conv or deconv. Its
+    output is a placeholder (one zero, broadcast to the layer's output shape)
+    that the input-grad Function takes as an extra input and hands ``dy``
+    back through, so autograd runs this node, and launches ``ops/dw.py``,
+    only when the weight's gradient is asked for: a pullback to the input
+    alone prunes it, as XLA's DCE prunes the dW of the JAX step."""
+
     @staticmethod
-    def forward(ctx, x, weight, stride, padding, compute_dtype):
+    def forward(ctx, weight, x, out_shape, out_dtype, geometry):
+        ctx.save_for_backward(x)
+        ctx.weight_meta = (weight.shape, weight.dtype)
+        ctx.geometry = geometry
+        return x.new_zeros((), dtype=out_dtype).expand(out_shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, = ctx.saved_tensors
+        shape, dtype = ctx.weight_meta
+        stride, padding, output_padding, transposed, cd = ctx.geometry
+        xc, dyc = _operands(cd, x, dy)
+        if transposed:
+            dw_ = dw.conv2d_transpose_dw(xc.contiguous(), dyc.contiguous(), stride,
+                                         padding, output_padding, shape[-1])
+        else:
+            dw_ = dw.conv2d_dw(xc.contiguous(), dyc.contiguous(), stride, padding,
+                               shape[-1])
+        return dw_.to(dtype), None, None, None, None
+
+
+class _Conv2dDW(torch.autograd.Function):
+    """The forward conv and its stock input grad; ``tap`` (the
+    :class:`_WeightGrad` placeholder) receives ``dy`` for the weight grad."""
+
+    @staticmethod
+    def forward(ctx, x, weight, tap, stride, padding, compute_dtype):
         ctx.save_for_backward(x, weight)
         ctx.geometry = (stride, padding, compute_dtype)
         return _conv(x, weight, stride, padding, compute_dtype)
@@ -85,19 +119,18 @@ class _Conv2dDW(torch.autograd.Function):
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
         stride, padding, cd = ctx.geometry
-        dx = dw_ = None
+        dx = None
         if ctx.needs_input_grad[0]:
             dx = _input_grad(dy, x, weight, stride, padding, 0, False, cd)
-        if ctx.needs_input_grad[1]:
-            xc, dyc = _operands(cd, x, dy)
-            dw_ = dw.conv2d_dw(xc.contiguous(), dyc.contiguous(), stride, padding,
-                               weight.shape[-1]).to(weight.dtype)
-        return dx, dw_, None, None, None
+        return dx, None, dy if ctx.needs_input_grad[2] else None, None, None, None
 
 
 class _Deconv2dDW(torch.autograd.Function):
+    """The forward deconv and its stock input grad; ``tap`` as in
+    :class:`_Conv2dDW`."""
+
     @staticmethod
-    def forward(ctx, x, weight, stride, padding, output_padding, compute_dtype):
+    def forward(ctx, x, weight, tap, stride, padding, output_padding, compute_dtype):
         ctx.save_for_backward(x, weight)
         ctx.geometry = (stride, padding, output_padding, compute_dtype)
         return _deconv(x, weight, stride, padding, output_padding, compute_dtype)
@@ -106,15 +139,14 @@ class _Deconv2dDW(torch.autograd.Function):
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
         stride, padding, output_padding, cd = ctx.geometry
-        dx = dw_ = None
+        dx = None
         if ctx.needs_input_grad[0]:
             dx = _input_grad(dy, x, weight, stride, padding, output_padding, True, cd)
-        if ctx.needs_input_grad[1]:
-            xc, dyc = _operands(cd, x, dy)
-            dw_ = dw.conv2d_transpose_dw(xc.contiguous(), dyc.contiguous(), stride,
-                                         padding, output_padding,
-                                         weight.shape[-1]).to(weight.dtype)
-        return dx, dw_, None, None, None, None
+        return dx, None, dy if ctx.needs_input_grad[2] else None, None, None, None, None
+
+
+def _out_dtype(x: torch.Tensor, compute_dtype: str | None) -> torch.dtype:
+    return x.dtype if compute_dtype in (None, "float32") else torch.float32
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
@@ -125,7 +157,12 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
     for stride 1 or k5/p2/s2."""
     k = weight.shape[-1]
     if pallas_backward and (stride == 1 or (stride == 2 and k == 5 and padding == 2)):
-        return _Conv2dDW.apply(x, weight, stride, padding, compute_dtype)
+        shape = (x.shape[0], weight.shape[0], *(dw._out_size(n, k, stride, padding)
+                                                for n in x.shape[2:]))
+        tap = _WeightGrad.apply(weight, x.detach(), shape,
+                                _out_dtype(x, compute_dtype),
+                                (stride, padding, 0, False, compute_dtype))
+        return _Conv2dDW.apply(x, weight.detach(), tap, stride, padding, compute_dtype)
     return _conv(x, weight, stride, padding, compute_dtype)
 
 
@@ -137,7 +174,13 @@ def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor, stride: int = 2,
     out = (in - 1) * stride - 2 * padding + k + output_padding.
     x: [B, Ci, H, W]; weight: [Ci, Co, k, k]. ``pallas_backward`` takes dW
     from ``ops/dw.py`` for k5/p2/s2."""
-    if pallas_backward and stride == 2 and padding == 2 and weight.shape[-1] == 5:
-        return _Deconv2dDW.apply(x, weight, stride, padding, output_padding,
-                                 compute_dtype)
+    k = weight.shape[-1]
+    if pallas_backward and stride == 2 and padding == 2 and k == 5:
+        shape = (x.shape[0], weight.shape[1], *((n - 1) * stride - 2 * padding + k
+                                                + output_padding for n in x.shape[2:]))
+        tap = _WeightGrad.apply(weight, x.detach(), shape,
+                                _out_dtype(x, compute_dtype),
+                                (stride, padding, output_padding, True, compute_dtype))
+        return _Deconv2dDW.apply(x, weight.detach(), tap, stride, padding,
+                                 output_padding, compute_dtype)
     return _deconv(x, weight, stride, padding, output_padding, compute_dtype)

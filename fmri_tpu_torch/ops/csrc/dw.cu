@@ -1,10 +1,10 @@
-// Convolution weight gradient for NVIDIA Hopper (sm_90a): the port of
-// fmri_tpu/ops/pallas_dw.py::_tap_matmul, as used by conv2d_dw and
-// conv2d_transpose_dw.
+// Convolution weight gradient for NVIDIA Hopper (sm_90a) on the tensor
+// cores: the port of fmri_tpu/ops/pallas_dw.py::_tap_matmul, as used by
+// conv2d_dw and conv2d_transpose_dw.
 //
-// Both weight grads are one product over the reduction index
-// r = (b, ph, pw) of a "shifted" operand S [B, Cs, Hs, Ws] and a "direct"
-// operand U [B, Cu, PH, PW] (NCHW, contiguous):
+// What it computes. Both weight grads are one product over the reduction
+// index r = (b, ph, pw) of a "shifted" operand S [B, Cs, Hs, Ws] and a
+// "direct" operand U [B, Cu, PH, PW] (NCHW, contiguous):
 //
 //   out[cu, cs, kh, kw] = sum_r S[b, cs, ph*stride - pad + kh,
 //                                       pw*stride - pad + kw] * U[b, cu, ph, pw]
@@ -13,59 +13,332 @@
 //   * Conv2d (OIHW dW):           S = x, U = dy, grid = the output.
 //   * ConvTranspose2d (IOHW dW,
 //     torch's scatter convention): S = dy, U = x, grid = the input.
-// So the result lands in the port's weight layout with no transpose, and
-// the zero padding and the TPU kernel's parity planes are never built in
-// device memory: the loads are strided and bounds-checked.
+// The result lands in the port's weight layout with no transpose; the zero
+// padding and the TPU kernel's parity planes never exist in device memory.
 //
-// As a matrix product: D[n = cu][m = cs*K*K + tap] = sum_r A[r][m] * B[r][n].
-// A block owns a TM x TN tile of D and a contiguous range of r; it stages
-// RK rows of A and B in shared memory and each of its 256 threads keeps an
-// MM x MN fp32 micro-tile in registers. Bound: operations at the shapes of
-// the VAE/GAN (up to 80 GFLOP per weight against at most ~100 MB of
-// operands); this first version runs on the CUDA cores in fp32 FMA, with
-// `wgmma`/TMA left for later work. The reduction length reaches 786,432
-// (the discriminator's first conv at batch 192) while D has only 2,400
-// values, so r is split across `splits` blocks per tile; each writes its own
-// partial tile and a second launch adds the partials in split order. No
-// atomics: two runs give the same bits. Operands are float32 or bfloat16;
-// products and sums are float32.
+// What bounds it. As a matrix product D[m][n] = sum_r A[m][r] * B[n][r],
+// with m = cs*K*K + tap (75 to 6,400 on the res64 step) and n = cu (3 to
+// 256), over r up to 786,432: 2 to 80 GFLOP per call against at most ~100 MB
+// of operands, so tensor-core operations bound it. fp32 operands run as
+// 3xTF32 (a = hi + lo, hi = tf32(a), lo = tf32(a - hi), both rounded to
+// nearest with ties away; D += hi*hi + hi*lo + lo*hi in fp32): three TF32
+// passes, ~165 TFLOP/s of the H100's 495, with ~21 bits kept per operand, so
+// fp32 parity holds (single-pass TF32 is never used). bf16 operands run one
+// bf16 pass (989 TFLOP/s), whose products are exact in fp32.
+//
+// What the design does about it.
+//   * wgmma (m64nNk8 tf32, m64nNk16 bf16): m on the 64-row M side, one or
+//     two consumer warpgroups per block (MT = 64 or 128 rows of D); n on the
+//     N side, NT = 8, 32, 64 or 128 (the 3-channel out conv is a 64 x 8
+//     tile). A comes from registers: each thread loads its fragment of the
+//     staged S tile and, for fp32, splits it into hi and lo there. B comes
+//     from shared memory through a 128-byte-swizzled K-major descriptor; for
+//     fp32 the staged U tile is split once per stage into hi (in place) and
+//     lo (one of two buffers), shared by both warpgroups. Each stage's
+//     product lands in a register tile that is then added, in fp32 with
+//     round-to-nearest, into the block's sum: the tensor core does not
+//     round to nearest as it accumulates, and over the ~200 stages of a
+//     split that bias would reach ~1e-4 of the result.
+//   * A ring of kStages = 4 shared-memory stages of RK reduction rows (RK =
+//     128 bytes of one row: 32 fp32 or 64 bf16). Tiles k+1 and k+2 are in
+//     flight while tile k is split and issued, and tile k-1 still multiplies
+//     on the tensor cores (wgmma is asynchronous: a stage is waited for only
+//     before the next one is issued). U is a plain box of the
+//     [B, Cu, PH*PW] view, brought by TMA (one thread, an mbarrier per
+//     stage, hardware 128-byte swizzle). S is a gather (stride and taps):
+//     each thread owns one reduction row of a stage, decodes its (b, ph, pw)
+//     once, and walks the tile's m rows with 4-byte cp.async, zero-filled
+//     outside the image; the row's (channel, tap) offsets come from a table
+//     built once per block. S's runs start at the tap offset, so they are not
+//     16-byte aligned and 16-byte copies do not apply. bf16 elements are
+//     fetched as the aligned 32-bit word that holds them, with a per-row bit
+//     mask (a warp ballot) saying which half to take.
+//   * The staged S tile is XOR-swizzled so that the gather's stores and the
+//     fragment loads are both free of bank conflicts.
+//   * The reduction is tiled per image (tiles of RK positions of one
+//     b, zero-padded past PH*PW) and split across blocks; each block writes
+//     its partial tile and a second launch adds the partials in split order.
+//     No atomics: two runs give the same bits. The split count comes from
+//     ops/dw.py::plan, which models waves of blocks on 132 SMs.
+//   * Where TMA cannot describe U (PH*PW*elem not a multiple of 16 bytes;
+//     no shape of the res64 step), the same threads copy U into the same
+//     swizzled layout with plain loads.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int RK = 32;
-
-template <typename T> __device__ __forceinline__ float to_float(T v);
-template <> __device__ __forceinline__ float to_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kStages = 4;
+constexpr int kAhead = 2;       // tiles in flight ahead of the one multiplied
+constexpr int kRowBytes = 128;  // bytes of one staged reduction run: RK elements
 
 struct Geometry {
   int B, Cs, Hs, Ws, Cu, PH, PW, K, stride, pad;
-  int M, N, R;   // M = Cs*K*K, N = Cu, R = B*PH*PW
-  int chunk;     // reduction rows per split, a multiple of RK
+  int M, N;             // M = Cs*K*K, N = Cu
+  int tiles_per_image;  // ceil(PH*PW / RK)
+  int tiles;            // B * tiles_per_image
+  int chunk;            // reduction tiles per split
+  int use_tma;
 };
 
-// grid (ceil(M/TM), ceil(N/TN), splits); writes out[split][n][m].
-template <int TM, int TN, int MM, int MN, typename T>
-__global__ void __launch_bounds__(kThreads)
-dw_kernel(const T* __restrict__ S, const T* __restrict__ U,
-          float* __restrict__ out, Geometry g) {
-  static_assert((TM / MM) * (TN / MN) == kThreads, "one micro-tile per thread");
-  __shared__ float As[RK][TM + 1];
-  __shared__ float Bs[RK][TN + 1];
-  __shared__ int m_off[TM];   // cs * Hs * Ws, or -1 past M
-  __shared__ int m_dh[TM];    // kh - pad
-  __shared__ int m_dw[TM];    // kw - pad
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * TM, n0 = blockIdx.y * TN;
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// K-major operand in 128-byte-swizzled rows of 128 bytes: 8-row atoms of
+// 1,024 bytes (stride byte offset 64 x 16 B); the leading offset is unused.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// m64 x N x k8 (tf32) and m64 x N x k16 (bf16) products, A from registers
+// (4 x 32 bits a thread), B by descriptor, D += A * B in fp32.
+template <int N> struct Wgmma;
+
+template <> struct Wgmma<8> {
+  static __device__ __forceinline__ void tf32(float (&d)[4], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void bf16(float (&d)[4], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <> struct Wgmma<32> {
+  static __device__ __forceinline__ void tf32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void bf16(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void tf32(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void bf16(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <> struct Wgmma<128> {
+  static __device__ __forceinline__ void tf32(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void bf16(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+// Where element (row, k) of a staged S tile lives, in 32-bit words: rows of
+// RK words, columns XOR-swizzled by the row so that a warp's stores (one row,
+// 32 columns) and its fragment loads (8 rows x 4 columns) hit 32 banks.
+template <typename T>
+__device__ __forceinline__ int a_slot(int row, int k) {
+  if constexpr (std::is_same<T, float>::value) {
+    return row * 32 + (k ^ ((row & 7) << 2));
+  } else {
+    const int g = row & 7;
+    return row * 64 + (k ^ ((g & 1) | ((g >> 1) << 3)));
+  }
+}
+
+// grid (ceil(M / MT), ceil(N / NT), splits), MT * 2 threads (one warpgroup
+// per 64 rows of D); writes out[split][n][m].
+template <typename T, int MT, int NT>
+__global__ void __launch_bounds__(MT * 2, 1)
+dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ out,
+         const __grid_constant__ CUtensorMap umap, Geometry g) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kThreads = MT * 2;
+  constexpr int RK = kRowBytes / static_cast<int>(sizeof(T));
+  constexpr int kBStage = NT * kRowBytes;
+  constexpr int kAStage = MT * RK;  // 32-bit words
+  constexpr int kMaskWords = kF32 ? 0 : RK / 32;
+  constexpr int kKSteps = 4;        // RK / 8 (tf32) or RK / 16 (bf16)
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* b_ring = base;
+  uint8_t* b_lo = b_ring + kStages * kBStage;  // fp32: two lo buffers, by stage parity
+  uint32_t* a_ring = reinterpret_cast<uint32_t*>(b_lo + (kF32 ? 2 * kBStage : 0));
+  uint32_t* masks = a_ring + kStages * kAStage;
+  int* m_off = reinterpret_cast<int*>(masks + kStages * MT * kMaskWords);
+  int* m_dh = m_off + MT;
+  int* m_dw = m_dh + MT;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(m_dw + MT);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.x * MT, n0 = blockIdx.y * NT;
   const int kk = g.K * g.K, hws = g.Hs * g.Ws, phw = g.PH * g.PW;
-  for (int i = tid; i < TM; i += kThreads) {
+  for (int i = tid; i < MT; i += kThreads) {
     const int m = m0 + i;
     if (m < g.M) {
       const int cs = m / kk, t = m - cs * kk, kh = t / g.K;
@@ -78,72 +351,173 @@ dw_kernel(const T* __restrict__ S, const T* __restrict__ U,
       m_dw[i] = 0;
     }
   }
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  const int tx = tid % (TN / MN), ty = tid / (TN / MN);
-  float acc[MM][MN];
-#pragma unroll
-  for (int i = 0; i < MM; ++i)
-#pragma unroll
-    for (int j = 0; j < MN; ++j) acc[i][j] = 0.f;
+  const int t_lo = blockIdx.z * g.chunk;
+  const int ntiles = min(g.tiles, t_lo + g.chunk) - t_lo;
 
-  const int r_lo = blockIdx.z * g.chunk;
-  const int r_hi = min(g.R, r_lo + g.chunk);
-  const int rl = tid % RK;  // this thread's row of every staged chunk
-  for (int r0 = r_lo; r0 < r_hi; r0 += RK) {
-    const int r = r0 + rl;
-    const bool live = r < r_hi;
-    int b = 0, ph = 0, pw = 0;
-    if (live) {
-      b = r / phw;
-      const int rem = r - b * phw;
-      ph = rem / g.PW;
-      pw = rem - ph * g.PW;
-    }
-    const long long s_base = (long long)b * g.Cs * hws;
-    for (int e = tid; e < RK * TM; e += kThreads) {
-      const int i = e / RK;  // e % RK == rl
-      float v = 0.f;
-      const int off = m_off[i];
-      if (live && off >= 0) {
-        const int h = ph * g.stride + m_dh[i];
-        const int w = pw * g.stride + m_dw[i];
-        if (h >= 0 && h < g.Hs && w >= 0 && w < g.Ws)
-          v = to_float(S[s_base + off + h * g.Ws + w]);
+  // Stage reduction tile t (RK positions of one image) into ring slot s.
+  auto load = [&](int t, int s) {
+    const int b = t / g.tiles_per_image;
+    const int pos0 = (t - b * g.tiles_per_image) * RK;
+    uint8_t* bdst = b_ring + s * kBStage;
+    if (g.use_tma) {
+      if (tid == 0) {
+        fence_proxy_async();
+        mbar_expect_tx(&bars[s], kBStage);
+        tma_load_3d(bdst, &umap, &bars[s], pos0, n0, b);
       }
-      As[rl][i] = v;
+    } else {
+      for (int e = tid; e < NT * RK; e += kThreads) {
+        const int n = e / RK, j = e - n * RK;
+        T v = T(0.f);
+        if (n0 + n < g.N && pos0 + j < phw) v = U[((long long)b * g.Cu + n0 + n) * phw + pos0 + j];
+        const int jb = j * static_cast<int>(sizeof(T));
+        *reinterpret_cast<T*>(bdst + n * kRowBytes + ((((jb >> 4) ^ (n & 7))) << 4) + (jb & 15)) = v;
+      }
     }
-    const long long u_base = (long long)b * g.Cu * phw + ph * g.PW + pw;
-    for (int e = tid; e < RK * TN; e += kThreads) {
-      const int j = e / RK;
-      const int n = n0 + j;
-      Bs[rl][j] = (live && n < g.N) ? to_float(U[u_base + (long long)n * phw]) : 0.f;
+    uint32_t* adst = a_ring + s * kAStage;
+    const long long s_base = (long long)b * g.Cs * hws;
+#pragma unroll
+    for (int half = 0; half < RK / 32; ++half) {
+      const int j = lane + 32 * half;
+      const int pos = pos0 + j;
+      const bool live = pos < phw;
+      const int ph = live ? pos / g.PW : 0;
+      const int h0 = ph * g.stride, w0 = (pos - ph * g.PW) * g.stride;
+      for (int i = warp; i < MT; i += kThreads / 32) {
+        const int off = m_off[i];
+        const int h = h0 + m_dh[i], w = w0 + m_dw[i];
+        const bool ok = live && off >= 0 && h >= 0 && h < g.Hs && w >= 0 && w < g.Ws;
+        const long long idx = ok ? s_base + off + h * g.Ws + w : 0;
+        if constexpr (kF32) {
+          cp_async4(adst + a_slot<T>(i, j), S + idx, ok ? 4 : 0);
+        } else {
+          const char* word = reinterpret_cast<const char*>(S) + ((idx * 2) & ~3LL);
+          cp_async4(adst + a_slot<T>(i, j), word, ok ? 4 : 0);
+          const uint32_t hi_half = __ballot_sync(0xffffffffu, ok && (idx & 1));
+          if (lane == 0) masks[(s * MT + i) * kMaskWords + half] = hi_half;
+        }
+      }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < RK; ++k) {
-      float a[MM], bv[MN];
-#pragma unroll
-      for (int i = 0; i < MM; ++i) a[i] = As[k][ty + i * (TM / MM)];
-#pragma unroll
-      for (int j = 0; j < MN; ++j) bv[j] = Bs[k][tx + j * (TN / MN)];
-#pragma unroll
-      for (int i = 0; i < MM; ++i)
-#pragma unroll
-        for (int j = 0; j < MN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  };
+
+  for (int i = 0; i < kAhead; ++i) {
+    if (i < ntiles) load(t_lo + i, i);
+    cp_async_commit();
   }
+
+  // acc: the stage on the tensor cores; sum: the block's total, to which
+  // each landed stage is added in fp32 with round-to-nearest (the tensor
+  // core's own accumulation does not round to nearest, and a split adds
+  // up to ~200 stages).
+  float acc[NT / 2], sum[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = sum[i] = 0.f;
+
+  // This thread's fragment rows: warpgroup wg owns rows 64 wg .. 64 wg + 63.
+  const int gq = lane >> 2, tq = lane & 3;
+  const int row0 = (tid >> 7) * 64 + (warp & 3) * 16 + gq;
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int s = kt % kStages;
+    cp_async_wait<kAhead - 1>();
+    if (g.use_tma) mbar_wait(&bars[s], (kt / kStages) & 1);
+    // Stage kt is in place for all threads, and stage kt - 2 has left the
+    // tensor cores (waited for before stage kt - 1 was issued), so its slot
+    // takes tile kt + 2 while stage kt - 1 may still be multiplying.
+    __syncthreads();
+    if (kt + kAhead < ntiles) load(t_lo + kt + kAhead, (kt + kAhead) % kStages);
+    cp_async_commit();
+    uint8_t* bsrc = b_ring + s * kBStage;
+    uint8_t* blo = b_lo + (kt & 1) * kBStage;
+    if constexpr (kF32) {  // U tile -> hi (in place) + lo, once for both warpgroups
+      float4* hi = reinterpret_cast<float4*>(bsrc);
+      float4* lo = reinterpret_cast<float4*>(blo);
+      for (int e = tid; e < kBStage / 16; e += kThreads) {
+        const float4 v = hi[e];
+        const uint32_t hx = tf32_rna(v.x), hy = tf32_rna(v.y), hz = tf32_rna(v.z),
+                       hw = tf32_rna(v.w);
+        hi[e] = make_float4(__uint_as_float(hx), __uint_as_float(hy), __uint_as_float(hz),
+                            __uint_as_float(hw));
+        lo[e] = make_float4(__uint_as_float(tf32_rna(v.x - __uint_as_float(hx))),
+                            __uint_as_float(tf32_rna(v.y - __uint_as_float(hy))),
+                            __uint_as_float(tf32_rna(v.z - __uint_as_float(hz))),
+                            __uint_as_float(tf32_rna(v.w - __uint_as_float(hw))));
+      }
+    }
+    fence_proxy_async();  // generic-proxy writes of B before wgmma reads them
+    __syncthreads();
+
+    wgmma_wait_all();  // stage kt - 1 has landed in acc
+    fence_operands(acc);
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) sum[i] += acc[i];
+
+    const uint32_t* a = a_ring + s * kAStage;
+    const uint64_t desc = sw128_desc(bsrc);
+    if constexpr (kF32) {
+      const uint64_t desc_lo = sw128_desc(blo);
+      uint32_t ahi[kKSteps][4], alo[kKSteps][4];
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {  // (row, k) = (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+          const float x =
+              __uint_as_float(a[a_slot<T>(row0 + 8 * (v & 1), ks * 8 + tq + 4 * (v >> 1))]);
+          ahi[ks][v] = tf32_rna(x);
+          alo[ks][v] = tf32_rna(x - __uint_as_float(ahi[ks][v]));
+        }
+      }
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {  // the small terms first; the first overwrites acc
+        Wgmma<NT>::tf32(acc, alo[ks], desc + 2 * ks, ks > 0);
+        Wgmma<NT>::tf32(acc, ahi[ks], desc_lo + 2 * ks, 1);
+        Wgmma<NT>::tf32(acc, ahi[ks], desc + 2 * ks, 1);
+      }
+    } else {
+      const uint32_t* mk = masks + s * MT * kMaskWords;
+      uint32_t af[kKSteps][4];
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {  // rows g, g+8; k pairs 2t, 2t+1 and 2t+8, 2t+9
+          const int row = row0 + 8 * (v & 1), k = ks * 16 + 2 * tq + 8 * (v >> 1);
+          const uint32_t bits = mk[row * kMaskWords + (k >> 5)] >> (k & 31);
+          const uint32_t w0 = a[a_slot<T>(row, k)], w1 = a[a_slot<T>(row, k + 1)];
+          const uint32_t e0 = (bits & 1) ? (w0 >> 16) : (w0 & 0xffffu);
+          const uint32_t e1 = (bits & 2) ? (w1 >> 16) : (w1 & 0xffffu);
+          af[ks][v] = e0 | (e1 << 16);
+        }
+      }
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) Wgmma<NT>::bf16(acc, af[ks], desc + 2 * ks, ks > 0);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait_all();
+  fence_operands(acc);
+  if (ntiles > 0) {
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) sum[i] += acc[i];
+  }
+  cp_async_wait<0>();
 
   float* dst = out + (long long)blockIdx.z * g.N * g.M;
 #pragma unroll
-  for (int i = 0; i < MM; ++i) {
-    const int m = m0 + ty + i * (TM / MM);
-    if (m >= g.M) continue;
+  for (int j = 0; j < NT / 8; ++j) {
 #pragma unroll
-    for (int j = 0; j < MN; ++j) {
-      const int n = n0 + tx + j * (TN / MN);
-      if (n < g.N) dst[(long long)n * g.M + m] = acc[i][j];
+    for (int v = 0; v < 4; ++v) {
+      const int m = m0 + row0 + 8 * (v >> 1), n = n0 + 8 * j + 2 * tq + (v & 1);
+      if (m < g.M && n < g.N) dst[(long long)n * g.M + m] = sum[4 * j + v];
     }
   }
 }
@@ -160,49 +534,108 @@ __global__ void dw_finish(const float* __restrict__ partial,
   }
 }
 
-template <int TM, int TN, int MM, int MN, typename T>
-cudaError_t launch(const void* S, const void* U, float* dst, const Geometry& g,
-                   int splits, cudaStream_t st) {
-  dim3 grid((g.M + TM - 1) / TM, (g.N + TN - 1) / TN, splits);
-  dw_kernel<TM, TN, MM, MN, T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(S), static_cast<const T*>(U), dst, g);
-  return cudaGetLastError();
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+constexpr int kEncodeFailed = 1000;  // returned when the TMA map cannot be made
+
+template <typename T, int MT, int NT>
+int launch(const void* S, const void* U, float* dst, const Geometry& g, int splits,
+           cudaStream_t st) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int RK = kRowBytes / static_cast<int>(sizeof(T));
+  constexpr int kBytes = 1024  // alignment slack
+      + kStages * NT * kRowBytes + (kF32 ? 2 * NT * kRowBytes : 0)  // U ring, lo
+      + kStages * MT * RK * 4                                    // S ring
+      + (kF32 ? 0 : kStages * MT * (RK / 32) * 4)                // half masks
+      + 3 * MT * 4 + kStages * 8;                                // row table, barriers
+  static_assert(kBytes <= 232448, "shared memory of one block");
+  auto kernel = dw_wgmma<T, MT, NT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map = {};
+  if (g.use_tma) {
+    EncodeTiled encode = encode_tiled();
+    const cuuint64_t phw = (cuuint64_t)g.PH * g.PW;
+    const cuuint64_t dims[3] = {phw, (cuuint64_t)g.Cu, (cuuint64_t)g.B};
+    const cuuint64_t strides[2] = {phw * sizeof(T), phw * g.Cu * sizeof(T)};
+    const cuuint32_t box[3] = {(cuuint32_t)RK, (cuuint32_t)NT, 1};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    if (encode == nullptr ||
+        encode(&map, kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+               3, const_cast<void*>(U), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return kEncodeFailed;
+  }
+  dim3 grid((g.M + MT - 1) / MT, (g.N + NT - 1) / NT, splits);
+  kernel<<<grid, MT * 2, kBytes, st>>>(static_cast<const T*>(S), static_cast<const T*>(U), dst,
+                                       map, g);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int tile, const void* S, const void* U, float* dst,
-                     const Geometry& g, int splits, cudaStream_t st) {
-  switch (tile) {
-    case 0: return launch<64, 64, 4, 4, T>(S, U, dst, g, splits, st);
-    case 1: return launch<64, 32, 4, 2, T>(S, U, dst, g, splits, st);
-    case 2: return launch<256, 4, 4, 1, T>(S, U, dst, g, splits, st);
-    default: return cudaErrorInvalidValue;
+int dispatch(int mt, int nt, const void* S, const void* U, float* dst, const Geometry& g,
+             int splits, cudaStream_t st) {
+  if (mt == 64) {
+    switch (nt) {
+      case 8: return launch<T, 64, 8>(S, U, dst, g, splits, st);
+      case 32: return launch<T, 64, 32>(S, U, dst, g, splits, st);
+      case 64: return launch<T, 64, 64>(S, U, dst, g, splits, st);
+      case 128: return launch<T, 64, 128>(S, U, dst, g, splits, st);
+    }
+  } else if (mt == 128 && nt == 128) {
+    return launch<T, 128, 128>(S, U, dst, g, splits, st);
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. tile: 0 (64 x 64), 1 (64 x 32), 2 (256 x 4),
-// the TM x TN tile of D, picked by the wrapper from N. With splits > 1,
-// partial is scratch of splits * N * M floats; with splits == 1 the blocks
-// write out directly and partial is unused. out is [Cu, Cs, K, K] float32.
-extern "C" int tap_matmul(const void* S, const void* U, float* partial,
-                          float* out, int dtype, int tile, int B, int Cs, int Hs,
-                          int Ws, int Cu, int PH, int PW, int K, int stride,
-                          int pad, int splits, int chunk, void* stream) {
+// dtype: 0 float32, 1 bfloat16. mt x nt: the tile of D one block owns (64 x
+// 8, 32, 64 or 128, or 128 x 128), picked by the wrapper (ops/dw.py::plan).
+// The reduction is `tiles_per_image` tiles of RK positions per image, `chunk`
+// tiles per split. With splits > 1, partial is scratch of splits * N * M
+// floats; with splits == 1 the blocks write out directly. out is
+// [Cu, Cs, K, K] float32. Returns 0, a CUDA error code, or 1000 when the TMA
+// descriptor of U cannot be encoded.
+extern "C" int tap_matmul(const void* S, const void* U, float* partial, float* out, int dtype,
+                          int mt, int nt, int B, int Cs, int Hs, int Ws, int Cu, int PH,
+                          int PW, int K, int stride, int pad, int splits, int chunk,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const int esz = dtype == 0 ? 4 : 2, rk = kRowBytes / esz, phw = PH * PW;
+  const int per_image = (phw + rk - 1) / rk;
+  const int use_tma =
+      (phw * esz) % 16 == 0 && reinterpret_cast<uintptr_t>(U) % 16 == 0 ? 1 : 0;
   Geometry g{B, Cs, Hs, Ws, Cu, PH, PW, K, stride, pad,
-             Cs * K * K, Cu, B * PH * PW, chunk};
+             Cs * K * K, Cu, per_image, B * per_image, chunk, use_tma};
   float* dst = splits > 1 ? partial : out;
-  cudaError_t err;
-  if (dtype == 0) {
-    err = dispatch<float>(tile, S, U, dst, g, splits, st);
-  } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(tile, S, U, dst, g, splits, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess || splits == 1) return (int)err;
+  const int err = dtype == 0 ? dispatch<float>(mt, nt, S, U, dst, g, splits, st)
+                             : dispatch<__nv_bfloat16>(mt, nt, S, U, dst, g, splits, st);
+  if (err != 0 || splits == 1) return err;
   const long long count = (long long)g.N * g.M;
   const int blocks = (int)min((count + 255) / 256, 4096LL);
   dw_finish<<<blocks, 256, 0, st>>>(partial, out, count, splits);

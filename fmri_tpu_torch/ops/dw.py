@@ -27,10 +27,16 @@ import torch
 import torch.nn.functional as F
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-RK = 32               # reduction rows staged per step (csrc/dw.cu)
-TILES = ((64, 64), (64, 32), (256, 4))  # TM x TN of tile ids 0, 1, 2
-TARGET_BLOCKS = 528   # 4 blocks of 256 threads per SM on 132 SMs
-MIN_ROWS = 1024       # reduction rows per split, at least
+ROW_BYTES = 128       # one staged reduction run: 32 fp32 or 64 bf16 (csrc/dw.cu)
+TILE_N = (8, 32, 64, 128)  # N extents of the wgmma tiles
+STAGES = 4            # shared-memory ring depth (csrc/dw.cu kStages)
+SMS = 132             # streaming multiprocessors of an H100 SXM
+SMEM_PER_SM = 233472  # bytes of shared memory an SM holds
+REGS_PER_SM = 65536
+REGS_PER_THREAD = 168  # the widest dw_wgmma instance, from ptxas
+MIN_TILES = 8         # reduction tiles per split, at least
+SETUP_TILES = 4       # a block's fixed cost (prologue, epilogue) in tiles
+MAX_SPLITS = 512
 
 
 def _out_size(n: int, k: int, stride: int, padding: int) -> int:
@@ -104,23 +110,56 @@ def _lib():
     lib = build.load("dw")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tap_matmul.restype = i
-    lib.tap_matmul.argtypes = [p] * 4 + [i] * 14 + [p]
+    lib.tap_matmul.argtypes = [p] * 4 + [i] * 15 + [p]
     return lib
 
 
-def plan(m: int, n: int, r: int) -> tuple[int, int, int]:
-    """(tile id, splits, reduction rows per split) for D = [n, m] summed over
-    r rows: the narrowest tile that covers n, and enough splits of r to fill
-    the card with blocks of at least ``MIN_ROWS`` rows."""
+def rows_per_tile(dtype: torch.dtype) -> int:
+    """Reduction positions per staged tile: 128 bytes of one run."""
+    return ROW_BYTES // (4 if dtype == torch.float32 else 2)
+
+
+def smem_bytes(mt: int, nt: int, esz: int = 4) -> int:
+    """Dynamic shared memory of one block of ``csrc/dw.cu::dw_wgmma``, as its
+    ``launch`` computes it: alignment slack, the U ring (and for fp32 two lo
+    buffers), the S ring of 32-bit words, bf16 half masks, the row table and
+    the barriers."""
+    rk = ROW_BYTES // esz
+    return (1024 + STAGES * nt * ROW_BYTES + (2 * nt * ROW_BYTES if esz == 4 else 0)
+            + STAGES * mt * rk * 4 + (0 if esz == 4 else STAGES * mt * (rk // 32) * 4)
+            + 3 * mt * 4 + STAGES * 8)
+
+
+def resident_blocks(mt: int, nt: int) -> int:
+    """Blocks of one tile shape that fit on an SM at once (fp32 operands):
+    by shared memory (228 KB, 1 KB of it reserved per block) and by
+    registers (65,536; about 168 a thread)."""
+    return max(1, min(SMEM_PER_SM // (smem_bytes(mt, nt) + 1024),
+                      REGS_PER_SM // (2 * mt * REGS_PER_THREAD)))
+
+
+def plan(m: int, n: int, tiles: int) -> tuple[int, int, int, int]:
+    """(mt, nt, splits, chunk) for D = [n, m] summed over ``tiles`` reduction
+    tiles: the narrowest wgmma N extent that covers n (128 for wider n, in
+    several tiles); two warpgroups (mt = 128) at that width, one
+    otherwise; and the split of the tiles that minimises a model of the run
+    time, waves of blocks on the card (``resident_blocks`` per SM) times the
+    tiles of one block plus its fixed cost. Each split holds ``chunk``
+    consecutive tiles, the last fewer."""
     def cdiv(a, b):
         return -(-a // b)
 
-    tile = 2 if n <= 4 else 1 if n <= 32 else 0
-    tm, tn = TILES[tile]
-    splits = max(1, min(cdiv(TARGET_BLOCKS, cdiv(m, tm) * cdiv(n, tn)),
-                        cdiv(r, MIN_ROWS)))
-    chunk = cdiv(cdiv(r, splits), RK) * RK
-    return tile, cdiv(r, chunk), chunk
+    nt = next((t for t in TILE_N if n <= t), TILE_N[-1])
+    mt = 128 if nt == 128 and m > 64 else 64
+    blocks = cdiv(m, mt) * cdiv(n, nt)
+    resident = SMS * resident_blocks(mt, nt)
+    best = None
+    for s in range(1, max(1, min(MAX_SPLITS, tiles // MIN_TILES)) + 1):
+        cost = cdiv(blocks * s, resident) * (cdiv(tiles, s) + SETUP_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    chunk = cdiv(tiles, best[1])
+    return mt, nt, cdiv(tiles, chunk), chunk
 
 
 def tap_matmul(shifted: torch.Tensor, direct: torch.Tensor, k: int, stride: int,
@@ -134,21 +173,22 @@ def tap_matmul(shifted: torch.Tensor, direct: torch.Tensor, k: int, stride: int,
                          "conv2d_dw / conv2d_transpose_dw")
     b, cs, hs, ws = shifted.shape
     _, cu, ph, pw = direct.shape
-    m, r = cs * k * k, b * ph * pw
+    m, rk = cs * k * k, rows_per_tile(shifted.dtype)
     out = torch.empty((cu, cs, k, k), dtype=torch.float32, device=shifted.device)
-    if out.numel() == 0 or r == 0:
+    if out.numel() == 0 or b * ph * pw == 0:
         return out.zero_()
-    tile, splits, chunk = plan(m, cu, r)
+    mt, nt, splits, chunk = plan(m, cu, b * -(-(ph * pw) // rk))
     partial = (torch.empty((splits, cu, m), dtype=torch.float32,
                            device=shifted.device) if splits > 1 else out)
     with torch.cuda.device(shifted.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().tap_matmul(shifted.data_ptr(), direct.data_ptr(),
                                partial.data_ptr(), out.data_ptr(),
-                               KERNEL_DTYPES[shifted.dtype], tile, b, cs, hs, ws,
+                               KERNEL_DTYPES[shifted.dtype], mt, nt, b, cs, hs, ws,
                                cu, ph, pw, k, stride, pad, splits, chunk, stream)
     if rc != 0:
-        raise RuntimeError(f"tap_matmul launch failed with CUDA error {rc} "
+        raise RuntimeError(f"tap_matmul launch failed with code {rc} (a CUDA "
+                           f"error, or 1000: no TMA descriptor for the direct operand) "
                            f"(shifted {tuple(shifted.shape)}, direct "
                            f"{tuple(direct.shape)}, k {k}, stride {stride})")
     tap_matmul.launches += 1

@@ -23,12 +23,11 @@ back to z and through the encoder with the KL term. By linearity this gives
 the naive gradients (``backward='naive'``: one forward and three full
 pullbacks, kept for the equivalence test) with fewer segment traversals.
 
-A custom ``autograd.Function``'s ``needs_input_grad`` is fixed when the
-forward runs, so with ``pallas_backward`` the B-basis pullback through the
-discriminator and the z pullback through the decoder also compute the
-weight grads of the convs they cross, and autograd discards them (XLA's DCE
-prunes that work in the JAX step). Those launches are counted like any
-other.
+With ``pallas_backward`` each conv's weight grad is its own autograd node
+(``ops/conv.py::_WeightGrad``), so the B-basis pullback through the
+discriminator and the z pullback through the decoder, which ask for no
+weight, launch no weight grad, as XLA's DCE prunes that work in the JAX
+step: one launch per conv/deconv weight use, 15 per res64 step.
 
 Noise comes from the caller: ``train_step(state, x, eps, z_p, margin,
 equilibrium, lambda_mse)`` takes eps and z_p as tensors, so tests inject the

@@ -125,15 +125,19 @@ def test_bn_kernels_match_plain(cuda_device, shape, dtype):
 
 DW_CASES = [("conv", 192, 3, 64, 32, 1), ("conv", 64, 64, 32, 128, 2),
             ("conv", 64, 64, 64, 3, 1), ("deconv", 64, 256, 8, 256, 2),
-            ("deconv", 64, 128, 32, 64, 2), ("conv", 3, 5, 9, 7, 2)]
+            ("deconv", 64, 128, 32, 64, 2), ("conv", 3, 5, 9, 7, 2),
+            ("conv", 192, 128, 32, 256, 2), ("conv", 192, 256, 16, 256, 2)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind,b,ci,h,co,stride", DW_CASES)
 def test_dw_kernel_matches_plain(cuda_device, kind, b, ci, h, co, stride, dtype):
-    """The weight-grad kernel at res64 step shapes: within 1e-4 of the plain
-    version's largest magnitude (fp32 and bf16 operands both multiply
-    exactly in fp32 and sum in fp32), and the same bits from run to run."""
+    """The weight-grad kernel at res64 step shapes (the last two: the
+    discriminator's 128->256 and 256->256 stride-2 convs at batch 192) and
+    one ragged shape (PH*PW = 25: no TMA box, the plain-load path): within
+    1e-4 of the plain version's largest magnitude (fp32 operands as
+    3xTF32, bf16 operands exact in fp32, sums in fp32), and the same bits
+    from run to run."""
     g = torch.Generator(device=cuda_device).manual_seed(b + ci + h + co)
     x = torch.randn((b, ci, h, h), generator=g, device=cuda_device).to(dtype)
     if kind == "conv":
@@ -224,3 +228,33 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
         for k, ref in cpu.opt_state[g].items():
             got = card.opt_state[g][k].cpu()
             assert float((got - ref).norm()) <= 1e-3 * float(ref.norm()), (g, k)
+
+
+def test_res64_step_launches_the_weight_grad_15_times(cuda_device):
+    """One res64 stage-I step with both kernel flags on launches
+    ``tap_matmul`` once per conv/deconv weight use the step updates:
+    encoder 3, decoder 4 in each of its two passes, discriminator 4. The
+    pullbacks to x_tilde, x_p and z alone launch none. Batch 8: the count
+    does not depend on it."""
+    import dataclasses
+
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups
+    from fmri_tpu_torch.train.optim import RmsProp
+    from fmri_tpu_torch.train.state import GROUPS, VaeGan, make_state
+    from fmri_tpu_torch.train.steps_vgan import make_vgan_stage1_step
+
+    cfg = get_config("res64")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, pallas_bn=True, pallas_backward=True))
+    nets = VaeGan(cfg)
+    nets.load_state_dict(from_jax_groups(random_groups(cfg, 0, "vae-gan"), cfg,
+                                         "vae-gan"), strict=True)
+    state = make_state(nets.to(cuda_device), {g: RmsProp() for g in GROUPS})
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.rand((8, 64, 64, 3), generator=g, device=cuda_device) * 2 - 1
+    eps, z_p = (torch.randn((8, cfg.model.latent_dim), generator=g, device=cuda_device)
+                for _ in range(2))
+    before = port_dw.tap_matmul.launches
+    make_vgan_stage1_step(cfg).train_step(state, x, eps, z_p, 0.35, 0.68, 1e-6)
+    torch.cuda.synchronize()
+    assert port_dw.tap_matmul.launches - before == 15

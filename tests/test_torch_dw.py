@@ -138,41 +138,55 @@ def test_out_of_scope_geometry_takes_the_stock_backward():
     assert "DW" not in type(y.grad_fn).__name__  # deconv: k5/p2/s2 only
 
 
-def _emulate_kernel(shifted, direct, k, stride, pad):
-    """csrc/dw.cu's arithmetic in numpy: the wrapper's plan (tile, splits,
-    chunk), each split's rows r = (b, ph, pw) and columns m = (cs, kh, kw)
-    decoded and bounds-checked as the kernel does, partial tiles per split,
-    and the second pass's sum over splits."""
+def _emulate_kernel(shifted, direct, k, stride, pad, rk=32):
+    """csrc/dw.cu's indexing in numpy (float64): the wrapper's plan (mt, nt,
+    splits, chunk); the reduction in tiles of ``rk`` positions of one image,
+    zero past PH*PW (TMA's out-of-bounds fill for U, the gather's zero fill
+    for S); m padded to whole mt tiles (row offset -1, zero) and n to whole nt
+    tiles (past Cu, zero); S gathered by each tile row's decoded (b, ph, pw)
+    and each m row's (channel, tap) offsets with the bounds checks; one
+    partial [n_pad, m_pad] per split, and the second pass's sum over splits in
+    split order."""
     b, cs, hs, ws = shifted.shape
     _, cu, ph_n, pw_n = direct.shape
-    m_n, r_n = cs * k * k, b * ph_n * pw_n
-    _, splits, chunk = dw.plan(m_n, cu, r_n)
-    s_flat, u_flat = shifted.reshape(-1), direct.reshape(-1)
-    m = np.arange(m_n)
+    m_n, phw = cs * k * k, ph_n * pw_n
+    per_image = -(-phw // rk)
+    mt, nt, splits, chunk = dw.plan(m_n, cu, b * per_image)
+    m_pad, n_pad = -(-m_n // mt) * mt, -(-cu // nt) * nt
+    s_flat = shifted.reshape(-1)
+    m = np.arange(m_pad)
     c_s, t = m // (k * k), m % (k * k)
+    m_off = np.where(m < m_n, c_s * hs * ws, -1)
     dh, dwv = t // k - pad, t % k - pad
-    out = np.zeros((cu, m_n))
+    u_pad = np.zeros((b, n_pad, per_image * rk))
+    u_pad[:, :cu, :phw] = direct.reshape(b, cu, phw)
+    partial = np.zeros((splits, n_pad, m_pad))
     for z in range(splits):
-        r = np.arange(z * chunk, min(r_n, (z + 1) * chunk))
-        bb, rem = r // (ph_n * pw_n), r % (ph_n * pw_n)
-        ph, pw = rem // pw_n, rem % pw_n
-        h = ph[:, None] * stride + dh[None]
-        w = pw[:, None] * stride + dwv[None]
-        ok = (h >= 0) & (h < hs) & (w >= 0) & (w < ws)
-        at = (bb * cs * hs * ws)[:, None] + (c_s * hs * ws)[None] + h * ws + w
-        a = np.where(ok, s_flat[np.where(ok, at, 0)], 0.0)
-        u = u_flat[(bb * cu * ph_n * pw_n + ph * pw_n + pw)[:, None]
-                   + np.arange(cu)[None] * ph_n * pw_n]
-        out += u.T @ a
-    return out.reshape(cu, cs, k, k)
+        for tile in range(z * chunk, min(b * per_image, (z + 1) * chunk)):
+            bb, pos0 = tile // per_image, (tile % per_image) * rk
+            pos = pos0 + np.arange(rk)
+            live = pos < phw
+            ph = np.where(live, pos // pw_n, 0)
+            h = (ph * stride)[:, None] + dh[None]
+            w = ((pos - ph * pw_n) * stride)[:, None] + dwv[None]
+            ok = (live[:, None] & (m_off >= 0)[None] & (h >= 0) & (h < hs)
+                  & (w >= 0) & (w < ws))
+            at = bb * cs * hs * ws + m_off[None] + h * ws + w
+            a = np.where(ok, s_flat[np.where(ok, at, 0)], 0.0)      # [rk, m_pad]
+            partial[z] += u_pad[bb, :, pos0:pos0 + rk] @ a          # [n_pad, m_pad]
+    out = partial[0]
+    for z in range(1, splits):
+        out = out + partial[z]
+    return out[:cu, :m_n].reshape(cu, cs, k, k)
 
 
 @pytest.mark.parametrize("kind,b,ci,h,co,stride", [
     ("conv", 4, 3, 64, 32, 1), ("conv", 2, 16, 16, 8, 2), ("conv", 2, 8, 8, 3, 1),
-    ("deconv", 2, 16, 8, 8, 2), ("deconv", 2, 4, 5, 3, 2)])
+    ("deconv", 2, 16, 8, 8, 2), ("deconv", 2, 4, 5, 3, 2), ("conv", 3, 5, 9, 7, 2)])
 def test_kernel_index_arithmetic_emulated(kind, b, ci, h, co, stride):
-    """The CUDA kernel cannot run here; its indexing and split plan,
-    emulated, give the plain weight grad (float64: atol 1e-9)."""
+    """The CUDA kernel cannot run here; its indexing, padding and split
+    plan, emulated in float64, give the plain weight grad (which sums in
+    fp32: rtol 1e-5, atol 1e-4)."""
     rng = np.random.default_rng(b + ci + h + co)
     x = rng.normal(size=(b, ci, h, h))
     if kind == "conv":
@@ -186,21 +200,208 @@ def test_kernel_index_arithmetic_emulated(kind, b, ci, h, co, stride):
         dy = rng.normal(size=(b, co, oh, oh))
         ref = dw.conv2d_transpose_dw_plain(torch.from_numpy(x), torch.from_numpy(dy),
                                            2, 2, 1, 5)
-        got = _emulate_kernel(dy, x, 5, 2, 2)
+        got = _emulate_kernel(dy, x, 5, 2, 2, rk=64)  # bf16 tiles: 64 positions
     np.testing.assert_allclose(got, ref.double().numpy(), rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("m,n,r", [(75, 32, 786432), (3200, 256, 4096),
-                                   (1600, 3, 262144), (6400, 256, 4096), (25, 1, 3)])
-def test_plan_covers_the_reduction(m, n, r):
-    tile, splits, chunk = dw.plan(m, n, r)
-    tm, tn = dw.TILES[tile]
-    assert n <= tn or tile == 0
-    assert chunk % dw.RK == 0 and (splits - 1) * chunk < r <= splits * chunk
-    tiles = -(-m // tm) * -(-n // tn)
-    # enough blocks to fill the card, or every split at least MIN_ROWS long
-    assert tiles * splits >= min(dw.TARGET_BLOCKS // 2, tiles * -(-r // dw.MIN_ROWS))
-    assert splits == 1 or chunk >= dw.MIN_ROWS
+# (m, n, tiles) of the 11 distinct fp32 calls of the res64 step, and edges
+STEP_PLANS = [(75, 64, 2048), (1600, 128, 512), (3200, 256, 128), (6400, 256, 128),
+              (3200, 256, 512), (800, 128, 2048), (800, 3, 8192), (75, 32, 24576),
+              (800, 128, 6144), (3200, 256, 1536), (6400, 256, 384), (25, 1, 1),
+              (175, 7, 3)]
+
+
+@pytest.mark.parametrize("m,n,tiles", STEP_PLANS)
+def test_plan_covers_the_reduction(m, n, tiles):
+    """Every tile in exactly one split; the narrowest N extent that covers
+    n (three output channels: a 64 x 8 tile); splits at least MIN_TILES
+    long; and at least 95% of a wave of blocks on the card wherever the
+    reduction is long enough to split that far."""
+    mt, nt, splits, chunk = dw.plan(m, n, tiles)
+    assert nt == next((t for t in dw.TILE_N if n <= t), 128) and mt in (64, 128)
+    assert (splits - 1) * chunk < tiles <= splits * chunk
+    assert splits == 1 or chunk >= dw.MIN_TILES
+    blocks = -(-m // mt) * -(-n // nt)
+    assert blocks * splits >= min(0.95 * dw.SMS, blocks * (tiles // dw.MIN_TILES))
+    if n == 3:
+        assert (mt, nt) == (64, 8)
+
+
+def _tf32(a):
+    """cvt.rna.tf32.f32: fp32 to the nearest value with 10 mantissa bits,
+    ties away from zero (the 13 dropped bits rounded on the magnitude)."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)
+    x = np.array([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -11 - 2 ** -23,
+                  1 + 2 ** -12, 3.0], np.float32)
+    np.testing.assert_array_equal(_tf32(x), [one + ulp, -(one + ulp), one, one, 3.0])
+
+
+def _split3_dot(a, b, splits, chunk, rk=32):
+    """D[m, n] = sum_r a[r, m] b[r, n] as csrc/dw.cu computes it from fp32
+    operands: hi = tf32(x), lo = tf32(x - hi) for both; per tile of rk
+    rows the exact sum of lo_a hi_b + hi_a lo_b + hi_a hi_b (products of
+    11-bit mantissas are exact in float64, and the tensor core adds a tile
+    at a time), added into an fp32 accumulator tile by tile in each split,
+    then the fp32 sum of the splits in order."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    t = a.shape[0] // rk
+
+    def tiles(x, y):
+        return np.einsum("trm,trn->tmn", x.astype(np.float64).reshape(t, rk, -1),
+                         y.astype(np.float64).reshape(t, rk, -1))
+
+    per_tile = tiles(al, bh) + tiles(ah, bl) + tiles(ah, bh)
+    acc = np.zeros((splits,) + per_tile.shape[1:], np.float32)
+    for i in range(chunk):
+        idx = np.arange(splits) * chunk + i
+        live = idx < t
+        acc[live] += per_tile[idx[live]].astype(np.float32)
+    out = acc[0].copy()
+    for z in range(1, splits):
+        out += acc[z]
+    return out
+
+
+def test_split_tf32_arithmetic_holds_the_fp32_bound():
+    """At the step's longest reduction (the discriminator's first conv: S
+    [192, 3, 64, 64], U [192, 32, 64, 64], 786,432 rows), the kernel's
+    3xTF32 arithmetic, emulated, stays within 1e-5 of the largest magnitude
+    of the float64 result; one TF32 pass would not. A slice of the call:
+    one input channel's five centre-row taps against four output channels
+    (each output is its own sum over the full reduction)."""
+    rng = np.random.default_rng(0)
+    b, hw = 192, 64
+    x = rng.uniform(-1, 1, (b, hw + 4, hw + 4)).astype(np.float32)
+    x[:, :2], x[:, -2:], x[:, :, :2], x[:, :, -2:] = 0, 0, 0, 0  # the zero padding
+    a = np.stack([x[:, 2:2 + hw, kw:kw + hw].reshape(-1) for kw in range(5)], 1)
+    u = rng.normal(size=(b * hw * hw, 4)).astype(np.float32)
+    _, _, splits, chunk = dw.plan(75, 32, b * hw * hw // 32)
+    exact = a.astype(np.float64).T @ u.astype(np.float64)
+    scale = np.abs(exact).max()
+    got = _split3_dot(a, u, splits, chunk)
+    assert np.abs(got - exact).max() <= 1e-5 * scale
+    one_pass = _tf32(a).astype(np.float64).T @ _tf32(u).astype(np.float64)
+    assert np.abs(one_pass - exact).max() > 1e-5 * scale
+
+
+def _a_slot(row, k, dtype):
+    """csrc/dw.cu::a_slot: the 32-bit word of element (row, k) of a staged S
+    tile."""
+    g = row & 7
+    if dtype == "float32":
+        return row * 32 + (k ^ (g << 2))
+    return row * 64 + (k ^ ((g & 1) | ((g >> 1) << 3)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_staged_tile_layout_is_free_of_bank_conflicts(dtype):
+    """Each row's RK elements fill its RK words; a gather store (one row, 32
+    lanes on 32 consecutive k) and every fragment load of a k step (lanes
+    (g, t) on rows g or g + 8 and their k) touch 32 distinct banks."""
+    rk, kstep = (32, 8) if dtype == "float32" else (64, 16)
+    lanes = np.arange(32)
+    g, t = lanes >> 2, lanes & 3
+    for row in range(128):
+        slots = [_a_slot(row, k, dtype) for k in range(rk)]
+        assert sorted(slots) == list(range(row * rk, (row + 1) * rk))
+        for k0 in range(0, rk, 32):
+            assert len({_a_slot(row, k0 + j, dtype) % 32 for j in lanes}) == 32
+    for wl in range(8):  # 16-row warp slices of two warpgroups
+        for ks in range(rk // kstep):
+            for v in range(4):
+                rows = wl * 16 + g + 8 * (v & 1)
+                if dtype == "float32":
+                    ks_k = [ks * 8 + t + 4 * (v >> 1)]
+                else:
+                    base = ks * 16 + 2 * t + 8 * (v >> 1)
+                    ks_k = [base, base + 1]
+                for k in ks_k:
+                    banks = {_a_slot(r, kk, dtype) % 32 for r, kk in zip(rows, k)}
+                    assert len(banks) == 32
+
+
+def _count_dw_calls(monkeypatch):
+    calls = []
+    for name in ("conv2d_dw", "conv2d_transpose_dw"):
+        orig = getattr(dw, name)
+
+        def counted(*args, _orig=orig, _name=name):
+            calls.append(_name)
+            return _orig(*args)
+
+        monkeypatch.setattr(dw, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("kind", ["conv", "deconv"])
+def test_weight_grad_runs_only_when_asked(kind, monkeypatch):
+    """The weight grad is its own autograd node: a pullback to the input
+    alone makes no weight-grad call, one to (input, weight) makes one, and
+    both gradients equal stock autograd's (dx bit for bit)."""
+    calls = _count_dw_calls(monkeypatch)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(2, 6, 8, 8)).astype(np.float32))
+    if kind == "conv":
+        w = torch.from_numpy(0.1 * rng.normal(size=(4, 6, 5, 5)).astype(np.float32))
+        fwd = lambda a, b: conv.conv2d(a, b, 2, 2, None, True)  # noqa: E731
+        ref_fn = lambda a, b: F.conv2d(a, b, stride=2, padding=2)  # noqa: E731
+    else:
+        w = torch.from_numpy(0.1 * rng.normal(size=(6, 4, 5, 5)).astype(np.float32))
+        fwd = lambda a, b: conv.conv2d_transpose(a, b, 2, 2, 1, None, True)  # noqa: E731
+        ref_fn = lambda a, b: F.conv_transpose2d(  # noqa: E731
+            a, b, stride=2, padding=2, output_padding=1)
+    x.requires_grad_()
+    w.requires_grad_()
+    y, ref = fwd(x, w), ref_fn(x, w)
+    dy = torch.from_numpy(rng.normal(size=tuple(y.shape)).astype(np.float32))
+    dx, = torch.autograd.grad(y, [x], dy, retain_graph=True)
+    assert calls == []
+    dx2, dw_ = torch.autograd.grad(y, [x, w], dy)
+    assert len(calls) == 1
+    rx, rw = torch.autograd.grad(ref, [x, w], dy)
+    assert torch.equal(dx, rx) and torch.equal(dx2, rx)
+    np.testing.assert_allclose(dw_.numpy(), rw.numpy(), rtol=2e-5, atol=2e-4)
+
+
+def test_spliced_step_makes_one_weight_grad_per_conv_use(monkeypatch):
+    """One spliced ``tiny`` step with ``pallas_backward``: as many weight-grad
+    calls as the step has conv/deconv weight uses to update (encoder 3,
+    decoder 4 in each of its two passes, discriminator 4: 15); the
+    feature-basis pullback through the discriminator and the z pullback
+    through the decoder make none."""
+    import dataclasses
+
+    from fmri_tpu_torch.configs import presets
+    from fmri_tpu_torch.train.optim import RmsProp
+    from fmri_tpu_torch.train.state import GROUPS, VaeGan, make_state
+    from fmri_tpu_torch.train.steps_vgan import make_vgan_stage1_step
+
+    cfg = presets.get_config("tiny")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                             pallas_backward=True))
+    torch.manual_seed(0)
+    nets = VaeGan(cfg)
+    convs = {g: sum(isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))
+                    for mod in getattr(nets, g).modules()) for g in GROUPS}
+    calls = _count_dw_calls(monkeypatch)
+    rng = np.random.default_rng(0)
+    s, latent = cfg.model.image_size, cfg.model.latent_dim
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, s, s, 3)).astype(np.float32))
+    eps, z_p = (torch.from_numpy(rng.normal(size=(4, latent)).astype(np.float32))
+                for _ in range(2))
+    state = make_state(nets, {g: RmsProp() for g in GROUPS})
+    make_vgan_stage1_step(cfg).train_step(state, x, eps, z_p, 0.35, 0.68, 1e-6)
+    want = convs["encoder"] + 2 * convs["decoder"] + convs["discriminator"]
+    assert (convs["encoder"], convs["decoder"], convs["discriminator"]) == (3, 4, 4)
+    assert len(calls) == want == 15
+    assert calls.count("conv2d_transpose_dw") == 2 * 3
 
 
 def test_wrappers_check_their_operands():
