@@ -39,30 +39,32 @@
 //     round-to-nearest, into the block's sum: the tensor core does not
 //     round to nearest as it accumulates, and over the ~200 stages of a
 //     split that bias would reach ~1e-4 of the result.
-//   * A ring of kStages = 4 shared-memory stages of RK reduction rows (RK =
-//     128 bytes of one row: 32 fp32 or 64 bf16). Tiles k+1 and k+2 are in
-//     flight while tile k is split and issued, and tile k-1 still multiplies
-//     on the tensor cores (wgmma is asynchronous: a stage is waited for only
-//     before the next one is issued). U is a plain box of the
-//     [B, Cu, PH*PW] view, brought by TMA (one thread, an mbarrier per
-//     stage, hardware 128-byte swizzle). S is a gather (stride and taps):
-//     each thread owns one reduction row of a stage, decodes its (b, ph, pw)
-//     once, and walks the tile's m rows with 4-byte cp.async, zero-filled
-//     outside the image; the row's (channel, tap) offsets come from a table
-//     built once per block. S's runs start at the tap offset, so they are not
-//     16-byte aligned and 16-byte copies do not apply. bf16 elements are
-//     fetched as the aligned 32-bit word that holds them, with a per-row bit
-//     mask (a warp ballot) saying which half to take.
-//   * The staged S tile is XOR-swizzled so that the gather's stores and the
-//     fragment loads are both free of bank conflicts.
+//   * A ring of 4 shared-memory stages (8 for NT <= 32), each one reduction
+//     tile of RK positions of one image (RK = 128 bytes of a row: 32 fp32 or
+//     64 bf16), filled by TMA: one thread, one mbarrier per stage. Tiles
+//     k+1 .. k+2 (k+6) are in flight while tile k is split and issued, and
+//     tile k-1 still multiplies on the tensor cores (wgmma is asynchronous:
+//     a stage is waited for only before the next one is issued).
+//   * U is a plain box of the [B, Cu, PH*PW] view, [RK positions x NT
+//     channels], landing in the 128-byte swizzle the descriptor reads.
+//   * S is not gathered element by element: a stage's (tap, position) pairs
+//     all read one box of S, [Cp channels x Hp rows x Wp columns] (the
+//     channels of the tile's m rows; the K + (rows - 1) * stride input rows
+//     under the tile's output rows; its columns, with the zero padding
+//     supplied by TMA's out-of-bounds fill). Each thread finds its fragment
+//     in that patch as row offset (channel, kh, kw: fixed per thread) plus
+//     position offset (ph, pw: a per-stage table of RK entries), so the
+//     (b, ph, pw) decode happens once per staged row and no tap is fetched
+//     from device memory twice. A 4-byte-per-element gather of the same
+//     data took 70% of the kernel's time at the widest calls.
 //   * The reduction is tiled per image (tiles of RK positions of one
-//     b, zero-padded past PH*PW) and split across blocks; each block writes
+//     b, zero past PH*PW) and split across blocks; each block writes
 //     its partial tile and a second launch adds the partials in split order.
 //     No atomics: two runs give the same bits. The split count comes from
 //     ops/dw.py::plan, which models waves of blocks on 132 SMs.
-//   * Where TMA cannot describe U (PH*PW*elem not a multiple of 16 bytes;
-//     no shape of the res64 step), the same threads copy U into the same
-//     swizzled layout with plain loads.
+//   * Where TMA cannot describe an operand (rows not a multiple of 16 bytes,
+//     a box side over 256; no shape of the res64 step), the same threads
+//     fill the same layouts with plain loads.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -73,8 +75,12 @@
 
 namespace {
 
-constexpr int kStages = 4;
-constexpr int kAhead = 2;       // tiles in flight ahead of the one multiplied
+// Ring depth: 4 stages for the wide tiles; 8 for the narrow ones, whose
+// stages are short, so more tiles must be in flight to cover the latency.
+template <int NT>
+__host__ __device__ constexpr int ring_stages() {
+  return NT >= 64 ? 4 : 8;
+}
 constexpr int kRowBytes = 128;  // bytes of one staged reduction run: RK elements
 
 struct Geometry {
@@ -83,6 +89,9 @@ struct Geometry {
   int tiles_per_image;  // ceil(PH*PW / RK)
   int tiles;            // B * tiles_per_image
   int chunk;            // reduction tiles per split
+  int within_row;       // a tile's positions lie in one output row (PW % RK == 0)
+  int Cp, Hp, Wp;       // S patch of one stage: channels, rows, columns
+  int patch_stride;     // bytes between the patches of two stages
   int use_tma;
 };
 
@@ -94,21 +103,6 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void fence_proxy_async() {
@@ -146,6 +140,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -297,60 +301,35 @@ template <> struct Wgmma<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
-// Where element (row, k) of a staged S tile lives, in 32-bit words: rows of
-// RK words, columns XOR-swizzled by the row so that a warp's stores (one row,
-// 32 columns) and its fragment loads (8 rows x 4 columns) hit 32 banks.
-template <typename T>
-__device__ __forceinline__ int a_slot(int row, int k) {
-  if constexpr (std::is_same<T, float>::value) {
-    return row * 32 + (k ^ ((row & 7) << 2));
-  } else {
-    const int g = row & 7;
-    return row * 64 + (k ^ ((g & 1) | ((g >> 1) << 3)));
-  }
-}
-
 // grid (ceil(M / MT), ceil(N / NT), splits), MT * 2 threads (one warpgroup
-// per 64 rows of D); writes out[split][n][m].
+// per 64 rows of D); writes out[split][n][m]. Dynamic shared memory: see
+// Layout.
 template <typename T, int MT, int NT>
 __global__ void __launch_bounds__(MT * 2, 1)
 dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ out,
-         const __grid_constant__ CUtensorMap umap, Geometry g) {
+         const __grid_constant__ CUtensorMap umap, const __grid_constant__ CUtensorMap smap,
+         Geometry g) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kThreads = MT * 2;
   constexpr int RK = kRowBytes / static_cast<int>(sizeof(T));
   constexpr int kBStage = NT * kRowBytes;
-  constexpr int kAStage = MT * RK;  // 32-bit words
-  constexpr int kMaskWords = kF32 ? 0 : RK / 32;
-  constexpr int kKSteps = 4;        // RK / 8 (tf32) or RK / 16 (bf16)
+  constexpr int kKSteps = 4;  // RK / 8 (tf32) or RK / 16 (bf16)
+  constexpr int kStages = ring_stages<NT>();
+  constexpr int kAhead = kStages - 2;  // tiles in flight ahead of the one multiplied
+  constexpr int kUnit = 16 / static_cast<int>(sizeof(T));  // a TMA box starts on 16 bytes
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* b_ring = base;
   uint8_t* b_lo = b_ring + kStages * kBStage;  // fp32: two lo buffers, by stage parity
-  uint32_t* a_ring = reinterpret_cast<uint32_t*>(b_lo + (kF32 ? 2 * kBStage : 0));
-  uint32_t* masks = a_ring + kStages * kAStage;
-  int* m_off = reinterpret_cast<int*>(masks + kStages * MT * kMaskWords);
-  int* m_dh = m_off + MT;
-  int* m_dw = m_dh + MT;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(m_dw + MT);
+  uint8_t* patches = b_lo + (kF32 ? 2 * kBStage : 0);
+  int* ro_tab = reinterpret_cast<int*>(patches + kStages * g.patch_stride);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ro_tab + kStages * RK);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.x * MT, n0 = blockIdx.y * NT;
-  const int kk = g.K * g.K, hws = g.Hs * g.Ws, phw = g.PH * g.PW;
-  for (int i = tid; i < MT; i += kThreads) {
-    const int m = m0 + i;
-    if (m < g.M) {
-      const int cs = m / kk, t = m - cs * kk, kh = t / g.K;
-      m_off[i] = cs * hws;
-      m_dh[i] = kh - g.pad;
-      m_dw[i] = t - kh * g.K - g.pad;
-    } else {
-      m_off[i] = -1;
-      m_dh[i] = 0;
-      m_dw[i] = 0;
-    }
-  }
+  const int kk = g.K * g.K, phw = g.PH * g.PW;
+  const int cs_lo = m0 / kk;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&bars[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -359,19 +338,40 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
 
   const int t_lo = blockIdx.z * g.chunk;
   const int ntiles = min(g.tiles, t_lo + g.chunk) - t_lo;
+  const int patch_bytes = g.Cp * g.Hp * g.Wp * static_cast<int>(sizeof(T));
 
-  // Stage reduction tile t (RK positions of one image) into ring slot s.
+  // Stage reduction tile t (RK positions of one image) into ring slot s: the
+  // U box [RK positions x NT channels], the S patch [Cp channels x Hp rows x
+  // Wp columns] that every (tap, position) pair of the tile reads, and the
+  // offset of each position in that patch.
   auto load = [&](int t, int s) {
     const int b = t / g.tiles_per_image;
     const int pos0 = (t - b * g.tiles_per_image) * RK;
+    const int ph0 = pos0 / g.PW;
+    const int pw0 = g.within_row ? pos0 - ph0 * g.PW : 0;
+    // The patch starts at input row h0 and at column w0 rounded down to 16
+    // bytes (TMA's rule for the innermost coordinate); shift is the rest.
+    const int h0 = ph0 * g.stride - g.pad, w0 = (pw0 * g.stride - g.pad) & ~(kUnit - 1);
+    const int shift = pw0 * g.stride - g.pad - w0;
+    for (int k = tid; k < RK; k += kThreads) {
+      const int pos = pos0 + k;
+      int ro = shift;
+      if (pos < phw) {
+        const int ph = pos / g.PW;
+        ro += (ph - ph0) * g.stride * g.Wp + (pos - ph * g.PW - pw0) * g.stride;
+      }
+      ro_tab[s * RK + k] = ro;
+    }
     uint8_t* bdst = b_ring + s * kBStage;
+    T* pdst = reinterpret_cast<T*>(patches + s * g.patch_stride);
     if (g.use_tma) {
       if (tid == 0) {
         fence_proxy_async();
-        mbar_expect_tx(&bars[s], kBStage);
+        mbar_expect_tx(&bars[s], kBStage + patch_bytes);
         tma_load_3d(bdst, &umap, &bars[s], pos0, n0, b);
+        tma_load_4d(pdst, &smap, &bars[s], w0, h0, cs_lo, b);
       }
-    } else {
+    } else {  // the same layouts, by plain loads
       for (int e = tid; e < NT * RK; e += kThreads) {
         const int n = e / RK, j = e - n * RK;
         T v = T(0.f);
@@ -379,37 +379,20 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
         const int jb = j * static_cast<int>(sizeof(T));
         *reinterpret_cast<T*>(bdst + n * kRowBytes + ((((jb >> 4) ^ (n & 7))) << 4) + (jb & 15)) = v;
       }
-    }
-    uint32_t* adst = a_ring + s * kAStage;
-    const long long s_base = (long long)b * g.Cs * hws;
-#pragma unroll
-    for (int half = 0; half < RK / 32; ++half) {
-      const int j = lane + 32 * half;
-      const int pos = pos0 + j;
-      const bool live = pos < phw;
-      const int ph = live ? pos / g.PW : 0;
-      const int h0 = ph * g.stride, w0 = (pos - ph * g.PW) * g.stride;
-      for (int i = warp; i < MT; i += kThreads / 32) {
-        const int off = m_off[i];
-        const int h = h0 + m_dh[i], w = w0 + m_dw[i];
-        const bool ok = live && off >= 0 && h >= 0 && h < g.Hs && w >= 0 && w < g.Ws;
-        const long long idx = ok ? s_base + off + h * g.Ws + w : 0;
-        if constexpr (kF32) {
-          cp_async4(adst + a_slot<T>(i, j), S + idx, ok ? 4 : 0);
-        } else {
-          const char* word = reinterpret_cast<const char*>(S) + ((idx * 2) & ~3LL);
-          cp_async4(adst + a_slot<T>(i, j), word, ok ? 4 : 0);
-          const uint32_t hi_half = __ballot_sync(0xffffffffu, ok && (idx & 1));
-          if (lane == 0) masks[(s * MT + i) * kMaskWords + half] = hi_half;
-        }
+      const int hw = g.Hp * g.Wp;
+      for (int e = tid; e < g.Cp * hw; e += kThreads) {
+        const int c = e / hw, r = e - c * hw, hh = r / g.Wp;
+        const int cs = cs_lo + c, h = h0 + hh, w = w0 + r - hh * g.Wp;
+        T v = T(0.f);
+        if (cs < g.Cs && h >= 0 && h < g.Hs && w >= 0 && w < g.Ws)
+          v = S[(((long long)b * g.Cs + cs) * g.Hs + h) * g.Ws + w];
+        pdst[e] = v;
       }
     }
   };
 
-  for (int i = 0; i < kAhead; ++i) {
+  for (int i = 0; i < kAhead; ++i)
     if (i < ntiles) load(t_lo + i, i);
-    cp_async_commit();
-  }
 
   // acc: the stage on the tensor cores; sum: the block's total, to which
   // each landed stage is added in fp32 with round-to-nearest (the tensor
@@ -419,20 +402,27 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
 #pragma unroll
   for (int i = 0; i < NT / 2; ++i) acc[i] = sum[i] = 0.f;
 
-  // This thread's fragment rows: warpgroup wg owns rows 64 wg .. 64 wg + 63.
+  // This thread's fragment rows (warpgroup wg owns rows 64 wg .. 64 wg + 63)
+  // and where their (channel, tap) sits in a patch. Rows past M read a real
+  // patch value; their sums are never written.
   const int gq = lane >> 2, tq = lane & 3;
   const int row0 = (tid >> 7) * 64 + (warp & 3) * 16 + gq;
+  int mb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = min(m0 + row0 + 8 * i, g.M - 1);
+    const int cs = m / kk, tap = m - cs * kk, kh = tap / g.K;
+    mb[i] = ((cs - cs_lo) * g.Hp + kh) * g.Wp + tap - kh * g.K;
+  }
 
   for (int kt = 0; kt < ntiles; ++kt) {
     const int s = kt % kStages;
-    cp_async_wait<kAhead - 1>();
     if (g.use_tma) mbar_wait(&bars[s], (kt / kStages) & 1);
     // Stage kt is in place for all threads, and stage kt - 2 has left the
     // tensor cores (waited for before stage kt - 1 was issued), so its slot
-    // takes tile kt + 2 while stage kt - 1 may still be multiplying.
+    // takes tile kt + kAhead while stage kt - 1 may still be multiplying.
     __syncthreads();
     if (kt + kAhead < ntiles) load(t_lo + kt + kAhead, (kt + kAhead) % kStages);
-    cp_async_commit();
     uint8_t* bsrc = b_ring + s * kBStage;
     uint8_t* blo = b_lo + (kt & 1) * kBStage;
     if constexpr (kF32) {  // U tile -> hi (in place) + lo, once for both warpgroups
@@ -458,17 +448,18 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) sum[i] += acc[i];
 
-    const uint32_t* a = a_ring + s * kAStage;
+    const T* patch = reinterpret_cast<const T*>(patches + s * g.patch_stride);
+    const int* ro = ro_tab + s * RK;
     const uint64_t desc = sw128_desc(bsrc);
     if constexpr (kF32) {
       const uint64_t desc_lo = sw128_desc(blo);
       uint32_t ahi[kKSteps][4], alo[kKSteps][4];
 #pragma unroll
       for (int ks = 0; ks < kKSteps; ++ks) {
+        const int r0 = ro[ks * 8 + tq], r1 = ro[ks * 8 + tq + 4];
 #pragma unroll
         for (int v = 0; v < 4; ++v) {  // (row, k) = (g, t), (g+8, t), (g, t+4), (g+8, t+4)
-          const float x =
-              __uint_as_float(a[a_slot<T>(row0 + 8 * (v & 1), ks * 8 + tq + 4 * (v >> 1))]);
+          const float x = patch[mb[v & 1] + (v >> 1 ? r1 : r0)];
           ahi[ks][v] = tf32_rna(x);
           alo[ks][v] = tf32_rna(x - __uint_as_float(ahi[ks][v]));
         }
@@ -482,18 +473,14 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
         Wgmma<NT>::tf32(acc, ahi[ks], desc + 2 * ks, 1);
       }
     } else {
-      const uint32_t* mk = masks + s * MT * kMaskWords;
+      const uint16_t* p16 = reinterpret_cast<const uint16_t*>(patch);
       uint32_t af[kKSteps][4];
 #pragma unroll
       for (int ks = 0; ks < kKSteps; ++ks) {
 #pragma unroll
         for (int v = 0; v < 4; ++v) {  // rows g, g+8; k pairs 2t, 2t+1 and 2t+8, 2t+9
-          const int row = row0 + 8 * (v & 1), k = ks * 16 + 2 * tq + 8 * (v >> 1);
-          const uint32_t bits = mk[row * kMaskWords + (k >> 5)] >> (k & 31);
-          const uint32_t w0 = a[a_slot<T>(row, k)], w1 = a[a_slot<T>(row, k + 1)];
-          const uint32_t e0 = (bits & 1) ? (w0 >> 16) : (w0 & 0xffffu);
-          const uint32_t e1 = (bits & 2) ? (w1 >> 16) : (w1 & 0xffffu);
-          af[ks][v] = e0 | (e1 << 16);
+          const int k = ks * 16 + 2 * tq + 8 * (v >> 1);
+          af[ks][v] = uint32_t(p16[mb[v & 1] + ro[k]]) | (uint32_t(p16[mb[v & 1] + ro[k + 1]]) << 16);
         }
       }
       fence_operands(acc);
@@ -509,7 +496,6 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) sum[i] += acc[i];
   }
-  cp_async_wait<0>();
 
   float* dst = out + (long long)blockIdx.z * g.N * g.M;
 #pragma unroll
@@ -557,41 +543,54 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-constexpr int kEncodeFailed = 1000;  // returned when the TMA map cannot be made
+constexpr int kEncodeFailed = 1000;  // a TMA map could not be made
+constexpr int kTooLarge = 1001;      // the S patch does not fit in shared memory
 
 template <typename T, int MT, int NT>
 int launch(const void* S, const void* U, float* dst, const Geometry& g, int splits,
            cudaStream_t st) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int RK = kRowBytes / static_cast<int>(sizeof(T));
-  constexpr int kBytes = 1024  // alignment slack
+  constexpr int kMaxBytes = 232448;
+  constexpr int kStages = ring_stages<NT>();
+  const long long bytes = 1024  // alignment slack
       + kStages * NT * kRowBytes + (kF32 ? 2 * NT * kRowBytes : 0)  // U ring, lo
-      + kStages * MT * RK * 4                                    // S ring
-      + (kF32 ? 0 : kStages * MT * (RK / 32) * 4)                // half masks
-      + 3 * MT * 4 + kStages * 8;                                // row table, barriers
-  static_assert(kBytes <= 232448, "shared memory of one block");
+      + (long long)kStages * g.patch_stride                        // S patches
+      + kStages * RK * 4 + kStages * 8;                            // offsets, barriers
+  if (bytes > kMaxBytes) return kTooLarge;
   auto kernel = dw_wgmma<T, MT, NT>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxBytes);
   if (err != cudaSuccess) return (int)err;
-  CUtensorMap map = {};
+  CUtensorMap umap = {}, smap = {};
   if (g.use_tma) {
     EncodeTiled encode = encode_tiled();
-    const cuuint64_t phw = (cuuint64_t)g.PH * g.PW;
-    const cuuint64_t dims[3] = {phw, (cuuint64_t)g.Cu, (cuuint64_t)g.B};
-    const cuuint64_t strides[2] = {phw * sizeof(T), phw * g.Cu * sizeof(T)};
-    const cuuint32_t box[3] = {(cuuint32_t)RK, (cuuint32_t)NT, 1};
-    const cuuint32_t unit[3] = {1, 1, 1};
+    const CUtensorMapDataType type =
+        kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const cuuint64_t esz = sizeof(T), phw = (cuuint64_t)g.PH * g.PW;
+    const cuuint64_t udims[3] = {phw, (cuuint64_t)g.Cu, (cuuint64_t)g.B};
+    const cuuint64_t ustrides[2] = {phw * esz, phw * g.Cu * esz};
+    const cuuint32_t ubox[3] = {(cuuint32_t)RK, (cuuint32_t)NT, 1};
+    const cuuint64_t sdims[4] = {(cuuint64_t)g.Ws, (cuuint64_t)g.Hs, (cuuint64_t)g.Cs,
+                                 (cuuint64_t)g.B};
+    const cuuint64_t sstrides[3] = {g.Ws * esz, (cuuint64_t)g.Hs * g.Ws * esz,
+                                    (cuuint64_t)g.Cs * g.Hs * g.Ws * esz};
+    const cuuint32_t sbox[4] = {(cuuint32_t)g.Wp, (cuuint32_t)g.Hp, (cuuint32_t)g.Cp, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
     if (encode == nullptr ||
-        encode(&map, kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-               3, const_cast<void*>(U), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+        encode(&umap, type, 3, const_cast<void*>(U), udims, ustrides, ubox, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+        encode(&smap, type, 4, const_cast<void*>(S), sdims, sstrides, sbox, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return kEncodeFailed;
   }
   dim3 grid((g.M + MT - 1) / MT, (g.N + NT - 1) / NT, splits);
-  kernel<<<grid, MT * 2, kBytes, st>>>(static_cast<const T*>(S), static_cast<const T*>(U), dst,
-                                       map, g);
+  kernel<<<grid, MT * 2, (size_t)bytes, st>>>(static_cast<const T*>(S),
+                                              static_cast<const T*>(U), dst, umap, smap, g);
   return (int)cudaGetLastError();
 }
 
@@ -618,8 +617,9 @@ int dispatch(int mt, int nt, const void* S, const void* U, float* dst, const Geo
 // The reduction is `tiles_per_image` tiles of RK positions per image, `chunk`
 // tiles per split. With splits > 1, partial is scratch of splits * N * M
 // floats; with splits == 1 the blocks write out directly. out is
-// [Cu, Cs, K, K] float32. Returns 0, a CUDA error code, or 1000 when the TMA
-// descriptor of U cannot be encoded.
+// [Cu, Cs, K, K] float32. Returns 0, a CUDA error code, 1000 when a TMA map
+// cannot be encoded, or 1001 when the S patch of a stage does not fit in
+// shared memory (a narrow kernel with many channels per tile of D).
 extern "C" int tap_matmul(const void* S, const void* U, float* partial, float* out, int dtype,
                           int mt, int nt, int B, int Cs, int Hs, int Ws, int Cu, int PH,
                           int PW, int K, int stride, int pad, int splits, int chunk,
@@ -628,10 +628,25 @@ extern "C" int tap_matmul(const void* S, const void* U, float* partial, float* o
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const int esz = dtype == 0 ? 4 : 2, rk = kRowBytes / esz, phw = PH * PW;
   const int per_image = (phw + rk - 1) / rk;
-  const int use_tma =
-      (phw * esz) % 16 == 0 && reinterpret_cast<uintptr_t>(U) % 16 == 0 ? 1 : 0;
-  Geometry g{B, Cs, Hs, Ws, Cu, PH, PW, K, stride, pad,
-             Cs * K * K, Cu, per_image, B * per_image, chunk, use_tma};
+  // The patch one tile reads: a run of RK positions inside one output row
+  // when PW is a multiple of RK, else whole rows (at most nrows of them).
+  const int within_row = PW % rk == 0 ? 1 : 0;
+  const int nrows = within_row ? 1 : (rk % PW == 0 ? rk / PW : (rk - 1) / PW + 2);
+  const int cols = within_row ? (rk - 1) * stride + K : (PW - 1) * stride + K;
+  const int unit = 16 / esz;  // TMA rows are whole 16-byte units
+  const int Wp = (cols + 2 * unit - 2) / unit * unit;  // the aligned start adds < unit
+  const int Hp = (nrows - 1) * stride + K;
+  const int Cp = min(Cs, (mt - 1) / (K * K) + 2);
+  const long long patch = (long long)Cp * Hp * Wp * esz;
+  const int patch_stride = (int)min((patch + 1023) / 1024 * 1024, 1LL << 30);
+  const int use_tma = (phw * esz) % 16 == 0 && (Ws * esz) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(U) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(S) % 16 == 0 && Wp <= 256 && Hp <= 256 &&
+                      Cp <= 256
+                          ? 1
+                          : 0;
+  Geometry g{B, Cs, Hs, Ws, Cu, PH, PW, K, stride, pad, Cs * K * K, Cu,
+             per_image, B * per_image, chunk, within_row, Cp, Hp, Wp, patch_stride, use_tma};
   float* dst = splits > 1 ? partial : out;
   const int err = dtype == 0 ? dispatch<float>(mt, nt, S, U, dst, g, splits, st)
                              : dispatch<__nv_bfloat16>(mt, nt, S, U, dst, g, splits, st);

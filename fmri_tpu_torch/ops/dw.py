@@ -29,11 +29,11 @@ import torch.nn.functional as F
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROW_BYTES = 128       # one staged reduction run: 32 fp32 or 64 bf16 (csrc/dw.cu)
 TILE_N = (8, 32, 64, 128)  # N extents of the wgmma tiles
-STAGES = 4            # shared-memory ring depth (csrc/dw.cu kStages)
 SMS = 132             # streaming multiprocessors of an H100 SXM
 SMEM_PER_SM = 233472  # bytes of shared memory an SM holds
 REGS_PER_SM = 65536
 REGS_PER_THREAD = 168  # the widest dw_wgmma instance, from ptxas
+PATCH_BYTES = 8192    # an S patch at the res64 step's widths, for the model
 MIN_TILES = 8         # reduction tiles per split, at least
 SETUP_TILES = 4       # a block's fixed cost (prologue, epilogue) in tiles
 MAX_SPLITS = 512
@@ -119,15 +119,38 @@ def rows_per_tile(dtype: torch.dtype) -> int:
     return ROW_BYTES // (4 if dtype == torch.float32 else 2)
 
 
-def smem_bytes(mt: int, nt: int, esz: int = 4) -> int:
+def patch_shape(mt: int, k: int, stride: int, cs: int, pw: int,
+                esz: int = 4) -> tuple[int, int, int, bool]:
+    """(Cp, Hp, Wp, within_row) of the S patch one stage of ``csrc/dw.cu``
+    stages (its ``tap_matmul`` entry computes the same): the channels that
+    mt consecutive rows of D can span; the input rows under the tile's
+    output rows; and its columns, a run of RK positions when PW is a
+    multiple of RK (``within_row``), else whole rows, from the 16-byte
+    boundary at or below the first column (TMA's rule for where a box
+    starts), rounded up to 16 bytes."""
+    rk = ROW_BYTES // esz
+    within_row = pw % rk == 0
+    nrows = 1 if within_row else rk // pw if rk % pw == 0 else (rk - 1) // pw + 2
+    cols = (rk - 1) * stride + k if within_row else (pw - 1) * stride + k
+    unit = 16 // esz  # the box starts on 16 bytes, up to unit - 1 columns early
+    return (min(cs, (mt - 1) // (k * k) + 2), (nrows - 1) * stride + k,
+            (cols + 2 * unit - 2) // unit * unit, within_row)
+
+
+def ring_stages(nt: int) -> int:
+    """Shared-memory ring depth of a tile nt wide (``csrc/dw.cu::ring_stages``)."""
+    return 4 if nt >= 64 else 8
+
+
+def smem_bytes(mt: int, nt: int, patch: int = PATCH_BYTES, esz: int = 4) -> int:
     """Dynamic shared memory of one block of ``csrc/dw.cu::dw_wgmma``, as its
     ``launch`` computes it: alignment slack, the U ring (and for fp32 two lo
-    buffers), the S ring of 32-bit words, bf16 half masks, the row table and
-    the barriers."""
-    rk = ROW_BYTES // esz
-    return (1024 + STAGES * nt * ROW_BYTES + (2 * nt * ROW_BYTES if esz == 4 else 0)
-            + STAGES * mt * rk * 4 + (0 if esz == 4 else STAGES * mt * (rk // 32) * 4)
-            + 3 * mt * 4 + STAGES * 8)
+    buffers), the S patches (``patch`` bytes each, rounded to 1 KB), the
+    position offsets and the barriers."""
+    del mt  # the S patch stands for the m rows
+    rk, stages = ROW_BYTES // esz, ring_stages(nt)
+    return (1024 + stages * nt * ROW_BYTES + (2 * nt * ROW_BYTES if esz == 4 else 0)
+            + stages * -(-patch // 1024) * 1024 + stages * rk * 4 + stages * 8)
 
 
 def resident_blocks(mt: int, nt: int) -> int:

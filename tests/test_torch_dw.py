@@ -138,51 +138,61 @@ def test_out_of_scope_geometry_takes_the_stock_backward():
     assert "DW" not in type(y.grad_fn).__name__  # deconv: k5/p2/s2 only
 
 
-def _emulate_kernel(shifted, direct, k, stride, pad, rk=32):
+def _emulate_kernel(shifted, direct, k, stride, pad, esz=4):
     """csrc/dw.cu's indexing in numpy (float64): the wrapper's plan (mt, nt,
-    splits, chunk); the reduction in tiles of ``rk`` positions of one image,
-    zero past PH*PW (TMA's out-of-bounds fill for U, the gather's zero fill
-    for S); m padded to whole mt tiles (row offset -1, zero) and n to whole nt
-    tiles (past Cu, zero); S gathered by each tile row's decoded (b, ph, pw)
-    and each m row's (channel, tap) offsets with the bounds checks; one
-    partial [n_pad, m_pad] per split, and the second pass's sum over splits in
-    split order."""
+    splits, chunk); the reduction in tiles of RK positions of one image,
+    zero past PH*PW (TMA's out-of-bounds fill for U); n padded to whole nt
+    tiles (zero past Cu); per block of mt rows and per tile, the S patch
+    [Cp, Hp, Wp] at (cs_lo, h0, w0) with zeros outside S, each thread's row
+    offset (channel, kh, kw; rows past M clamped to the last) and each
+    position's offset (ph, pw) into it; one partial per split, and the
+    second pass's sum over splits in split order."""
     b, cs, hs, ws = shifted.shape
     _, cu, ph_n, pw_n = direct.shape
-    m_n, phw = cs * k * k, ph_n * pw_n
+    m_n, phw, rk = cs * k * k, ph_n * pw_n, dw.ROW_BYTES // esz
     per_image = -(-phw // rk)
     mt, nt, splits, chunk = dw.plan(m_n, cu, b * per_image)
-    m_pad, n_pad = -(-m_n // mt) * mt, -(-cu // nt) * nt
-    s_flat = shifted.reshape(-1)
-    m = np.arange(m_pad)
-    c_s, t = m // (k * k), m % (k * k)
-    m_off = np.where(m < m_n, c_s * hs * ws, -1)
-    dh, dwv = t // k - pad, t % k - pad
+    cp, hp, wp, within_row = dw.patch_shape(mt, k, stride, cs, pw_n, esz)
+    n_pad = -(-cu // nt) * nt
     u_pad = np.zeros((b, n_pad, per_image * rk))
     u_pad[:, :cu, :phw] = direct.reshape(b, cu, phw)
-    partial = np.zeros((splits, n_pad, m_pad))
-    for z in range(splits):
-        for tile in range(z * chunk, min(b * per_image, (z + 1) * chunk)):
-            bb, pos0 = tile // per_image, (tile % per_image) * rk
-            pos = pos0 + np.arange(rk)
-            live = pos < phw
-            ph = np.where(live, pos // pw_n, 0)
-            h = (ph * stride)[:, None] + dh[None]
-            w = ((pos - ph * pw_n) * stride)[:, None] + dwv[None]
-            ok = (live[:, None] & (m_off >= 0)[None] & (h >= 0) & (h < hs)
-                  & (w >= 0) & (w < ws))
-            at = bb * cs * hs * ws + m_off[None] + h * ws + w
-            a = np.where(ok, s_flat[np.where(ok, at, 0)], 0.0)      # [rk, m_pad]
-            partial[z] += u_pad[bb, :, pos0:pos0 + rk] @ a          # [n_pad, m_pad]
+    s_pad = np.zeros((b, cs + cp, hs + 2 * hp + 2 * pad, ws + 2 * wp + 2 * pad))
+    oh, ow = hp + pad, wp + pad  # where S[.., 0, 0] sits in s_pad
+    s_pad[:, :cs, oh:oh + hs, ow:ow + ws] = shifted
+    partial = np.zeros((splits, n_pad, m_n))
+    for m0 in range(0, m_n, mt):
+        cs_lo = m0 // (k * k)
+        m = np.minimum(np.arange(m0, m0 + mt), m_n - 1)
+        c, tap = m // (k * k) - cs_lo, m % (k * k)
+        mb = (c * hp + tap // k) * wp + tap % k
+        for z in range(splits):
+            for tile in range(z * chunk, min(b * per_image, (z + 1) * chunk)):
+                bb, pos0 = tile // per_image, (tile % per_image) * rk
+                ph0 = pos0 // pw_n
+                pw0 = pos0 - ph0 * pw_n if within_row else 0
+                h0 = ph0 * stride - pad
+                w0 = (pw0 * stride - pad) // (16 // esz) * (16 // esz)  # 16-byte start
+                shift = pw0 * stride - pad - w0
+                patch = s_pad[bb, cs_lo:cs_lo + cp, oh + h0:oh + h0 + hp,
+                              ow + w0:ow + w0 + wp].reshape(-1)
+                pos = pos0 + np.arange(rk)
+                ph = pos // pw_n
+                ro = shift + np.where(pos < phw, (ph - ph0) * stride * wp
+                                      + (pos - ph * pw_n - pw0) * stride, 0)
+                a = patch[ro[:, None] + mb[None]]                      # [rk, mt]
+                rows = slice(m0, min(m0 + mt, m_n))
+                partial[z][:, rows] += (u_pad[bb, :, pos0:pos0 + rk]
+                                        @ a)[:, :rows.stop - m0]
     out = partial[0]
     for z in range(1, splits):
         out = out + partial[z]
-    return out[:cu, :m_n].reshape(cu, cs, k, k)
+    return out[:cu].reshape(cu, cs, k, k)
 
 
 @pytest.mark.parametrize("kind,b,ci,h,co,stride", [
     ("conv", 4, 3, 64, 32, 1), ("conv", 2, 16, 16, 8, 2), ("conv", 2, 8, 8, 3, 1),
-    ("deconv", 2, 16, 8, 8, 2), ("deconv", 2, 4, 5, 3, 2), ("conv", 3, 5, 9, 7, 2)])
+    ("deconv", 2, 16, 8, 8, 2), ("deconv", 2, 4, 5, 3, 2), ("conv", 3, 5, 9, 7, 2),
+    ("conv", 2, 8, 64, 4, 2), ("conv", 2, 4, 32, 130, 1)])
 def test_kernel_index_arithmetic_emulated(kind, b, ci, h, co, stride):
     """The CUDA kernel cannot run here; its indexing, padding and split
     plan, emulated in float64, give the plain weight grad (which sums in
@@ -200,7 +210,7 @@ def test_kernel_index_arithmetic_emulated(kind, b, ci, h, co, stride):
         dy = rng.normal(size=(b, co, oh, oh))
         ref = dw.conv2d_transpose_dw_plain(torch.from_numpy(x), torch.from_numpy(dy),
                                            2, 2, 1, 5)
-        got = _emulate_kernel(dy, x, 5, 2, 2, rk=64)  # bf16 tiles: 64 positions
+        got = _emulate_kernel(dy, x, 5, 2, 2, esz=2)  # bf16 tiles: 64 positions
     np.testing.assert_allclose(got, ref.double().numpy(), rtol=1e-5, atol=1e-4)
 
 
@@ -291,40 +301,27 @@ def test_split_tf32_arithmetic_holds_the_fp32_bound():
     assert np.abs(one_pass - exact).max() > 1e-5 * scale
 
 
-def _a_slot(row, k, dtype):
-    """csrc/dw.cu::a_slot: the 32-bit word of element (row, k) of a staged S
-    tile."""
-    g = row & 7
-    if dtype == "float32":
-        return row * 32 + (k ^ (g << 2))
-    return row * 64 + (k ^ ((g & 1) | ((g >> 1) << 3)))
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_staged_tile_layout_is_free_of_bank_conflicts(dtype):
-    """Each row's RK elements fill its RK words; a gather store (one row, 32
-    lanes on 32 consecutive k) and every fragment load of a k step (lanes
-    (g, t) on rows g or g + 8 and their k) touch 32 distinct banks."""
-    rk, kstep = (32, 8) if dtype == "float32" else (64, 16)
-    lanes = np.arange(32)
-    g, t = lanes >> 2, lanes & 3
-    for row in range(128):
-        slots = [_a_slot(row, k, dtype) for k in range(rk)]
-        assert sorted(slots) == list(range(row * rk, (row + 1) * rk))
-        for k0 in range(0, rk, 32):
-            assert len({_a_slot(row, k0 + j, dtype) % 32 for j in lanes}) == 32
-    for wl in range(8):  # 16-row warp slices of two warpgroups
-        for ks in range(rk // kstep):
-            for v in range(4):
-                rows = wl * 16 + g + 8 * (v & 1)
-                if dtype == "float32":
-                    ks_k = [ks * 8 + t + 4 * (v >> 1)]
-                else:
-                    base = ks * 16 + 2 * t + 8 * (v >> 1)
-                    ks_k = [base, base + 1]
-                for k in ks_k:
-                    banks = {_a_slot(r, kk, dtype) % 32 for r, kk in zip(rows, k)}
-                    assert len(banks) == 32
+@pytest.mark.parametrize("esz", [4, 2])
+@pytest.mark.parametrize("s_hw,stride,pw", [(64, 1, 64), (64, 2, 32), (32, 2, 16),
+                                             (16, 2, 8), (32, 1, 32), (9, 2, 5)])
+def test_patch_holds_every_tap_of_a_tile(s_hw, stride, pw, esz):
+    """Every (tap, position) pair of every tile reads inside its stage's S
+    patch: kh plus the position's row offset below Hp, kw plus its column
+    offset (from the patch's 16-byte-aligned first column) below Wp, so a TMA
+    box of [Cp, Hp, Wp] is enough; Wp a whole number of 16-byte units."""
+    k, rk, unit = 5, dw.ROW_BYTES // esz, 16 // esz
+    _, hp, wp, within_row = dw.patch_shape(64, k, stride, 8, pw, esz)
+    assert (wp * esz) % 16 == 0
+    phw = pw * pw
+    for pos0 in range(0, phw, rk):
+        ph0 = pos0 // pw
+        pw0 = pos0 - ph0 * pw if within_row else 0
+        shift = (pw0 * stride - 2) - (pw0 * stride - 2) // unit * unit
+        pos = np.arange(pos0, min(phw, pos0 + rk))
+        ph, pwv = pos // pw, pos % pw
+        assert ((ph - ph0) * stride + k - 1).max() < hp
+        assert (shift + (pwv - pw0) * stride + k - 1).max() < wp
+        assert (pwv >= pw0).all() and 0 <= shift < unit
 
 
 def _count_dw_calls(monkeypatch):
