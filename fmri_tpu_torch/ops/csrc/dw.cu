@@ -321,8 +321,8 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* b_ring = base;
-  uint8_t* b_lo = b_ring + kStages * kBStage;  // fp32: two lo buffers, by stage parity
-  uint8_t* patches = b_lo + (kF32 ? 2 * kBStage : 0);
+  uint8_t* b_lo = b_ring + kStages * kBStage;  // fp32: three lo buffers, stage % 3
+  uint8_t* patches = b_lo + (kF32 ? 3 * kBStage : 0);
   int* ro_tab = reinterpret_cast<int*>(patches + kStages * g.patch_stride);
   uint64_t* bars = reinterpret_cast<uint64_t*>(ro_tab + kStages * RK);
 
@@ -391,8 +391,33 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
     }
   };
 
+  // Make stage j ready for the tensor cores once its tiles have landed: for
+  // fp32, split the U tile into hi (in place) and lo (buffer j % 3), then
+  // order these generic-proxy writes before wgmma's reads of them.
+  auto prepare = [&](int j) {
+    const int s = j % kStages;
+    if (g.use_tma) mbar_wait(&bars[s], (j / kStages) & 1);
+    if constexpr (kF32) {
+      float4* hi = reinterpret_cast<float4*>(b_ring + s * kBStage);
+      float4* lo = reinterpret_cast<float4*>(b_lo + (j % 3) * kBStage);
+      for (int e = tid; e < kBStage / 16; e += kThreads) {
+        const float4 v = hi[e];
+        const uint32_t hx = tf32_rna(v.x), hy = tf32_rna(v.y), hz = tf32_rna(v.z),
+                       hw = tf32_rna(v.w);
+        hi[e] = make_float4(__uint_as_float(hx), __uint_as_float(hy), __uint_as_float(hz),
+                            __uint_as_float(hw));
+        lo[e] = make_float4(__uint_as_float(tf32_rna(v.x - __uint_as_float(hx))),
+                            __uint_as_float(tf32_rna(v.y - __uint_as_float(hy))),
+                            __uint_as_float(tf32_rna(v.z - __uint_as_float(hz))),
+                            __uint_as_float(tf32_rna(v.w - __uint_as_float(hw))));
+      }
+    }
+    fence_proxy_async();
+  };
+
   for (int i = 0; i < kAhead; ++i)
     if (i < ntiles) load(t_lo + i, i);
+  if (ntiles > 0) prepare(0);
 
   // acc: the stage on the tensor cores; sum: the block's total, to which
   // each landed stage is added in fp32 with round-to-nearest (the tensor
@@ -415,39 +440,23 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
     mb[i] = ((cs - cs_lo) * g.Hp + kh) * g.Wp + tap - kh * g.K;
   }
 
+  // One barrier a stage. Stage kt - 1 multiplies on the tensor cores while
+  // stage kt is issued and stage kt + 1 is prepared; tiles up to kt + kAhead
+  // are in flight.
   for (int kt = 0; kt < ntiles; ++kt) {
     const int s = kt % kStages;
-    if (g.use_tma) mbar_wait(&bars[s], (kt / kStages) & 1);
-    // Stage kt is in place for all threads, and stage kt - 2 has left the
-    // tensor cores (waited for before stage kt - 1 was issued), so its slot
-    // takes tile kt + kAhead while stage kt - 1 may still be multiplying.
+    // Stage kt is prepared by every thread, and every warpgroup has waited
+    // for stage kt - 2, so its ring slot takes tile kt + kAhead.
     __syncthreads();
     if (kt + kAhead < ntiles) load(t_lo + kt + kAhead, (kt + kAhead) % kStages);
-    uint8_t* bsrc = b_ring + s * kBStage;
-    uint8_t* blo = b_lo + (kt & 1) * kBStage;
-    if constexpr (kF32) {  // U tile -> hi (in place) + lo, once for both warpgroups
-      float4* hi = reinterpret_cast<float4*>(bsrc);
-      float4* lo = reinterpret_cast<float4*>(blo);
-      for (int e = tid; e < kBStage / 16; e += kThreads) {
-        const float4 v = hi[e];
-        const uint32_t hx = tf32_rna(v.x), hy = tf32_rna(v.y), hz = tf32_rna(v.z),
-                       hw = tf32_rna(v.w);
-        hi[e] = make_float4(__uint_as_float(hx), __uint_as_float(hy), __uint_as_float(hz),
-                            __uint_as_float(hw));
-        lo[e] = make_float4(__uint_as_float(tf32_rna(v.x - __uint_as_float(hx))),
-                            __uint_as_float(tf32_rna(v.y - __uint_as_float(hy))),
-                            __uint_as_float(tf32_rna(v.z - __uint_as_float(hz))),
-                            __uint_as_float(tf32_rna(v.w - __uint_as_float(hw))));
-      }
-    }
-    fence_proxy_async();  // generic-proxy writes of B before wgmma reads them
-    __syncthreads();
 
     wgmma_wait_all();  // stage kt - 1 has landed in acc
     fence_operands(acc);
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) sum[i] += acc[i];
 
+    uint8_t* bsrc = b_ring + s * kBStage;
+    uint8_t* blo = b_lo + (kt % 3) * kBStage;
     const T* patch = reinterpret_cast<const T*>(patches + s * g.patch_stride);
     const int* ro = ro_tab + s * RK;
     const uint64_t desc = sw128_desc(bsrc);
@@ -489,6 +498,7 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
       for (int ks = 0; ks < kKSteps; ++ks) Wgmma<NT>::bf16(acc, af[ks], desc + 2 * ks, ks > 0);
     }
     wgmma_commit();
+    if (kt + 1 < ntiles) prepare(kt + 1);
   }
   wgmma_wait_all();
   fence_operands(acc);
@@ -554,7 +564,7 @@ int launch(const void* S, const void* U, float* dst, const Geometry& g, int spli
   constexpr int kMaxBytes = 232448;
   constexpr int kStages = ring_stages<NT>();
   const long long bytes = 1024  // alignment slack
-      + kStages * NT * kRowBytes + (kF32 ? 2 * NT * kRowBytes : 0)  // U ring, lo
+      + kStages * NT * kRowBytes + (kF32 ? 3 * NT * kRowBytes : 0)  // U ring, lo
       + (long long)kStages * g.patch_stride                        // S patches
       + kStages * RK * 4 + kStages * 8;                            // offsets, barriers
   if (bytes > kMaxBytes) return kTooLarge;

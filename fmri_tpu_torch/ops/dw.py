@@ -15,7 +15,10 @@ Activations are NCHW. Operands are fp32 or bf16 (the caller casts both to
 the compute dtype); the result is fp32. A CUDA tensor launches
 :func:`tap_matmul` (one kernel, counted in ``tap_matmul.launches``) or
 raises; a CPU tensor takes ``*_plain``, one einsum per tap
-(:func:`tap_matmul_plain`).
+(:func:`tap_matmul_plain`). On the card the product runs on the tensor
+cores (``wgmma``): fp32 operands as 3xTF32, bf16 operands in one bf16 pass;
+:func:`plan` picks the tile and the split of the reduction, and
+:func:`patch_shape` mirrors the shared-memory patch the kernel stages.
 """
 
 from __future__ import annotations
@@ -144,12 +147,12 @@ def ring_stages(nt: int) -> int:
 
 def smem_bytes(mt: int, nt: int, patch: int = PATCH_BYTES, esz: int = 4) -> int:
     """Dynamic shared memory of one block of ``csrc/dw.cu::dw_wgmma``, as its
-    ``launch`` computes it: alignment slack, the U ring (and for fp32 two lo
-    buffers), the S patches (``patch`` bytes each, rounded to 1 KB), the
+    ``launch`` computes it: alignment slack, the U ring (and for fp32 three
+    lo buffers), the S patches (``patch`` bytes each, rounded to 1 KB), the
     position offsets and the barriers."""
     del mt  # the S patch stands for the m rows
     rk, stages = ROW_BYTES // esz, ring_stages(nt)
-    return (1024 + stages * nt * ROW_BYTES + (2 * nt * ROW_BYTES if esz == 4 else 0)
+    return (1024 + stages * nt * ROW_BYTES + (3 * nt * ROW_BYTES if esz == 4 else 0)
             + stages * -(-patch // 1024) * 1024 + stages * rk * 4 + stages * 8)
 
 
@@ -211,7 +214,8 @@ def tap_matmul(shifted: torch.Tensor, direct: torch.Tensor, k: int, stride: int,
                                cu, ph, pw, k, stride, pad, splits, chunk, stream)
     if rc != 0:
         raise RuntimeError(f"tap_matmul launch failed with code {rc} (a CUDA "
-                           f"error, or 1000: no TMA descriptor for the direct operand) "
+                           f"error; 1000: no TMA descriptor; 1001: the S patch does not fit in "
+                           f"shared memory) "
                            f"(shifted {tuple(shifted.shape)}, direct "
                            f"{tuple(direct.shape)}, k {k}, stride {stride})")
     tap_matmul.launches += 1
