@@ -423,14 +423,17 @@ def train_phase(dev, cfg):
     for name, tot in totals.items():
         bound_ms, bound_by = bound(tot["flops"], tot["bytes"])
         extra = {}
-        if name == "tap_matmul":  # fp32 operands run as 3xTF32 on the tensor cores
-            extra = {"bound_rate": "3xTF32 tensor cores, 164.9 TFLOP/s",
+        if name == "tap_matmul":  # on the tensor cores: fp32 as 3xTF32, bf16 as bf16
+            fp32 = any(str(torch.float32) in str(key) for key in calls["conv2d_dw"])
+            peak, rate = ((PEAK_3XTF32_FLOPS, "3xTF32") if fp32
+                          else (PEAK_BF16_FLOPS, "bf16"))
+            extra = {"bound_rate": f"{rate} tensor cores, {peak / 1e12:.1f} TFLOP/s",
                      "bound_ms_fp32_cuda_cores": bound_ms, "gflop": tot["flops"] / 1e9}
-            bound_ms, bound_by = bound(tot["flops"], tot["bytes"], PEAK_3XTF32_FLOPS)
+            bound_ms, bound_by = bound(tot["flops"], tot["bytes"], peak)
         print(f"[train] {name}: {launches[name]} launches per step over "
               f"{len(tot['shapes'])} shapes; kernel {tot['ms']:.4f} ms, plain "
               f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}{', 3xTF32' if extra else ''}"
+              f"{bound_ms:.4f} ms ({bound_by}{', ' + extra['bound_rate'] if extra else ''}"
               f"{'; fp32 CUDA cores %.4f ms' % extra['bound_ms_fp32_cuda_cores'] if extra else ''})"
               f"; max |kernel - plain| "
               f"{tot['max_abs_err']:.3g} ({tot['max_rel_err']:.3g} of the largest "

@@ -12,9 +12,9 @@ does, so BatchNorm and everything after it stays fp32.
 Functions per layer: one takes dx from the stock input grad, the other
 (:class:`_WeightGrad`, its own graph node) takes dW from ``ops/dw.py`` (the
 CUDA kernel on the card) and runs only when the weight's gradient is asked
-for, as ``fmri_tpu/ops/conv.py:86-117, 194-231`` compute them. The gate is the JAX one (:62-63, :176-177): stride 1, or
-k5/p2/s2 (deconv: k5/p2/s2 only); any other geometry takes the stock
-backward in both packages.
+for, as ``fmri_tpu/ops/conv.py:86-117, 194-231`` compute them. The gate is
+the JAX one (:62-63, :176-177): stride 1, or k5/p2/s2 (deconv: k5/p2/s2
+only); any other geometry takes the stock backward in both packages.
 
 No tap flip happens in :func:`conv2d_transpose`: torch's transposed conv
 already scatters its kernel the way the reference's ``ConvTranspose2d`` does;

@@ -301,9 +301,11 @@ template <> struct Wgmma<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
+
 // grid (ceil(M / MT), ceil(N / NT), splits), MT * 2 threads (one warpgroup
-// per 64 rows of D); writes out[split][n][m]. Dynamic shared memory: see
-// Layout.
+// per 64 rows of D); writes out[split][n][m]. Dynamic shared memory, from a
+// 1,024-byte boundary: the U ring, the fp32 lo buffers, the S patches, the
+// position offsets, the barriers (sized by `launch`).
 template <typename T, int MT, int NT>
 __global__ void __launch_bounds__(MT * 2, 1)
 dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ out,

@@ -35,7 +35,7 @@ TILE_N = (8, 32, 64, 128)  # N extents of the wgmma tiles
 SMS = 132             # streaming multiprocessors of an H100 SXM
 SMEM_PER_SM = 233472  # bytes of shared memory an SM holds
 REGS_PER_SM = 65536
-REGS_PER_THREAD = 168  # the widest dw_wgmma instance, from ptxas
+REGS_PER_THREAD = 228  # the widest dw_wgmma instance (fp32, 128 x 128), from ptxas
 PATCH_BYTES = 8192    # an S patch at the res64 step's widths, for the model
 MIN_TILES = 8         # reduction tiles per split, at least
 SETUP_TILES = 4       # a block's fixed cost (prologue, epilogue) in tiles
@@ -117,11 +117,6 @@ def _lib():
     return lib
 
 
-def rows_per_tile(dtype: torch.dtype) -> int:
-    """Reduction positions per staged tile: 128 bytes of one run."""
-    return ROW_BYTES // (4 if dtype == torch.float32 else 2)
-
-
 def patch_shape(mt: int, k: int, stride: int, cs: int, pw: int,
                 esz: int = 4) -> tuple[int, int, int, bool]:
     """(Cp, Hp, Wp, within_row) of the S patch one stage of ``csrc/dw.cu``
@@ -145,22 +140,21 @@ def ring_stages(nt: int) -> int:
     return 4 if nt >= 64 else 8
 
 
-def smem_bytes(mt: int, nt: int, patch: int = PATCH_BYTES, esz: int = 4) -> int:
-    """Dynamic shared memory of one block of ``csrc/dw.cu::dw_wgmma``, as its
-    ``launch`` computes it: alignment slack, the U ring (and for fp32 three
-    lo buffers), the S patches (``patch`` bytes each, rounded to 1 KB), the
-    position offsets and the barriers."""
-    del mt  # the S patch stands for the m rows
-    rk, stages = ROW_BYTES // esz, ring_stages(nt)
-    return (1024 + stages * nt * ROW_BYTES + (3 * nt * ROW_BYTES if esz == 4 else 0)
-            + stages * -(-patch // 1024) * 1024 + stages * rk * 4 + stages * 8)
+def smem_bytes(nt: int) -> int:
+    """Dynamic shared memory of one block of ``csrc/dw.cu::dw_wgmma`` with fp32
+    operands, as its ``launch`` computes it: alignment slack, the U ring and
+    three lo buffers, the S patches (``PATCH_BYTES`` each), the position
+    offsets and the barriers."""
+    stages = ring_stages(nt)
+    return (1024 + (stages + 3) * nt * ROW_BYTES + stages * PATCH_BYTES
+            + stages * (ROW_BYTES // 4) * 4 + stages * 8)
 
 
 def resident_blocks(mt: int, nt: int) -> int:
     """Blocks of one tile shape that fit on an SM at once (fp32 operands):
     by shared memory (228 KB, 1 KB of it reserved per block) and by
-    registers (65,536; about 168 a thread)."""
-    return max(1, min(SMEM_PER_SM // (smem_bytes(mt, nt) + 1024),
+    registers (65,536; up to 228 a thread)."""
+    return max(1, min(SMEM_PER_SM // (smem_bytes(nt) + 1024),
                       REGS_PER_SM // (2 * mt * REGS_PER_THREAD)))
 
 
@@ -199,7 +193,7 @@ def tap_matmul(shifted: torch.Tensor, direct: torch.Tensor, k: int, stride: int,
                          "conv2d_dw / conv2d_transpose_dw")
     b, cs, hs, ws = shifted.shape
     _, cu, ph, pw = direct.shape
-    m, rk = cs * k * k, rows_per_tile(shifted.dtype)
+    m, rk = cs * k * k, ROW_BYTES // shifted.element_size()  # positions per tile
     out = torch.empty((cu, cs, k, k), dtype=torch.float32, device=shifted.device)
     if out.numel() == 0 or b * ph * pw == 0:
         return out.zero_()
