@@ -38,10 +38,11 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      kernel launched on the step, ``tap_matmul`` exactly 15 times (one per
      conv/deconv weight use: encoder 3, decoder 4 x 2 passes,
      discriminator 4); every kernel against its plain version at every
-     shape the step gave it, with fp32 and with bf16 operands (BN 1e-5 and
-     dW 1e-4, relative to the largest magnitude of the plain result; fp32
-     dW runs as 3xTF32, bf16 products are exact in fp32), and the same bits
-     twice; the weight grad's time per shape beside the library's;
+     shape the step gave it, with fp32 and with bf16 operands (BN 1e-5;
+     dW 2e-5 with fp32 operands, which run as 3xTF32, and 1e-4 with bf16
+     operands, whose products are exact in fp32; relative to the largest
+     magnitude of the plain result), and the same bits twice; the weight
+     grad's time per shape beside the library's;
   7. kernels: one JSON line per the port's kernels with launches on the
      main path, error against the plain version, warm times from CUDA
      events, and the bound computed from this run's shapes: FLOP at the
@@ -71,6 +72,10 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 DW_LAUNCHES_PER_STEP = 15  # encoder 3, decoder 4 x 2 passes, discriminator 4
 TOL = 1e-5
+# The weight grad against its plain version, relative to the largest plain
+# value. fp32 operands (3xTF32) read 3.1e-6 to 3.8e-6 on an H100; letting the
+# tensor core accumulate a split's stages read 7.4e-5, single-pass TF32 more.
+DW_TOL, DW_TOL_BF16 = 2e-5, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -369,22 +374,23 @@ def train_phase(dev, cfg):
     def bn_rows_err(got, ref):
         return max(rel_err(g, r) for g, r in zip(got, ref))
 
-    specs = [  # (kernel name, recorded entry, kernel, plain, library, error, tol, cost)
+    specs = [  # (kernel name, recorded entry, kernel, plain, library, error,
+        #          (fp32 tol, bf16 tol), cost)
         ("bn_bwd_reduce", "bn_bwd_reduce", bn.bn_bwd_reduce, bn.bn_bwd_reduce_plain,
-         bn_reduce_lib, bn_rows_err, TOL, lambda a: bn_cost(a[0], "reduce")),
+         bn_reduce_lib, bn_rows_err, (TOL, TOL), lambda a: bn_cost(a[0], "reduce")),
         ("bn_bwd_apply", "bn_bwd_apply", bn.bn_bwd_apply, bn.bn_bwd_apply_plain,
-         bn_apply_lib, rel_err, TOL, lambda a: bn_cost(a[0], "apply")),
+         bn_apply_lib, rel_err, (TOL, TOL), lambda a: bn_cost(a[0], "apply")),
         ("tap_matmul", "conv2d_dw", dw.conv2d_dw, dw.conv2d_dw_plain, conv_lib,
-         rel_err, 1e-4, lambda a: dw_cost(a[0], a[1], a[4], a[2], a[3])),
+         rel_err, (DW_TOL, DW_TOL_BF16), lambda a: dw_cost(a[0], a[1], a[4], a[2], a[3])),
         ("tap_matmul", "conv2d_transpose_dw", dw.conv2d_transpose_dw,
-         dw.conv2d_transpose_dw_plain, deconv_lib, rel_err, 1e-4,
+         dw.conv2d_transpose_dw_plain, deconv_lib, rel_err, (DW_TOL, DW_TOL_BF16),
          lambda a: dw_cost(a[1], a[0], a[5], a[2], a[3])),
     ]
     totals = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
                   "bytes": 0, "max_abs_err": 0.0, "max_rel_err": 0.0,
                   "max_rel_err_bf16": 0.0, "shapes": []}
               for n in kernels}
-    for name, entry, kern, plain, lib, err_fn, tol, cost in specs:
+    for name, entry, kern, plain, lib, err_fn, (tol, tol_bf16), cost in specs:
         tot = totals[name]
         for args, count in calls[entry].values():
             got, ref = kern(*args), plain(*args)
@@ -396,12 +402,12 @@ def train_phase(dev, cfg):
             tot["max_abs_err"] = max(tot["max_abs_err"], float((got - ref).abs().max()))
             check(torch.equal(got, kern(*args)), f"{entry}: two runs differ")
             # bf16 activations (the -bf16 presets' operands): products are
-            # exact in fp32 and sums fp32 on both sides, so the same bound
+            # exact in fp32 and sums fp32 on both sides
             half = tuple(a.bfloat16() if torch.is_tensor(a) and a.dim() == 4 else a
                          for a in args)
             err = err_fn(kern(*half), plain(*half))
-            check(err <= tol, f"{entry} bf16 {[tuple(a.shape) for a in args[:2]]}: "
-                              f"relative error {err} > {tol}")
+            check(err <= tol_bf16, f"{entry} bf16 {[tuple(a.shape) for a in args[:2]]}: "
+                                   f"relative error {err} > {tol_bf16}")
             tot["max_rel_err_bf16"] = max(tot["max_rel_err_bf16"], err)
             ms = cuda_ms(lambda: kern(*args), iters=20)
             lib_ms = cuda_ms(lambda: lib(*args), iters=20)

@@ -60,11 +60,13 @@
 //   * The reduction is tiled per image (tiles of RK positions of one
 //     b, zero past PH*PW) and split across blocks; each block writes
 //     its partial tile and a second launch adds the partials in split order.
-//     No atomics: two runs give the same bits. The split count comes from
-//     ops/dw.py::plan, which models waves of blocks on 132 SMs.
+//     No atomics: two runs give the same bits. The tile, the patch and the
+//     split count come from ops/dw.py::plan, which models waves of blocks
+//     on 132 SMs; the C entry checks that the patch holds every tap.
 //   * Where TMA cannot describe an operand (rows not a multiple of 16 bytes,
-//     a box side over 256; no shape of the res64 step), the same threads
-//     fill the same layouts with plain loads.
+//     a box side over 256; no shape of the res64 step, but the res100
+//     step's 25 and 13 px layers), the same threads fill the same layouts
+//     with plain loads.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -419,6 +421,9 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
 
   for (int i = 0; i < kAhead; ++i)
     if (i < ntiles) load(t_lo + i, i);
+  // The plain loads of tile 0 come from every thread, and prepare(0) splits
+  // in place what other warps stored.
+  if (!g.use_tma) __syncthreads();
   if (ntiles > 0) prepare(0);
 
   // acc: the stage on the tensor cores; sum: the block's total, to which
@@ -557,6 +562,7 @@ EncodeTiled encode_tiled() {
 
 constexpr int kEncodeFailed = 1000;  // a TMA map could not be made
 constexpr int kTooLarge = 1001;      // the S patch does not fit in shared memory
+constexpr int kPatchShort = 1002;    // the S patch misses a tap the kernel reads
 
 template <typename T, int MT, int NT>
 int launch(const void* S, const void* U, float* dst, const Geometry& g, int splits,
@@ -625,30 +631,32 @@ int dispatch(int mt, int nt, const void* S, const void* U, float* dst, const Geo
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. mt x nt: the tile of D one block owns (64 x
-// 8, 32, 64 or 128, or 128 x 128), picked by the wrapper (ops/dw.py::plan).
-// The reduction is `tiles_per_image` tiles of RK positions per image, `chunk`
-// tiles per split. With splits > 1, partial is scratch of splits * N * M
-// floats; with splits == 1 the blocks write out directly. out is
-// [Cu, Cs, K, K] float32. Returns 0, a CUDA error code, 1000 when a TMA map
-// cannot be encoded, or 1001 when the S patch of a stage does not fit in
-// shared memory (a narrow kernel with many channels per tile of D).
+// 8, 32, 64 or 128, or 128 x 128); Cp x Hp x Wp: the S patch one stage holds,
+// within_row: a tile's positions lie in one output row. The wrapper picks
+// all of them (ops/dw.py::plan); this entry only checks that the patch holds
+// every (tap, position) pair of a tile. The reduction is `tiles_per_image`
+// tiles of RK positions per image, `chunk` tiles per split. With splits > 1,
+// partial is scratch of splits * N * M floats; with splits == 1 the blocks
+// write out directly. out is [Cu, Cs, K, K] float32. Returns 0, a CUDA error
+// code, 1000 when a TMA map cannot be encoded, 1001 when the S patches do not
+// fit in shared memory, or 1002 when the patch is too small.
 extern "C" int tap_matmul(const void* S, const void* U, float* partial, float* out, int dtype,
                           int mt, int nt, int B, int Cs, int Hs, int Ws, int Cu, int PH,
-                          int PW, int K, int stride, int pad, int splits, int chunk,
-                          void* stream) {
+                          int PW, int K, int stride, int pad, int splits, int chunk, int Cp,
+                          int Hp, int Wp, int within_row, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const int esz = dtype == 0 ? 4 : 2, rk = kRowBytes / esz, phw = PH * PW;
   const int per_image = (phw + rk - 1) / rk;
-  // The patch one tile reads: a run of RK positions inside one output row
-  // when PW is a multiple of RK, else whole rows (at most nrows of them).
-  const int within_row = PW % rk == 0 ? 1 : 0;
-  const int nrows = within_row ? 1 : (rk % PW == 0 ? rk / PW : (rk - 1) / PW + 2);
-  const int cols = within_row ? (rk - 1) * stride + K : (PW - 1) * stride + K;
-  const int unit = 16 / esz;  // TMA rows are whole 16-byte units
-  const int Wp = (cols + 2 * unit - 2) / unit * unit;  // the aligned start adds < unit
-  const int Hp = (nrows - 1) * stride + K;
-  const int Cp = min(Cs, (mt - 1) / (K * K) + 2);
+  // A tile spans one output row (within_row) or up to `rows` of them; its
+  // taps reach K + (rows - 1) * stride input rows and, from a start up to
+  // unit - 1 columns early (TMA boxes start on 16 bytes), `cols` columns.
+  const int unit = 16 / esz;
+  const int rows = within_row ? 1 : (rk % PW == 0 ? rk / PW : (rk - 1) / PW + 2);
+  const int cols = (within_row ? rk - 1 : PW - 1) * stride + K + unit - 1;
+  if ((within_row && PW % rk != 0) || Wp % unit != 0 || Wp < cols ||
+      Hp < (rows - 1) * stride + K || Cp < min(Cs, (mt - 1) / (K * K) + 2))
+    return kPatchShort;
   const long long patch = (long long)Cp * Hp * Wp * esz;
   const int patch_stride = (int)min((patch + 1023) / 1024 * 1024, 1LL << 30);
   const int use_tma = (phw * esz) % 16 == 0 && (Ws * esz) % 16 == 0 &&

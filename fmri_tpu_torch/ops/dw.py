@@ -17,14 +17,17 @@ the compute dtype); the result is fp32. A CUDA tensor launches
 raises; a CPU tensor takes ``*_plain``, one einsum per tap
 (:func:`tap_matmul_plain`). On the card the product runs on the tensor
 cores (``wgmma``): fp32 operands as 3xTF32, bf16 operands in one bf16 pass;
-:func:`plan` picks the tile and the split of the reduction, and
-:func:`patch_shape` mirrors the shared-memory patch the kernel stages.
+:func:`plan` picks the tile, the shared-memory patch of the shifted operand
+(:func:`patch_shape`) and the split of the reduction, and the kernel is
+launched with that geometry (its C entry checks that the patch holds every
+tap it reads).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +39,6 @@ SMS = 132             # streaming multiprocessors of an H100 SXM
 SMEM_PER_SM = 233472  # bytes of shared memory an SM holds
 REGS_PER_SM = 65536
 REGS_PER_THREAD = 228  # the widest dw_wgmma instance (fp32, 128 x 128), from ptxas
-PATCH_BYTES = 8192    # an S patch at the res64 step's widths, for the model
 MIN_TILES = 8         # reduction tiles per split, at least
 SETUP_TILES = 4       # a block's fixed cost (prologue, epilogue) in tiles
 MAX_SPLITS = 512
@@ -113,19 +115,18 @@ def _lib():
     lib = build.load("dw")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tap_matmul.restype = i
-    lib.tap_matmul.argtypes = [p] * 4 + [i] * 15 + [p]
+    lib.tap_matmul.argtypes = [p] * 4 + [i] * 19 + [p]
     return lib
 
 
 def patch_shape(mt: int, k: int, stride: int, cs: int, pw: int,
                 esz: int = 4) -> tuple[int, int, int, bool]:
     """(Cp, Hp, Wp, within_row) of the S patch one stage of ``csrc/dw.cu``
-    stages (its ``tap_matmul`` entry computes the same): the channels that
-    mt consecutive rows of D can span; the input rows under the tile's
-    output rows; and its columns, a run of RK positions when PW is a
-    multiple of RK (``within_row``), else whole rows, from the 16-byte
-    boundary at or below the first column (TMA's rule for where a box
-    starts), rounded up to 16 bytes."""
+    stages: the channels that mt consecutive rows of D can span; the input
+    rows under the tile's output rows; and its columns, a run of RK
+    positions when PW is a multiple of RK (``within_row``), else whole rows,
+    from the 16-byte boundary at or below the first column (TMA's rule for
+    where a box starts), rounded up to 16 bytes."""
     rk = ROW_BYTES // esz
     within_row = pw % rk == 0
     nrows = 1 if within_row else rk // pw if rk % pw == 0 else (rk - 1) // pw + 2
@@ -140,46 +141,67 @@ def ring_stages(nt: int) -> int:
     return 4 if nt >= 64 else 8
 
 
-def smem_bytes(nt: int) -> int:
-    """Dynamic shared memory of one block of ``csrc/dw.cu::dw_wgmma`` with fp32
-    operands, as its ``launch`` computes it: alignment slack, the U ring and
-    three lo buffers, the S patches (``PATCH_BYTES`` each), the position
-    offsets and the barriers."""
+def smem_bytes(nt: int, patch_bytes: int, esz: int = 4) -> int:
+    """Dynamic shared memory of one block of ``csrc/dw.cu::dw_wgmma``, as its
+    ``launch`` computes it: alignment slack, the U ring, three lo buffers
+    for fp32 operands, one S patch of ``patch_bytes`` per stage (on 1 KB
+    boundaries), the position offsets and the barriers."""
     stages = ring_stages(nt)
-    return (1024 + (stages + 3) * nt * ROW_BYTES + stages * PATCH_BYTES
-            + stages * (ROW_BYTES // 4) * 4 + stages * 8)
+    return (1024 + (stages + (3 if esz == 4 else 0)) * nt * ROW_BYTES
+            + stages * -(-patch_bytes // 1024) * 1024
+            + stages * (ROW_BYTES // esz) * 4 + stages * 8)
 
 
-def resident_blocks(mt: int, nt: int) -> int:
-    """Blocks of one tile shape that fit on an SM at once (fp32 operands):
-    by shared memory (228 KB, 1 KB of it reserved per block) and by
-    registers (65,536; up to 228 a thread)."""
-    return max(1, min(SMEM_PER_SM // (smem_bytes(nt) + 1024),
+def resident_blocks(mt: int, nt: int, patch_bytes: int, esz: int = 4) -> int:
+    """Blocks of one tile shape that fit on an SM at once: by shared memory
+    (228 KB, 1 KB of it reserved per block) and by registers (65,536; up to
+    228 a thread)."""
+    return max(1, min(SMEM_PER_SM // (smem_bytes(nt, patch_bytes, esz) + 1024),
                       REGS_PER_SM // (2 * mt * REGS_PER_THREAD)))
 
 
-def plan(m: int, n: int, tiles: int) -> tuple[int, int, int, int]:
-    """(mt, nt, splits, chunk) for D = [n, m] summed over ``tiles`` reduction
-    tiles: the narrowest wgmma N extent that covers n (128 for wider n, in
-    several tiles); two warpgroups (mt = 128) at that width, one
-    otherwise; and the split of the tiles that minimises a model of the run
-    time, waves of blocks on the card (``resident_blocks`` per SM) times the
+class Plan(NamedTuple):
+    """One launch of ``csrc/dw.cu``: the tile of D a block owns (mt x nt),
+    the split of the reduction (``splits`` runs of ``chunk`` tiles), and the
+    S patch a stage holds (:func:`patch_shape`)."""
+    mt: int
+    nt: int
+    splits: int
+    chunk: int
+    cp: int
+    hp: int
+    wp: int
+    within_row: bool
+
+
+def plan(shifted_shape, direct_shape, k: int, stride: int, esz: int = 4) -> Plan:
+    """The launch of :func:`tap_matmul` for S ``shifted_shape`` and U
+    ``direct_shape`` (NCHW) with ``esz``-byte operands. D is [n, m] = [Cu,
+    Cs*k*k], summed over B * ceil(PH*PW / RK) reduction tiles. The tile: the
+    narrowest wgmma N extent that covers n (128 for wider n, in several
+    tiles); two warpgroups (mt = 128) at that width, one otherwise. The
+    split minimises a model of the run time, waves of blocks on the card
+    (``resident_blocks`` per SM, from this launch's shared memory) times the
     tiles of one block plus its fixed cost. Each split holds ``chunk``
     consecutive tiles, the last fewer."""
     def cdiv(a, b):
         return -(-a // b)
 
+    b, cs = shifted_shape[:2]
+    _, n, ph, pw = direct_shape
+    m, tiles = cs * k * k, b * cdiv(ph * pw, ROW_BYTES // esz)
     nt = next((t for t in TILE_N if n <= t), TILE_N[-1])
     mt = 128 if nt == 128 and m > 64 else 64
+    cp, hp, wp, within_row = patch_shape(mt, k, stride, cs, pw, esz)
     blocks = cdiv(m, mt) * cdiv(n, nt)
-    resident = SMS * resident_blocks(mt, nt)
+    resident = SMS * resident_blocks(mt, nt, cp * hp * wp * esz, esz)
     best = None
     for s in range(1, max(1, min(MAX_SPLITS, tiles // MIN_TILES)) + 1):
         cost = cdiv(blocks * s, resident) * (cdiv(tiles, s) + SETUP_TILES)
         if best is None or cost < best[0]:
             best = (cost, s)
     chunk = cdiv(tiles, best[1])
-    return mt, nt, cdiv(tiles, chunk), chunk
+    return Plan(mt, nt, cdiv(tiles, chunk), chunk, cp, hp, wp, within_row)
 
 
 def tap_matmul(shifted: torch.Tensor, direct: torch.Tensor, k: int, stride: int,
@@ -193,23 +215,23 @@ def tap_matmul(shifted: torch.Tensor, direct: torch.Tensor, k: int, stride: int,
                          "conv2d_dw / conv2d_transpose_dw")
     b, cs, hs, ws = shifted.shape
     _, cu, ph, pw = direct.shape
-    m, rk = cs * k * k, ROW_BYTES // shifted.element_size()  # positions per tile
     out = torch.empty((cu, cs, k, k), dtype=torch.float32, device=shifted.device)
     if out.numel() == 0 or b * ph * pw == 0:
         return out.zero_()
-    mt, nt, splits, chunk = plan(m, cu, b * -(-(ph * pw) // rk))
-    partial = (torch.empty((splits, cu, m), dtype=torch.float32,
-                           device=shifted.device) if splits > 1 else out)
+    p = plan(shifted.shape, direct.shape, k, stride, shifted.element_size())
+    partial = (torch.empty((p.splits, cu, cs * k * k), dtype=torch.float32,
+                           device=shifted.device) if p.splits > 1 else out)
     with torch.cuda.device(shifted.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().tap_matmul(shifted.data_ptr(), direct.data_ptr(),
                                partial.data_ptr(), out.data_ptr(),
-                               KERNEL_DTYPES[shifted.dtype], mt, nt, b, cs, hs, ws,
-                               cu, ph, pw, k, stride, pad, splits, chunk, stream)
+                               KERNEL_DTYPES[shifted.dtype], p.mt, p.nt, b, cs, hs, ws,
+                               cu, ph, pw, k, stride, pad, p.splits, p.chunk, p.cp,
+                               p.hp, p.wp, int(p.within_row), stream)
     if rc != 0:
         raise RuntimeError(f"tap_matmul launch failed with code {rc} (a CUDA "
                            f"error; 1000: no TMA descriptor; 1001: the S patch does not fit in "
-                           f"shared memory) "
+                           f"shared memory; 1002: the S patch misses a tap) "
                            f"(shifted {tuple(shifted.shape)}, direct "
                            f"{tuple(direct.shape)}, k {k}, stride {stride})")
     tap_matmul.launches += 1

@@ -129,13 +129,20 @@ DW_CASES = [("conv", 192, 3, 64, 32, 1), ("conv", 64, 64, 32, 128, 2),
             ("conv", 192, 128, 32, 256, 2), ("conv", 192, 256, 16, 256, 2)]
 
 
+# |kernel - plain| over the plain result's largest magnitude. fp32: 3xTF32
+# reads 3.1e-6 to 3.8e-6 at the res64 step's shapes on an H100, and a kernel that lets
+# the tensor core accumulate a split's stages read 7.4e-5, so 2e-5 tells them
+# apart; single-pass TF32 is further off. bf16: exact products, fp32 sums.
+DW_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-4}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind,b,ci,h,co,stride", DW_CASES)
 def test_dw_kernel_matches_plain(cuda_device, kind, b, ci, h, co, stride, dtype):
     """The weight-grad kernel at res64 step shapes (the last two: the
     discriminator's 128->256 and 256->256 stride-2 convs at batch 192) and
     one ragged shape (PH*PW = 25: no TMA box, the plain-load path): within
-    1e-4 of the plain version's largest magnitude (fp32 operands as
+    ``DW_TOL`` of the plain version's largest magnitude (fp32 operands as
     3xTF32, bf16 operands exact in fp32, sums in fp32), and the same bits
     from run to run."""
     g = torch.Generator(device=cuda_device).manual_seed(b + ci + h + co)
@@ -151,8 +158,41 @@ def test_dw_kernel_matches_plain(cuda_device, kind, b, ci, h, co, stride, dtype)
         ref = port_dw.conv2d_transpose_dw_plain(x, dy, 2, 2, 1, 5)
         again = port_dw.conv2d_transpose_dw(x, dy, 2, 2, 1, 5)
     assert got.dtype == torch.float32 and got.shape == ref.shape
-    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= DW_TOL[dtype] * float(ref.abs().max())
     assert torch.equal(got, again)
+
+
+# (S, U, stride) of the res100 step's weight grads at its batch of 100: the
+# encoder, the decoder's deconvs (S = dy, U = x) and out conv, and the
+# discriminator's two narrowest convs (batch 300). U rows of 625 or 169
+# positions, or S rows of 25 or 13 columns, are not whole 16-byte units, so
+# these take the plain-load path (all of them with bf16 operands).
+RES100_DW = [((100, 3, 100, 100), (100, 64, 50, 50), 2),
+             ((100, 64, 50, 50), (100, 128, 25, 25), 2),
+             ((100, 128, 25, 25), (100, 256, 13, 13), 2),
+             ((100, 256, 25, 25), (100, 256, 13, 13), 2),
+             ((100, 128, 50, 50), (100, 256, 25, 25), 2),
+             ((100, 64, 100, 100), (100, 128, 50, 50), 2),
+             ((100, 64, 100, 100), (100, 3, 100, 100), 1),
+             ((300, 128, 25, 25), (300, 256, 13, 13), 2),
+             ((300, 256, 13, 13), (300, 256, 7, 7), 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_shape,u_shape,stride", RES100_DW)
+def test_dw_kernel_res100_shapes_are_reproducible(cuda_device, s_shape, u_shape, stride,
+                                                  dtype):
+    """The weight-grad kernel at the res100 step's shapes, most of them on
+    the plain-load path: within ``DW_TOL`` of the plain version, and the same
+    bits in four runs."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(s_shape) + sum(u_shape))
+    s = torch.randn(s_shape, generator=g, device=cuda_device).to(dtype)
+    u = torch.randn(u_shape, generator=g, device=cuda_device).to(dtype)
+    runs = [port_dw.tap_matmul(s, u, 5, stride, 2) for _ in range(4)]
+    ref = port_dw.tap_matmul_plain(s, u, 5, stride, 2)
+    assert runs[0].shape == ref.shape == (u_shape[1], s_shape[1], 5, 5)
+    assert float((runs[0] - ref).abs().max()) <= DW_TOL[dtype] * float(ref.abs().max())
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
 
 
 def test_train_wrappers_check_their_operands(cuda_device):

@@ -140,7 +140,7 @@ def test_out_of_scope_geometry_takes_the_stock_backward():
 
 def _emulate_kernel(shifted, direct, k, stride, pad, esz=4):
     """csrc/dw.cu's indexing in numpy (float64): the wrapper's plan (mt, nt,
-    splits, chunk); the reduction in tiles of RK positions of one image,
+    splits, chunk and the S patch [Cp, Hp, Wp]); the reduction in tiles of RK positions of one image,
     zero past PH*PW (TMA's out-of-bounds fill for U); n padded to whole nt
     tiles (zero past Cu); per block of mt rows and per tile, the S patch
     [Cp, Hp, Wp] at (cs_lo, h0, w0) with zeros outside S, each thread's row
@@ -151,8 +151,8 @@ def _emulate_kernel(shifted, direct, k, stride, pad, esz=4):
     _, cu, ph_n, pw_n = direct.shape
     m_n, phw, rk = cs * k * k, ph_n * pw_n, dw.ROW_BYTES // esz
     per_image = -(-phw // rk)
-    mt, nt, splits, chunk = dw.plan(m_n, cu, b * per_image)
-    cp, hp, wp, within_row = dw.patch_shape(mt, k, stride, cs, pw_n, esz)
+    mt, nt, splits, chunk, cp, hp, wp, within_row = dw.plan(shifted.shape, direct.shape,
+                                                            k, stride, esz)
     n_pad = -(-cu // nt) * nt
     u_pad = np.zeros((b, n_pad, per_image * rk))
     u_pad[:, :cu, :phw] = direct.reshape(b, cu, phw)
@@ -214,20 +214,45 @@ def test_kernel_index_arithmetic_emulated(kind, b, ci, h, co, stride):
     np.testing.assert_allclose(got, ref.double().numpy(), rtol=1e-5, atol=1e-4)
 
 
-# (m, n, tiles) of the 11 distinct fp32 calls of the res64 step, and edges
-STEP_PLANS = [(75, 64, 2048), (1600, 128, 512), (3200, 256, 128), (6400, 256, 128),
-              (3200, 256, 512), (800, 128, 2048), (800, 3, 8192), (75, 32, 24576),
-              (800, 128, 6144), (3200, 256, 1536), (6400, 256, 384), (25, 1, 1),
-              (175, 7, 3)]
+# (S, U, stride) of the 11 distinct fp32 calls of the res64 step, and edges
+STEP_CALLS = [((64, 3, 64, 64), (64, 64, 32, 32), 2), ((64, 64, 32, 32), (64, 128, 16, 16), 2),
+              ((64, 128, 16, 16), (64, 256, 8, 8), 2), ((64, 256, 16, 16), (64, 256, 8, 8), 2),
+              ((64, 128, 32, 32), (64, 256, 16, 16), 2), ((64, 32, 64, 64), (64, 128, 32, 32), 2),
+              ((64, 32, 64, 64), (64, 3, 64, 64), 1), ((192, 3, 64, 64), (192, 32, 64, 64), 1),
+              ((192, 32, 64, 64), (192, 128, 32, 32), 2),
+              ((192, 128, 32, 32), (192, 256, 16, 16), 2),
+              ((192, 256, 16, 16), (192, 256, 8, 8), 2), ((1, 1, 4, 4), (1, 1, 4, 4), 1),
+              ((3, 7, 9, 9), (3, 7, 5, 5), 2)]
+# the 11 distinct calls of the res100 step (batch 100; discriminator 300)
+RES100_CALLS = [((100, 3, 100, 100), (100, 64, 50, 50), 2),
+                ((100, 64, 50, 50), (100, 128, 25, 25), 2),
+                ((100, 128, 25, 25), (100, 256, 13, 13), 2),
+                ((100, 256, 25, 25), (100, 256, 13, 13), 2),
+                ((100, 128, 50, 50), (100, 256, 25, 25), 2),
+                ((100, 64, 100, 100), (100, 128, 50, 50), 2),
+                ((100, 64, 100, 100), (100, 3, 100, 100), 1),
+                ((300, 3, 100, 100), (300, 32, 50, 50), 2),
+                ((300, 32, 50, 50), (300, 128, 25, 25), 2),
+                ((300, 128, 25, 25), (300, 256, 13, 13), 2),
+                ((300, 256, 13, 13), (300, 256, 7, 7), 2)]
 
 
-@pytest.mark.parametrize("m,n,tiles", STEP_PLANS)
-def test_plan_covers_the_reduction(m, n, tiles):
+def _m_n_tiles(s_shape, u_shape):
+    """(m, n, reduction tiles) of a call with fp32 operands."""
+    return s_shape[1] * 25, u_shape[1], s_shape[0] * -(-(u_shape[2] * u_shape[3]) // 32)
+
+
+@pytest.mark.parametrize("s_shape,u_shape,stride", STEP_CALLS + RES100_CALLS, ids=[
+    "-".join(map(str, _m_n_tiles(s, u))) for s, u, _ in STEP_CALLS + RES100_CALLS])
+def test_plan_covers_the_reduction(s_shape, u_shape, stride):
     """Every tile in exactly one split; the narrowest N extent that covers
     n (three output channels: a 64 x 8 tile); splits at least MIN_TILES
-    long; and at least 95% of a wave of blocks on the card wherever the
-    reduction is long enough to split that far."""
-    mt, nt, splits, chunk = dw.plan(m, n, tiles)
+    long; at least 95% of a wave of blocks on the card wherever the
+    reduction is long enough to split that far; and the patch of the plan
+    is the one ``patch_shape`` gives, with the block's shared memory inside
+    the 227 KB an SM grants one block."""
+    m, n, tiles = _m_n_tiles(s_shape, u_shape)
+    mt, nt, splits, chunk, cp, hp, wp, within_row = dw.plan(s_shape, u_shape, 5, stride)
     assert nt == next((t for t in dw.TILE_N if n <= t), 128) and mt in (64, 128)
     assert (splits - 1) * chunk < tiles <= splits * chunk
     assert splits == 1 or chunk >= dw.MIN_TILES
@@ -235,6 +260,8 @@ def test_plan_covers_the_reduction(m, n, tiles):
     assert blocks * splits >= min(0.95 * dw.SMS, blocks * (tiles // dw.MIN_TILES))
     if n == 3:
         assert (mt, nt) == (64, 8)
+    assert (cp, hp, wp, within_row) == dw.patch_shape(mt, 5, stride, s_shape[1], u_shape[3])
+    assert dw.smem_bytes(nt, cp * hp * wp * 4) <= 232448
 
 
 def _tf32(a):
@@ -292,7 +319,7 @@ def test_split_tf32_arithmetic_holds_the_fp32_bound():
     x[:, :2], x[:, -2:], x[:, :, :2], x[:, :, -2:] = 0, 0, 0, 0  # the zero padding
     a = np.stack([x[:, 2:2 + hw, kw:kw + hw].reshape(-1) for kw in range(5)], 1)
     u = rng.normal(size=(b * hw * hw, 4)).astype(np.float32)
-    _, _, splits, chunk = dw.plan(75, 32, b * hw * hw // 32)
+    splits, chunk = dw.plan((b, 3, hw, hw), (b, 32, hw, hw), 5, 1)[2:4]
     exact = a.astype(np.float64).T @ u.astype(np.float64)
     scale = np.abs(exact).max()
     got = _split3_dot(a, u, splits, chunk)
