@@ -174,7 +174,9 @@ class Plan(NamedTuple):
     within_row: bool
 
 
-def plan(shifted_shape, direct_shape, k: int, stride: int, esz: int = 4) -> Plan:
+@functools.cache
+def plan(shifted_shape: tuple, direct_shape: tuple, k: int, stride: int,
+         esz: int = 4) -> Plan:
     """The launch of :func:`tap_matmul` for S ``shifted_shape`` and U
     ``direct_shape`` (NCHW) with ``esz``-byte operands. D is [n, m] = [Cu,
     Cs*k*k], summed over B * ceil(PH*PW / RK) reduction tiles. The tile: the
@@ -183,7 +185,8 @@ def plan(shifted_shape, direct_shape, k: int, stride: int, esz: int = 4) -> Plan
     split minimises a model of the run time, waves of blocks on the card
     (``resident_blocks`` per SM, from this launch's shared memory) times the
     tiles of one block plus its fixed cost. Each split holds ``chunk``
-    consecutive tiles, the last fewer."""
+    consecutive tiles, the last fewer. Kept per shape: the search takes up
+    to 0.2 ms of host time, as long as a narrow call's kernel."""
     def cdiv(a, b):
         return -(-a // b)
 
@@ -218,7 +221,7 @@ def tap_matmul(shifted: torch.Tensor, direct: torch.Tensor, k: int, stride: int,
     out = torch.empty((cu, cs, k, k), dtype=torch.float32, device=shifted.device)
     if out.numel() == 0 or b * ph * pw == 0:
         return out.zero_()
-    p = plan(shifted.shape, direct.shape, k, stride, shifted.element_size())
+    p = plan(tuple(shifted.shape), tuple(direct.shape), k, stride, shifted.element_size())
     partial = (torch.empty((p.splits, cu, cs * k * k), dtype=torch.float32,
                            device=shifted.device) if p.splits > 1 else out)
     with torch.cuda.device(shifted.device):
