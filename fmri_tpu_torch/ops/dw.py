@@ -185,8 +185,9 @@ def plan(shifted_shape: tuple, direct_shape: tuple, k: int, stride: int,
     split minimises a model of the run time, waves of blocks on the card
     (``resident_blocks`` per SM, from this launch's shared memory) times the
     tiles of one block plus its fixed cost. Each split holds ``chunk``
-    consecutive tiles, the last fewer. Kept per shape: the search takes up
-    to 0.2 ms of host time, as long as a narrow call's kernel."""
+    consecutive tiles, the last fewer. Kept per shape: the search loops
+    over up to 512 split counts in Python, host time on the order of a
+    narrow call's kernel."""
     def cdiv(a, b):
         return -(-a // b)
 
