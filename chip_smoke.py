@@ -14,7 +14,9 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      ``from_jax_groups``; 1,024 synthetic pairs at batch 64 through
      ``reconstruct_dataset``, ``quality_metrics`` and ``objective_scores``
      (2/5/10-way). The SSIM kernel's launches are counted over this phase
-     alone and must be above 0; the metrics must agree with the same run on
+     alone and must be above 0, and each is recorded with its shape (1,024
+     images for ``quality_metrics``, 2,048, 5,120 and 10,240 for the n-way
+     tests); the metrics must agree with the same run on
      the plain SSIM (SSIM within 1e-5, n-way fractions within 1/N), and a
      small batch must agree with the same model on the CPU (atol 1e-4: cuDNN
      may pick FFT or Winograd convolutions, which round differently);
@@ -43,12 +45,20 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      operands, whose products are exact in fp32; relative to the largest
      magnitude of the plain result), and the same bits twice; the weight
      grad's time per shape beside the library's;
-  7. kernels: one JSON line per the port's kernels with launches on the
-     main path, error against the plain version, warm times from CUDA
-     events, and the bound computed from this run's shapes: FLOP at the
-     rate of the unit the kernel uses (``tap_matmul``: 3xTF32 on the tensor
-     cores, with the fp32 CUDA-core bound beside it as
-     ``bound_ms_fp32_cuda_cores``), or bytes at the memory rate.
+  7. kernels: SSIM at every shape phase 4 recorded, against its plain
+     version (the mean within 1e-5), per image against the plain version
+     in float64 (``SSIM_IMAGE_TOL``), and the same bits twice; then one JSON line
+     per the port's kernels with launches on the main path, error against
+     the plain version, warm times summed over the main path's calls, and
+     the bound computed from this run's shapes: FLOP at the rate of the
+     unit the kernel uses (``tap_matmul``: 3xTF32 on the tensor cores, with
+     the fp32 CUDA-core bound beside it as ``bound_ms_fp32_cuda_cores``),
+     or bytes at the memory rate. ``ms`` times back-to-back wrapper calls
+     with CUDA events (what the path feels, the host's cost included);
+     ``device_ms`` replays a CUDA graph of the same calls (the card's time
+     alone; ``device_ms_source`` says if the profiler stood in). Each
+     entry's ``shapes`` gives both per shape; SSIM's ``ms_b1024`` is its
+     time at [1024, 64, 64, 3] alone.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -76,6 +86,11 @@ TOL = 1e-5
 # value. fp32 operands (3xTF32) read 3e-6 to 4e-6 on an H100; letting the
 # tensor core accumulate a split's stages read 7.4e-5, single-pass TF32 more.
 DW_TOL, DW_TOL_BF16 = 2e-5, 1e-4
+# SSIM per image against float64 (the n-way tests compare per-image scores):
+# fp32 cancellation in flat regions moves an image's mean by up to ~1e-4
+# (the kernel and ssim_plain alike), so this bound catches a wrong window,
+# tap or band, not rounding
+SSIM_IMAGE_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -103,10 +118,55 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, calls: int = 20, replays: int = 5):
+    """(ms, source): the card's time for one call of ``fn`` without the
+    host's cost. A CUDA graph captures ``calls`` back-to-back calls and is
+    replayed ``replays`` times between two events (source "cuda_graph").
+    Where capture refuses a call, the device time of the kernels that
+    ``torch.profiler`` sees over ``calls`` calls (source "profiler")."""
+    import torch
+
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()  # warm on the stream that captures
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        del graph
+        return start.elapsed_time(end) / (replays * calls), "cuda_graph"
+    except RuntimeError:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+        return us / 1e3 / calls, "profiler"
+
+
 def ssim_bound(shape, window: int = 11):
     """(bound ms, bound_by) of one SSIM over NHWC fp32 ``shape``: the larger
-    of its FLOP over the fp32 peak and its bytes (both inputs read once, one
-    sum per plane written) over the memory rate. FLOP the function needs, per
+    of its FLOP over the fp32 peak and its bytes over the memory rate."""
+    return bound(*ssim_cost(shape, window))
+
+
+def ssim_cost(shape, window: int = 11):
+    """(FLOP, bytes) of one SSIM over NHWC fp32 ``shape``: both inputs read
+    once, one sum per plane written. FLOP the function needs, per
     plane: the separable blur, 5 moments x 2 FLOP per tap, counting only the
     taps that land on the image (horizontal pass over the H real rows,
     vertical pass over the H' output rows; taps on the zero padding add
@@ -126,7 +186,7 @@ def ssim_bound(shape, window: int = 11):
                  + 3 * h * w + 18 * ho * wo)
     flops = per_plane * b * c
     nbytes = 2 * b * h * w * c * 4 + b * c * 4
-    return bound(flops, nbytes)
+    return flops, nbytes
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
@@ -386,7 +446,8 @@ def train_phase(dev, cfg):
          dw.conv2d_transpose_dw_plain, deconv_lib, rel_err, (DW_TOL, DW_TOL_BF16),
          lambda a: dw_cost(a[1], a[0], a[5], a[2], a[3])),
     ]
-    totals = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
+    totals = {n: {"ms": 0.0, "device_ms": 0.0, "device_ms_source": set(),
+                  "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
                   "bytes": 0, "max_abs_err": 0.0, "max_rel_err": 0.0,
                   "max_rel_err_bf16": 0.0, "shapes": []}
               for n in kernels}
@@ -410,20 +471,29 @@ def train_phase(dev, cfg):
                                    f"relative error {err} > {tol_bf16}")
             tot["max_rel_err_bf16"] = max(tot["max_rel_err_bf16"], err)
             ms = cuda_ms(lambda: kern(*args), iters=20)
+            dev_ms, source = device_ms(lambda: kern(*args))
             lib_ms = cuda_ms(lambda: lib(*args), iters=20)
             tot["ms"] += count * ms
+            tot["device_ms"] += count * dev_ms
+            tot["device_ms_source"].add(source)
             tot["plain_ms"] += count * cuda_ms(lambda: plain(*args), iters=5, warmup=1)
             tot["library_ms"] += count * lib_ms
             flops, nbytes = cost(args)
             tot["flops"] += count * flops
             tot["bytes"] += count * nbytes
-            shape = {"call": entry, "count": count, "ms": ms, "library_ms": lib_ms,
-                     "gflop": flops / 1e9, "args": [
+            shape = {"call": entry, "count": count, "ms": ms, "device_ms": dev_ms,
+                     "library_ms": lib_ms, "gflop": flops / 1e9, "args": [
                          list(a.shape) if torch.is_tensor(a) else a for a in args]}
             if name == "tap_matmul":
                 print(f"[train] tap_matmul {entry} {shape['args'][:2]} x{count}: "
-                      f"{ms:.4f} ms per call ({flops / ms / 1e9:.1f} TFLOP/s), "
-                      f"library {lib_ms:.4f} ms", flush=True)
+                      f"{ms:.4f} ms per call ({flops / ms / 1e9:.1f} TFLOP/s), device "
+                      f"{dev_ms:.4f} ms, library {lib_ms:.4f} ms", flush=True)
+            elif name == "bn_bwd_apply":
+                shape["bound_ms"] = bound(flops, nbytes)[0]
+                print(f"[train] bn_bwd_apply {shape['args'][0]} {args[0].dtype} x{count}: "
+                      f"{ms:.4f} ms per call, device {dev_ms:.4f} ms, library "
+                      f"{lib_ms:.4f} ms, bound {shape['bound_ms']:.4f} ms (bytes)",
+                      flush=True)
             tot["shapes"].append(shape)
     entries = []
     for name, tot in totals.items():
@@ -437,7 +507,8 @@ def train_phase(dev, cfg):
                      "bound_ms_fp32_cuda_cores": bound_ms, "gflop": tot["flops"] / 1e9}
             bound_ms, bound_by = bound(tot["flops"], tot["bytes"], peak)
         print(f"[train] {name}: {launches[name]} launches per step over "
-              f"{len(tot['shapes'])} shapes; kernel {tot['ms']:.4f} ms, plain "
+              f"{len(tot['shapes'])} shapes; kernel {tot['ms']:.4f} ms (device "
+              f"{tot['device_ms']:.4f} ms), plain "
               f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}{', ' + extra['bound_rate'] if extra else ''}"
               f"{'; fp32 CUDA cores %.4f ms' % extra['bound_ms_fp32_cuda_cores'] if extra else ''})"
@@ -453,7 +524,9 @@ def train_phase(dev, cfg):
                          "bn_bwd_apply": "fmri_tpu/ops/pallas_bn.py:97",
                          "tap_matmul": "fmri_tpu/ops/pallas_dw.py:71"}[name],
             "launches": launches[name], "max_abs_err": tot["max_abs_err"],
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": bound_ms,
+            "ms": tot["ms"], "device_ms": tot["device_ms"],
+            "device_ms_source": "+".join(sorted(tot["device_ms_source"])),
+            "plain_ms": tot["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": tot["library_ms"], **extra,
             "shapes": tot["shapes"]})
     return entries
@@ -476,6 +549,7 @@ def main() -> None:
         from fmri_tpu_torch.eval.steps import VaeGanCognitive
         from fmri_tpu_torch.metrics.quality import distractor_indices
         from fmri_tpu_torch.ops import build
+        from fmri_tpu_torch.ops import ssim as ssim_ops
         from fmri_tpu_torch.ops.ssim import ssim, ssim_plain, ssim_plane_sums
     except ImportError as e:
         fail(f"run from the root of a checkout of the repository ({e})")
@@ -540,9 +614,16 @@ def main() -> None:
         s = stage("objective_scores", lambda: objective_scores(r, t, tops=(2, 5, 10)))
         return r, t, m, s, seconds
 
+    # the main path's run: every SSIM launch recorded with its shape
+    ssim_calls = {}
+    recorder = Recorder(ssim_ops, "ssim_plane_sums", ssim_calls)
     ssim_plane_sums.launches = 0
     recons, targets, metrics, scores, cold = main_path()
     launches = {"ssim": ssim_plane_sums.launches}
+    recorder.restore()
+    recorded = sum(count for _, count in ssim_calls.values())
+    check(recorded == launches["ssim"],
+          f"ssim: {launches['ssim']} launches but {recorded} recorded calls")
     warm = main_path()[-1]
     print(f"[inference] {n} images; metrics {metrics}; objective {scores}; "
           f"launches {launches}", flush=True)
@@ -613,14 +694,50 @@ def main() -> None:
     # 6. train
     train_kernels = train_phase(dev, cfg)
 
-    # 7. kernels line; ssim at the main path's quality_metrics shape
-    a, b = recons, targets
-    ms = cuda_ms(lambda: ssim_plane_sums(a, b))
-    entry_ms = cuda_ms(lambda: ssim(a, b))
-    plain_ms = cuda_ms(lambda: ssim_plain(a, b), iters=10)
-    bound_ms, bound_by = ssim_bound(tuple(a.shape))
-    print(f"[kernels] ssim {list(a.shape)}: kernel alone {ms:.4f} ms, ssim() with "
-          f"the wrapper's float64 mean {entry_ms:.4f} ms, plain {plain_ms:.4f} ms",
+    # 7. kernels line; ssim at every shape the inference run gave it, each
+    #    held against the plain version, times summed over the run's launches
+    ssim_tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "flops": 0.0,
+                "bytes": 0.0, "sources": set(), "shapes": []}
+    ms_b1024 = None
+    for (a, b, *rest), count in ssim_calls.values():
+        err = abs(float(ssim(a, b, *rest)) - float(ssim_plain(a, b, *rest)))
+        check(err <= TOL, f"ssim {list(a.shape)}: |kernel - plain| = {err} > {TOL}")
+        check(torch.equal(ssim_plane_sums(a, b, *rest), ssim_plane_sums(a, b, *rest)),
+              f"ssim {list(a.shape)}: two runs differ")
+        # per image, both fp32 versions against float64: in flat regions the
+        # variances E[x^2] - mu^2 cancel down to C2 = 9e-4, where fp32
+        # rounding moves a pixel's score by about 1e-4
+        exact = ssim_plain(a.double(), b.double(), *rest, size_average=False)
+        img_err = float((ssim(a, b, *rest, size_average=False) - exact).abs().max())
+        img_err_plain = float((ssim_plain(a, b, *rest, size_average=False)
+                               - exact).abs().max())
+        check(img_err <= SSIM_IMAGE_TOL,
+              f"ssim {list(a.shape)}: per image {img_err} from float64 > {SSIM_IMAGE_TOL}")
+        max_err = max(max_err, err)
+        ms = cuda_ms(lambda: ssim_plane_sums(a, b, *rest), iters=20)
+        dev_ms, source = device_ms(lambda: ssim_plane_sums(a, b, *rest))
+        plain_ms = cuda_ms(lambda: ssim_plain(a, b, *rest, size_average=False),
+                           iters=3, warmup=1)
+        bound_ms, bound_by = ssim_bound(tuple(a.shape))
+        flops, nbytes = ssim_cost(tuple(a.shape))
+        if tuple(a.shape) == (1024, 64, 64, 3):
+            ms_b1024 = ms
+        for key, v in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
+                       ("flops", flops), ("bytes", nbytes)):
+            ssim_tot[key] += count * v
+        ssim_tot["sources"].add(source)
+        ssim_tot["shapes"].append({"shape": list(a.shape), "count": count, "ms": ms,
+                                   "device_ms": dev_ms, "plain_ms": plain_ms,
+                                   "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"[kernels] ssim {list(a.shape)} x{count}: {ms:.4f} ms per call, device "
+              f"{dev_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {100 * bound_ms / dev_ms:.1f}% of it on the device), "
+              f"|kernel - plain| {err:.3g}; per image from float64: kernel "
+              f"{img_err:.3g}, plain {img_err_plain:.3g}", flush=True)
+    bound_ms, bound_by = bound(ssim_tot["flops"], ssim_tot["bytes"])
+    print(f"[kernels] ssim per inference run: {launches['ssim']} launches, "
+          f"{ssim_tot['ms']:.4f} ms (device {ssim_tot['device_ms']:.4f} ms), plain "
+          f"{ssim_tot['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
           flush=True)
     kernels = [{
         "name": "ssim",
@@ -629,12 +746,15 @@ def main() -> None:
         "replaces": "fmri_tpu/ops/pallas_ssim.py:79",
         "launches": launches["ssim"],
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "ms": ssim_tot["ms"],
+        "device_ms": ssim_tot["device_ms"],
+        "device_ms_source": "+".join(sorted(ssim_tot["sources"])),
+        "plain_ms": ssim_tot["plain_ms"],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-        "shape": list(a.shape),
+        "ms_b1024": ms_b1024,
+        "shapes": ssim_tot["shapes"],
     }] + train_kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -107,7 +107,7 @@ def _lib():
     lib.bn_bwd_reduce.restype = i
     lib.bn_bwd_reduce.argtypes = [p] * 6 + [i, i, ll, ll, i, p]
     lib.bn_bwd_apply.restype = i
-    lib.bn_bwd_apply.argtypes = [p] * 9 + [i, i, ll, ll, ctypes.c_float, i, p]
+    lib.bn_bwd_apply.argtypes = [p] * 9 + [i, i, ll, ll, ctypes.c_float, i, i, i, i, p]
     return lib
 
 
@@ -145,27 +145,49 @@ def bn_bwd_reduce(x: torch.Tensor, dy: torch.Tensor, mu: torch.Tensor,
 bn_bwd_reduce.launches = 0
 
 
+@functools.lru_cache(maxsize=256)
+def apply_plan(c: int, s: int, runs: int, elem_bytes: int, aligned: bool):
+    """(vector width, log2 threads per run, blocks_x, blocks_y) of the apply
+    kernel over ``runs`` = B * C runs of S elements of ``elem_bytes`` each.
+    Vectors are 16 bytes (4 fp32, 8 bf16) when x, dy and dx start on 16
+    bytes. S > 1: a power-of-two row of threads per run, sized so each
+    thread makes about four vectors, and at most ``TARGET_BLOCKS`` blocks
+    striding over the runs (blocks_y = 1). S = 1: one thread per vector of
+    channels (which needs C to be a multiple of the vector), blocks_y
+    blocks striding over the N = runs / C rows."""
+    full = 16 // elem_bytes
+    if s == 1:
+        vec = full if aligned and c % full == 0 else 1
+        bx = -(-(c // vec) // THREADS)
+        return vec, 0, bx, max(1, min(runs // c, TARGET_BLOCKS // bx))
+    vec = full if aligned else 1
+    per_thread = -(-(-(-s // vec)) // 4)
+    log2 = min(8, max(0, (per_thread - 1).bit_length()))
+    return vec, log2, max(1, min(-(-runs // (THREADS >> log2)), TARGET_BLOCKS)), 1
+
+
 def bn_bwd_apply(x: torch.Tensor, dy: torch.Tensor, mu: torch.Tensor,
                  inv: torch.Tensor, gamma: torch.Tensor, sums: torch.Tensor,
                  a0: torch.Tensor, a1: torch.Tensor) -> torch.Tensor:
     """fp32 dx = gamma*inv/M * (M*dy - sum dy - xhat*sum dy*xhat) + a0 + a1*xhat."""
     if _check(x, dy, mu, inv, gamma, sums, a0, a1) == "cpu":
         return bn_bwd_apply_plain(x, dy, mu, inv, gamma, sums, a0, a1)
-    c, m = x.shape[1], _count(x)
-    s = m // x.shape[0] if x.shape[0] else 0
     dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     total = x.numel()
     if total == 0:
         return dx
-    coef = gamma * inv / m
-    blocks = min(-(-total // THREADS), TARGET_BLOCKS * 4)
+    c = x.shape[1]
+    runs = x.shape[0] * c
+    s = total // runs
+    px, pd, po = x.data_ptr(), dy.data_ptr(), dx.data_ptr()
+    aligned = (px | pd | po) % 16 == 0
+    vec, log2, bx, by = apply_plan(c, s, runs, x.element_size(), aligned)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().bn_bwd_apply(x.data_ptr(), dy.data_ptr(), mu.data_ptr(),
-                                 inv.data_ptr(), coef.data_ptr(), sums.data_ptr(),
-                                 a0.data_ptr(), a1.data_ptr(), dx.data_ptr(),
-                                 KERNEL_DTYPES[x.dtype], c, s, total, float(m),
-                                 blocks, stream)
+        rc = _lib().bn_bwd_apply(px, pd, mu.data_ptr(), inv.data_ptr(), gamma.data_ptr(),
+                                 sums.data_ptr(), a0.data_ptr(), a1.data_ptr(), po,
+                                 KERNEL_DTYPES[x.dtype], c, s, runs, float(total // c),
+                                 int(vec > 1), log2, bx, by,
+                                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bn_bwd_apply launch failed with CUDA error {rc} "
                            f"(shape {tuple(x.shape)})")

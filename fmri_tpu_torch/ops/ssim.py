@@ -10,7 +10,9 @@ C1 = 0.01^2 and C2 = 0.03^2 without the dynamic-range factor
 * :func:`ssim` is the entry: a CPU tensor goes to :func:`ssim_plain`, a CUDA
   tensor to the kernel through :func:`ssim_plane_sums` (or an error).
 * :func:`ssim_plane_sums` launches ``csrc/ssim.cu`` and counts its launches
-  in ``ssim_plane_sums.launches``.
+  in ``ssim_plane_sums.launches``; it returns fp32 sums per (image, channel,
+  band of output rows), which :func:`ssim` adds in float64 in a fixed order.
+* :func:`plan` sizes the bands for the card's shared memory.
 * :func:`ssim_plain` is grouped ``F.conv2d`` with the 2-D window, the math of
   the reference's XLA path; the CPU tests use it and ``chip_smoke.py`` holds
   the kernel against it on the card (with TF32 off).
@@ -27,8 +29,12 @@ import torch.nn.functional as F
 
 C1 = 0.01**2
 C2 = 0.03**2
-MAX_TAPS = 16           # kMaxTaps in csrc/ssim.cu
-SMEM_BUDGET = 100 * 1024  # bytes per block: two blocks fit on one SM
+MAX_TAPS = 11                 # kMaxTaps in csrc/ssim.cu
+THREADS = 256                 # kThreads in csrc/ssim.cu
+WARPS = THREADS // 32
+RUN = 8                       # kRun: outputs per thread in either blur pass
+SMEM_TWO_BLOCKS = 113 * 1024  # bytes per block when two share an SM's 228 KB
+SMEM_MAX = 227 * 1024         # the most one block may have
 
 
 def gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
@@ -45,31 +51,45 @@ def geometry(h: int, w: int, window_size: int = 11):
     return k, pad, h + 2 * pad - (k - 1), w + 2 * pad - (k - 1)
 
 
-def plan(h: int, w: int, window_size: int = 11):
-    """(tile_rows, shared-memory bytes) of one kernel block: the largest
-    power-of-two tile of output rows, at most 32 and at most the output
-    height, whose staged rows fit ``SMEM_BUDGET``."""
+@functools.cache
+def plan(h: int, w: int, c: int = 3, window_size: int = 11):
+    """(band_rows, bands, raw_rows, shared-memory bytes) of the kernel's
+    blocks for [B, h, w, c] images: each block takes one image and
+    ``band_rows`` output rows (the last band may be shorter), staging at
+    most ``raw_rows`` input rows. The band is the largest whose block lets two
+    blocks share an SM (``SMEM_TWO_BLOCKS``), else one (``SMEM_MAX``), and
+    the output rows are then split evenly over the fewest bands."""
     k, pad, ho, wo = geometry(h, w, window_size)
-    tile = min(32, ho)
-    while True:
-        rows = tile + k - 1
-        smem = 4 * rows * (2 * (w + 2 * pad) + 5 * wo)
-        if smem <= SMEM_BUDGET:
-            return tile, smem
-        if tile == 1:
-            raise ValueError(f"SSIM of {h}x{w} images needs {smem} bytes of "
-                             f"shared memory per row tile; the kernel allows "
-                             f"{SMEM_BUDGET}")
-        tile //= 2
+
+    def smem(band):
+        """Bytes of csrc/ssim.cu's layout: float4 and float moment planes
+        for the staged rows (padding included, stride w | 1) and for the
+        vertical pass's output (pad columns included, stride (w + 2 pad) |
+        1), both over whole runs of RUN rows, the float region rounded up to
+        16 bytes; the raw rows; the warp sums."""
+        band_alloc = -(-band // RUN) * RUN
+        f = (band_alloc + k - 1) * (w | 1) + band_alloc * ((w + 2 * pad) | 1)
+        raw_rows = min(band + k - 1, h)
+        return 16 * f + 4 * (-(-f // 4) * 4) + 8 * raw_rows * w * c + 4 * WARPS * c
+
+    for budget in (SMEM_TWO_BLOCKS, SMEM_MAX):
+        band_max = max((n for n in range(1, ho + 1) if smem(n) <= budget), default=0)
+        if band_max:
+            bands = -(-ho // band_max)
+            band_rows = -(-ho // bands)
+            return band_rows, bands, min(band_rows + k - 1, h), smem(band_rows)
+    raise ValueError(f"SSIM of {h}x{w}x{c} images needs {smem(1)} bytes of shared "
+                     f"memory for one output row; the kernel allows {SMEM_MAX}")
 
 
 def ssim_plain(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
                size_average: bool = True) -> torch.Tensor:
-    """Plain PyTorch SSIM: depthwise ``F.conv2d`` with the 2-D window."""
+    """Plain PyTorch SSIM: depthwise ``F.conv2d`` with the 2-D window, in
+    the inputs' dtype (float64 inputs give a float64 reference)."""
     b, h, w, c = img1.shape
     k, pad, _, _ = geometry(h, w, window_size)
     g = gaussian_window(k)
-    win = torch.from_numpy(np.outer(g, g).astype(np.float32)).to(img1.device)
+    win = torch.from_numpy(np.outer(g, g)).to(img1.device, img1.dtype)
     win = win.expand(c, 1, k, k)
     x = img1.permute(0, 3, 1, 2)
     y = img2.permute(0, 3, 1, 2)
@@ -106,40 +126,43 @@ def _check(img1: torch.Tensor, img2: torch.Tensor) -> None:
 
 @functools.cache
 def _kernel():
-    """``ssim_plane_sums`` of the built ``csrc/ssim.cu``, typed for ctypes
-    (pointers and the stream as ``c_void_p``, strides as 64-bit)."""
+    """``ssim_band_sums`` of the built ``csrc/ssim.cu``, typed for ctypes
+    (pointers and the stream as ``c_void_p``)."""
     from fmri_tpu_torch.ops import build
 
-    fn = build.load("ssim").ssim_plane_sums
+    fn = build.load("ssim").ssim_band_sums
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 8
-                   + [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
-                      ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     return fn
+
+
+@functools.cache
+def _taps(k: int):
+    return (ctypes.c_float * k)(*gaussian_window(k))
 
 
 def ssim_plane_sums(img1: torch.Tensor, img2: torch.Tensor,
                     window_size: int = 11) -> torch.Tensor:
-    """[B, C] float32 sums of the SSIM map of each (image, channel) plane,
-    by one launch of ``csrc/ssim.cu``."""
+    """[B, C, bands] float32 sums of the SSIM map of each (image, channel)
+    plane over each band of output rows (``plan``), by one launch of
+    ``csrc/ssim.cu``."""
     _check(img1, img2)
     b, h, w, c = img1.shape
     k, pad, _, _ = geometry(h, w, window_size)
     if k > MAX_TAPS:
         raise ValueError(f"window of {k} taps; the kernel takes at most {MAX_TAPS}")
-    out = torch.empty((b, c), dtype=torch.float32, device=img1.device)
+    band_rows, bands, rows, smem = plan(h, w, c, window_size)
+    out = torch.empty((b, c, bands), dtype=torch.float32, device=img1.device)
     if b == 0 or c == 0:
         return out
-    tile, smem = plan(h, w, window_size)
-    fn = _kernel()
-    taps = (ctypes.c_float * k)(*gaussian_window(k))
-    sb, sh, sw, sc = img1.stride()
-    tb, th, tw, tc = img2.stride()
+    p1, p2 = img1.data_ptr(), img2.data_ptr()
+    vec4 = int((w * c) % 4 == 0 and p1 % 16 == 0 and p2 % 16 == 0)
     with torch.cuda.device(img1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(img1.data_ptr(), img2.data_ptr(), out.data_ptr(), b, c, h, w,
-                sb, sh, sw, sc, tb, th, tw, tc, k, pad, taps, tile, smem, stream)
+        rc = _kernel()(p1, p2, out.data_ptr(), b, c, h, w, k, pad, _taps(k),
+                       band_rows, bands, rows, smem, vec4, stream)
     if rc != 0:
         raise RuntimeError(f"ssim kernel launch failed with CUDA error {rc} "
                            f"(shape {tuple(img1.shape)}, {smem} B shared memory)")
@@ -159,7 +182,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
         return ssim_plain(img1, img2, window_size, size_average)
     b, h, w, c = img1.shape
     _, _, ho, wo = geometry(h, w, window_size)
-    sums = ssim_plane_sums(img1, img2, window_size).double()
+    sums = ssim_plane_sums(img1, img2, window_size).double()  # bands in order
     if size_average:
         return (sums.sum() / (b * c * ho * wo)).float()
-    return (sums.sum(dim=1) / (c * ho * wo)).float()
+    return (sums.sum(dim=(1, 2)) / (c * ho * wo)).float()

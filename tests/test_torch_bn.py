@@ -211,3 +211,83 @@ def test_wrappers_check_their_operands():
         bn.bn_bwd_reduce(v, v, v, v)
     assert bn.reduce_splits(64, 262144) * 64 >= bn.TARGET_BLOCKS
     assert bn.reduce_splits(256, 4096) == 1  # one block already covers a channel
+
+
+def emulate_apply(x, dy, mu, inv, gamma, sums, a0, a1, elem_bytes):
+    """dx as csrc/bn.cu's apply kernels write it, in numpy fp32 with the
+    plain version's order of operations, and how often each element is
+    written. The launch comes from ``bn.apply_plan`` with 16-byte aligned
+    operands: runs of S elements (scalar head to the first 16-byte boundary,
+    16-byte vectors, scalar tail) for S > 1, vectors of channels walking
+    the rows for S = 1."""
+    shape, c = x.shape, x.shape[1]
+    runs = shape[0] * c
+    s = x.size // runs
+    vec, log2, bx, by = bn.apply_plan(c, s, runs, elem_bytes, True)
+    full = 16 // elem_bytes
+    assert vec == (1 if s == 1 and c % full else full)
+    xf, df = x.reshape(-1).astype(np.float32), dy.reshape(-1).astype(np.float32)
+    dx = np.zeros(x.size, np.float32)
+    writes = np.zeros(x.size, int)
+    m = np.float32(x.size // c)
+
+    def put(at, ch):
+        xhat = (xf[at] - mu[ch]) * inv[ch]
+        coef = gamma[ch] * inv[ch] / m
+        dx[at] = coef * (m * df[at] - sums[0, ch] - xhat * sums[1, ch]) + a0[ch] + a1[ch] * xhat
+        writes[at] += 1
+
+    if s == 1:
+        for blk in range(bx):
+            for t in range(bn.THREADS):
+                c0 = (blk * bn.THREADS + t) * vec
+                if c0 >= c:
+                    continue
+                for y in range(by):
+                    for n in range(y, shape[0], by):
+                        for q in range(vec):
+                            put(n * c + c0 + q, c0 + q)
+        return dx.reshape(shape), writes
+    tpr, per_block = 1 << log2, bn.THREADS >> log2
+    for blk in range(bx):
+        for t in range(bn.THREADS):
+            tx = t & (tpr - 1)
+            for run in range(blk * per_block + (t >> log2), runs, bx * per_block):
+                ch, start = run % c, run * s
+                head = min(s, (vec - start % vec) % vec)
+                nvec = (s - head) // vec
+                body, end = start + head, start + s
+                tail = body + nvec * vec
+                for i in range(start + tx, body, tpr):
+                    put(i, ch)
+                for v in range(tx, nvec, tpr):
+                    assert (body + v * vec) % vec == 0  # on a 16-byte boundary
+                    for q in range(vec):
+                        put(body + v * vec + q, ch)
+                for i in range(tail + tx, end, tpr):
+                    put(i, ch)
+    return dx.reshape(shape), writes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 3, 8, 8), (5, 3, 7, 3), (3, 4, 5, 5),
+                                   (2, 8, 16, 16), (7, 5), (6, 8), (9, 16)])
+def test_apply_mapping_emulated_matches_plain(shape, dtype):
+    """The apply kernels' mapping (runs per block, vector width, heads and
+    tails for S that is not a multiple of the vector, the C axis for S = 1)
+    writes every element once, each equal to ``bn_bwd_apply_plain``."""
+    rng = np.random.default_rng(sum(shape))
+    c = shape[1]
+    x = torch.from_numpy((rng.normal(size=shape) * 2 + 0.5).astype(np.float32)).to(dtype)
+    dy = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    dims = [0] + list(range(2, len(shape)))
+    mu = x.float().mean(dims)
+    inv = torch.rsqrt(x.float().var(dims, unbiased=False) + 1e-5)
+    gamma, a0, a1 = torch.from_numpy(rng.normal(size=(3, c)).astype(np.float32))
+    sums = bn.bn_bwd_reduce_plain(x, dy, mu, inv)
+    ref = bn.bn_bwd_apply_plain(x, dy, mu, inv, gamma, sums, a0, a1).numpy()
+    got, writes = emulate_apply(x.float().numpy(), dy.float().numpy(),
+                                *(t.numpy() for t in (mu, inv, gamma, sums, a0, a1)),
+                                x.element_size())
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(got, ref)

@@ -30,9 +30,12 @@ from fmri_tpu_torch.ops import ssim as port
 pytestmark = pytest.mark.cuda
 
 
-@pytest.mark.parametrize("size", [8, 16, 64, 100])
-def test_kernel_matches_plain(cuda_device, size):
-    a, b = uniform_pair((4, size, size, 3), seed=size)
+@pytest.mark.parametrize("batch,size", [(4, 8), (4, 16), (4, 64), (4, 100),
+                                        (1024, 64), (10240, 64)])
+def test_kernel_matches_plain(cuda_device, batch, size):
+    """Small images (the generic k < 11 instance at 8 px), res100's 15
+    bands, and the inference run's 1,024 and 10,240 images at 64 px."""
+    a, b = uniform_pair((batch, size, size, 3), seed=size + batch)
     ta, tb = torch.from_numpy(a).to(cuda_device), torch.from_numpy(b).to(cuda_device)
     before = port.ssim_plane_sums.launches
     for mode in (True, False):
@@ -94,20 +97,27 @@ def test_serving_on_the_card_matches_the_cpu(cuda_device, tiny):
 
 # ------------------------------------------------ the train kernels and step
 
-BN_SHAPES = [(64, 64, 32, 32), (192, 128, 32, 32), (64, 256, 8, 8), (5, 3, 7, 3)]
+# the 9 shapes of the res64 step's BatchNorm backward, a ragged S (21 and
+# 25: heads and tails around the 16-byte vectors) and [N, C] (S = 1)
+BN_SHAPES = [(192, 128, 32, 32), (64, 64, 64, 64), (192, 256, 16, 16),
+             (64, 128, 32, 32), (64, 256, 16, 16), (64, 128, 16, 16),
+             (64, 64, 32, 32), (64, 256, 8, 8), (192, 256, 8, 8),
+             (5, 3, 7, 3), (3, 5, 5, 5), (64, 1024), (7, 5)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", BN_SHAPES)
 def test_bn_kernels_match_plain(cuda_device, shape, dtype):
-    """BN reduce and apply at res64 step shapes: within 1e-5 of the plain
+    """BN reduce and apply at the res64 step's shapes and the edge cases
+    above, fp32 and bf16: within 1e-5 of the plain
     version's largest magnitude (fp32 sums in another order), and the same
     bits from run to run."""
     g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
     x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5).to(dtype)
     dy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
-    mu = x.float().mean((0, 2, 3))
-    inv = torch.rsqrt(x.float().var((0, 2, 3), unbiased=False) + 1e-5)
+    dims = [0] + list(range(2, len(shape)))
+    mu = x.float().mean(dims)
+    inv = torch.rsqrt(x.float().var(dims, unbiased=False) + 1e-5)
     gamma, a0, a1 = torch.randn((3, shape[1]), generator=g, device=cuda_device).unbind(0)
     before = (port_bn.bn_bwd_reduce.launches, port_bn.bn_bwd_apply.launches)
     sums = port_bn.bn_bwd_reduce(x, dy, mu, inv)
@@ -119,8 +129,9 @@ def test_bn_kernels_match_plain(cuda_device, shape, dtype):
     dx = port_bn.bn_bwd_apply(x, dy, mu, inv, gamma, sums, a0, a1)
     ref_dx = port_bn.bn_bwd_apply_plain(x, dy, mu, inv, gamma, sums, a0, a1)
     assert float((dx - ref_dx).abs().max()) <= 1e-5 * float(ref_dx.abs().max())
+    assert torch.equal(dx, port_bn.bn_bwd_apply(x, dy, mu, inv, gamma, sums, a0, a1))
     assert (port_bn.bn_bwd_reduce.launches, port_bn.bn_bwd_apply.launches) == (
-        before[0] + 2, before[1] + 1)
+        before[0] + 2, before[1] + 2)
 
 
 DW_CASES = [("conv", 192, 3, 64, 32, 1), ("conv", 64, 64, 32, 128, 2),
