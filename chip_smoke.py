@@ -19,7 +19,11 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      tests); the metrics must agree with the same run on
      the plain SSIM (SSIM within 1e-5, n-way fractions within 1/N), and a
      small batch must agree with the same model on the CPU (atol 1e-4: cuDNN
-     may pick FFT or Winograd convolutions, which round differently);
+     may pick FFT or Winograd convolutions, which round differently). Then
+     the stage-I inference path (``--stage 1``: image -> image through a
+     stage-I ``VaeGanVisual`` over the same 1,024 images), its SSIM launches
+     counted alone, its metrics against the plain SSIM and 8 images
+     against the CPU;
   5. serving: ``ServingModel`` (max_batch 64, uint8 output) answers requests
      of 1, 5, 64 and 130 rows and ``generate(4)``; a request reconstructed
      alone equals it reconstructed inside a padded batch (float output
@@ -45,7 +49,21 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      operands, whose products are exact in fp32; relative to the largest
      magnitude of the plain result), and the same bits twice; the weight
      grad's time per shape beside the library's;
-  7. kernels: SSIM at every shape phase 4 recorded, against its plain
+  7. cognitive train: the stage-II step (mode 'vae-gan', distilling
+     through the frozen stage-I teacher) and the stage-III step at res64
+     (3,620 voxels -> 1,024 -> latent 128; the stage-I decoder and
+     discriminator; batch 64, fp32), random weights of the
+     ``"vae-gan-cognitive"`` kind, moments at ones, 64 synthetic pairs,
+     both kernel flags on. For each stage, the same checks as phase 6
+     (flags off on the card, the CPU at batch 8, 5 timed steps, every
+     kernel call of the step against its plain version) and: launches per
+     step exactly ``COGNITIVE_LAUNCHES``; the frozen groups' parameters
+     bitwise unchanged; every BatchNorm's statistics ticked (stage III:
+     all but the unused teacher's), the decoder's 3 times in stage II.
+     Then stage III with ``fused_decoder_batch`` (``pallas_bn`` off:
+     vsplit forbids it; ``pallas_backward`` on): ``tap_matmul`` exactly 8
+     times, held against the unfused step on the card;
+  8. kernels: SSIM at every shape phase 4 recorded, against its plain
      version (the mean within 1e-5), per image against the plain version
      in float64 (``SSIM_IMAGE_TOL``), and the same bits twice; then one JSON line
      per the port's kernels with launches on the main path, error against
@@ -58,7 +76,10 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      ``device_ms`` replays a CUDA graph of the same calls (the card's time
      alone; ``device_ms_source`` says if the profiler stood in). Each
      entry's ``shapes`` gives both per shape; SSIM's ``ms_b1024`` is its
-     time at [1024, 64, 64, 3] alone.
+     time at [1024, 64, 64, 3] alone. The times are stage I's (the
+     train kernels) and one inference run's (SSIM); ``launches_by_path``
+     gives each kernel's launches on every path the run drove. A line
+     before it gives every train path's seconds per step.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -293,122 +314,116 @@ def compare_steps(a, ma, b, mb, start) -> dict:
     return out
 
 
-def train_phase(dev, cfg):
-    """Phase 6; returns the kernels-line entries of the three train kernels."""
-    import dataclasses
+TRAIN_KERNELS = ("bn_bwd_reduce", "bn_bwd_apply", "tap_matmul")
+# launches per res64 step with both kernel flags on (tests/test_torch_cognitive.py
+# counts the wrappers' calls on the CPU): stage II, the discriminator's C basis
+# (3 BN, 4 dW), its B basis to x_tilde (2 BN), the decoder back to z (3 BN, no
+# dW); stage III, C basis 3 BN + 4 dW, B basis 2 BN, the decoder's two passes
+# 3 BN + 4 dW each
+COGNITIVE_LAUNCHES = {2: {"bn_bwd_reduce": 8, "bn_bwd_apply": 8, "tap_matmul": 4},
+                      3: {"bn_bwd_reduce": 11, "bn_bwd_apply": 11, "tap_matmul": 12}}
+FUSED_DW_LAUNCHES = 8  # stage III, fused decoder batch: discriminator 4, decoder 4
+STEP_TOL = {"loss": 1e-5, "param": 2e-2, "stats": 1e-4, "sq": 2e-2}
+# batch 8 is ill-conditioned at res64 (BatchNorm over 8 images, KL terms near
+# 900 per image): fp32 runs differ from float64 by up to 3% of an update on
+# the decoder's FC BatchNorm (tests/test_torch_train.py)
+CPU_TOL = {"loss": 1e-5, "param": 3e-2, "stats": 1e-4, "sq": 2e-2}
 
-    import numpy as np
+
+def record_step(run, record: bool = True):
+    """(run()'s result, launches per train kernel, recorded calls, seconds):
+    every launch count set to 0 just before ``run`` and read just after;
+    with ``record``, each distinct call of the BN-backward and weight-grad
+    wrappers recorded with its arguments (not while steps are timed)."""
     import torch
 
-    from fmri_tpu_torch.checkpoints.convert import from_jax_groups, random_groups
-    from fmri_tpu_torch.data.synthetic import synthetic_images
     from fmri_tpu_torch.ops import bn, dw
-    from fmri_tpu_torch.train.optim import RmsProp
-    from fmri_tpu_torch.train.state import GROUPS, VaeGan, make_state
-    from fmri_tpu_torch.train.steps_vgan import make_vgan_stage1_step
 
-    t = cfg.train
-    cfg_on = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, pallas_bn=True, pallas_backward=True))
-    weights = from_jax_groups(random_groups(cfg, seed=0, kind="vae-gan"), cfg, "vae-gan")
-
-    def new_state(c, device):
-        nets = VaeGan(c)
-        nets.load_state_dict(weights, strict=True)
-        state = make_state(nets.to(device), {g: RmsProp(t.rms_decay, t.rms_eps, t.grad_clip)
-                                             for g in GROUPS})
-        for moments in state.opt_state.values():  # warm, as tests/ref_oracle.py:110
-            for v in moments.values():
-                v.fill_(1.0)
-        return state
-
-    b, latent = t.batch_size, cfg.model.latent_dim
-    x = torch.from_numpy(2.0 * synthetic_images(b, cfg.model.image_size, seed=0)[0]
-                         - 1.0).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    eps, z_p = (torch.randn((b, latent), generator=gen, device=dev) for _ in range(2))
-    hyper = (t.margin, t.equilibrium, t.lambda_mse)
-    step_on, step_off = make_vgan_stage1_step(cfg_on), make_vgan_stage1_step(cfg)
     kernels = {"bn_bwd_reduce": bn.bn_bwd_reduce, "bn_bwd_apply": bn.bn_bwd_apply,
                "tap_matmul": dw.tap_matmul}
-
-    # the main path: one step with both flags on, every call recorded
-    on = new_state(cfg_on, dev)
     calls = {n: {} for n in ("bn_bwd_reduce", "bn_bwd_apply", "conv2d_dw",
                              "conv2d_transpose_dw")}
     recorders = [Recorder(mod, n, calls[n]) for mod, n in (
         (bn, "bn_bwd_reduce"), (bn, "bn_bwd_apply"), (dw, "conv2d_dw"),
-        (dw, "conv2d_transpose_dw"))]
+        (dw, "conv2d_transpose_dw"))] if record else []
     for fn in kernels.values():
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    on, m_on = step_on.train_step(on, x, eps, z_p, *hyper)
+    out = run()
     torch.cuda.synchronize()
-    cold = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in kernels.items()}
     for r in recorders:
         r.restore()
-    print(f"[train] {cfg.model.image_size} px stage-I step, batch {b}, both kernel flags on: first step "
-          f"{cold:.3f} s; launches per step {launches}; metrics "
-          f"{ {k: round(float(v), 6) for k, v in m_on.items()} }", flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the train step")
-    check(launches["tap_matmul"] == DW_LAUNCHES_PER_STEP,
-          f"tap_matmul: {launches['tap_matmul']} launches per step, want "
-          f"{DW_LAUNCHES_PER_STEP} (one per conv/deconv weight use)")
+    return out, launches, calls, seconds
 
-    # 1. against the library backward (both flags off) on the card
-    off, m_off = step_off.train_step(new_state(cfg, dev), x, eps, z_p, *hyper)
-    d = compare_steps(on, m_on, off, m_off, weights)
-    tol = {"loss": 1e-5, "param": 2e-2, "stats": 1e-4, "sq": 2e-2}
-    print(f"[train] kernels vs library backward on the card: {d} (bounds {tol})",
-          flush=True)
+
+def check_step(name, a, ma, b, mb, start, tol) -> None:
+    d = compare_steps(a, ma, b, mb, start)
+    print(f"[train] {name}: {d} (bounds {tol})", flush=True)
     check(d["gates_equal"] and all(d[k] <= v for k, v in tol.items()),
-          f"flags on vs off: {d} outside {tol}")
+          f"{name}: {d} outside {tol}")
 
-    # 2. card against the CPU, batch 8
-    small = (x[:8], eps[:8], z_p[:8])
-    card, m_card = step_on.train_step(new_state(cfg_on, dev), *small, *hyper)
-    cpu, m_cpu = step_on.train_step(new_state(cfg_on, "cpu"),
-                                    *(a.cpu() for a in small), *hyper)
-    d = compare_steps(card, m_card, cpu, m_cpu, weights)
-    # batch 8 is ill-conditioned at res64 (BatchNorm over 8 images, KL terms
-    # near 900 per image): fp32 runs differ from float64 by up to 3% of an
-    # update on the decoder's FC BatchNorm (tests/test_torch_train.py)
-    tol = {"loss": 1e-5, "param": 3e-2, "stats": 1e-4, "sq": 2e-2}
-    print(f"[train] card vs CPU at batch 8: {d} (bounds {tol})", flush=True)
-    check(d["gates_equal"] and all(d[k] <= v for k, v in tol.items()),
-          f"card vs CPU: {d} outside {tol}")
 
-    # 3. five timed steps (host clock, one synchronize at the end)
-    before = {k: v.clone() for k, v in on.nets.state_dict().items()}
-    for fn in kernels.values():
-        fn.launches = 0
-    n_steps = 5
+def timed_steps(step, state, n_steps, draw):
+    """(state, seconds per step, metrics): ``n_steps`` steps on fresh noise
+    from ``draw()``, host clock, one synchronize at the end; checks finite
+    metrics and gates in {0, 1}."""
+    import numpy as np
+    import torch
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     history = []
     for _ in range(n_steps):
-        e, z = (torch.randn((b, latent), generator=gen, device=dev) for _ in range(2))
-        on, m = step_on.train_step(on, x, e, z, *hyper)
+        state, m = step(state, *draw())
         history.append(m)
     torch.cuda.synchronize()
     seconds = (time.perf_counter() - t0) / n_steps
-    print(f"[train] {n_steps} steps: {seconds:.4f} s per step, {b / seconds:.1f} "
-          f"images/s (host clock, warm)", flush=True)
     for m in history:
         check(all(np.isfinite(float(v)) for v in m.values()), f"non-finite metrics {m}")
         check(all(float(m[k]) in (0.0, 1.0) for k in ("train_dec", "train_dis")),
               f"gates not in {{0, 1}}: {m}")
-    moved = [k for k, v in on.nets.state_dict().items()
-             if k.endswith("weight") and not torch.equal(v, before[k])]
-    check(any(k.startswith("encoder.") for k in moved), "the timed steps moved no weight")
-    for n, fn in kernels.items():
-        check(fn.launches == n_steps * launches[n],
-              f"{n}: {fn.launches} launches over {n_steps} steps, {launches[n]} per step")
+    return state, seconds, history
 
-    # 4. every kernel against its plain version at every shape of the step
+
+def profile_step(run, path: str, step_s: float) -> dict:
+    """The device time of one more warm step, by kernel (``torch.profiler``,
+    CUDA activity), beside ``step_s``, the unprofiled step's host time: the
+    device's busy share of the step and its largest kernels. Prints and
+    returns ``{"device_ms", "kernels", "busy_share", "top"}``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    out = {"device_ms": busy_ms, "kernels": sum(e.count for e in kernels),
+           "busy_share": busy_ms / (1e3 * step_s),
+           "top": [(e.key[:70], e.count, e.self_device_time_total / 1e3) for e in top]}
+    print(f"[{path}] profiled step: device busy {busy_ms:.2f} ms in {out['kernels']} "
+          f"kernels, {100 * out['busy_share']:.1f}% of the {1e3 * step_s:.2f} ms step; "
+          f"largest: " + "; ".join(f"{name} x{n} {ms:.2f} ms" for name, n, ms in out["top"]),
+          flush=True)
+    return out
+
+
+def hold_against_plain(calls, path: str, timed: bool):
+    """Every recorded call of the train kernels against its plain version,
+    with its own operands and with bf16 activations, and the same bits
+    twice. With ``timed``, also the warm times of the kernel, its plain
+    version and its library call, summed over the calls (the kernels-line
+    entries). Returns ``{kernel: totals}``."""
+    import torch
+
+    from fmri_tpu_torch.ops import bn, dw
+
     def bn_reduce_lib(x_, dy, mu, inv):
         return torch.ops.aten.batch_norm_backward_reduce(dy, x_, mu, inv, None,
                                                          True, False, False)
@@ -450,26 +465,32 @@ def train_phase(dev, cfg):
                   "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
                   "bytes": 0, "max_abs_err": 0.0, "max_rel_err": 0.0,
                   "max_rel_err_bf16": 0.0, "shapes": []}
-              for n in kernels}
+              for n in TRAIN_KERNELS}
     for name, entry, kern, plain, lib, err_fn, (tol, tol_bf16), cost in specs:
         tot = totals[name]
         for args, count in calls[entry].values():
             got, ref = kern(*args), plain(*args)
             torch.cuda.synchronize()
             err = err_fn(got, ref)
-            check(err <= tol, f"{entry} {[tuple(a.shape) for a in args[:2]]}: "
+            check(err <= tol, f"{path} {entry} {[tuple(a.shape) for a in args[:2]]}: "
                               f"relative error {err} > {tol}")
             tot["max_rel_err"] = max(tot["max_rel_err"], err)
             tot["max_abs_err"] = max(tot["max_abs_err"], float((got - ref).abs().max()))
-            check(torch.equal(got, kern(*args)), f"{entry}: two runs differ")
+            check(torch.equal(got, kern(*args)), f"{path} {entry}: two runs differ")
             # bf16 activations (the -bf16 presets' operands): products are
             # exact in fp32 and sums fp32 on both sides
             half = tuple(a.bfloat16() if torch.is_tensor(a) and a.dim() == 4 else a
                          for a in args)
             err = err_fn(kern(*half), plain(*half))
-            check(err <= tol_bf16, f"{entry} bf16 {[tuple(a.shape) for a in args[:2]]}: "
+            check(err <= tol_bf16, f"{path} {entry} bf16 "
+                                   f"{[tuple(a.shape) for a in args[:2]]}: "
                                    f"relative error {err} > {tol_bf16}")
             tot["max_rel_err_bf16"] = max(tot["max_rel_err_bf16"], err)
+            shape = {"call": entry, "count": count, "args": [
+                list(a.shape) if torch.is_tensor(a) else a for a in args]}
+            tot["shapes"].append(shape)
+            if not timed:
+                continue
             ms = cuda_ms(lambda: kern(*args), iters=20)
             dev_ms, source = device_ms(lambda: kern(*args))
             lib_ms = cuda_ms(lambda: lib(*args), iters=20)
@@ -481,9 +502,8 @@ def train_phase(dev, cfg):
             flops, nbytes = cost(args)
             tot["flops"] += count * flops
             tot["bytes"] += count * nbytes
-            shape = {"call": entry, "count": count, "ms": ms, "device_ms": dev_ms,
-                     "library_ms": lib_ms, "gflop": flops / 1e9, "args": [
-                         list(a.shape) if torch.is_tensor(a) else a for a in args]}
+            shape.update({"ms": ms, "device_ms": dev_ms, "library_ms": lib_ms,
+                          "gflop": flops / 1e9})
             if name == "tap_matmul":
                 print(f"[train] tap_matmul {entry} {shape['args'][:2]} x{count}: "
                       f"{ms:.4f} ms per call ({flops / ms / 1e9:.1f} TFLOP/s), device "
@@ -494,14 +514,22 @@ def train_phase(dev, cfg):
                       f"{ms:.4f} ms per call, device {dev_ms:.4f} ms, library "
                       f"{lib_ms:.4f} ms, bound {shape['bound_ms']:.4f} ms (bytes)",
                       flush=True)
-            tot["shapes"].append(shape)
+    for name, tot in totals.items():
+        print(f"[{path}] {name}: {len(tot['shapes'])} shapes held against the plain "
+              f"version; max |kernel - plain| {tot['max_abs_err']:.3g} "
+              f"({tot['max_rel_err']:.3g} of the largest plain value; "
+              f"{tot['max_rel_err_bf16']:.3g} with bf16 operands)", flush=True)
+    return totals
+
+
+def kernel_entries(totals, launches, fp32_dw: bool):
+    """The kernels-line entries of the train kernels from one timed run."""
     entries = []
     for name, tot in totals.items():
         bound_ms, bound_by = bound(tot["flops"], tot["bytes"])
         extra = {}
         if name == "tap_matmul":  # on the tensor cores: fp32 as 3xTF32, bf16 as bf16
-            fp32 = any(str(torch.float32) in str(key) for key in calls["conv2d_dw"])
-            peak, rate = ((PEAK_3XTF32_FLOPS, "3xTF32") if fp32
+            peak, rate = ((PEAK_3XTF32_FLOPS, "3xTF32") if fp32_dw
                           else (PEAK_BF16_FLOPS, "bf16"))
             extra = {"bound_rate": f"{rate} tensor cores, {peak / 1e12:.1f} TFLOP/s",
                      "bound_ms_fp32_cuda_cores": bound_ms, "gflop": tot["flops"] / 1e9}
@@ -511,10 +539,7 @@ def train_phase(dev, cfg):
               f"{tot['device_ms']:.4f} ms), plain "
               f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}{', ' + extra['bound_rate'] if extra else ''}"
-              f"{'; fp32 CUDA cores %.4f ms' % extra['bound_ms_fp32_cuda_cores'] if extra else ''})"
-              f"; max |kernel - plain| "
-              f"{tot['max_abs_err']:.3g} ({tot['max_rel_err']:.3g} of the largest "
-              f"plain value; {tot['max_rel_err_bf16']:.3g} with bf16 operands)",
+              f"{'; fp32 CUDA cores %.4f ms' % extra['bound_ms_fp32_cuda_cores'] if extra else ''})",
               flush=True)
         entries.append({
             "name": name, "route": "cuda",
@@ -532,6 +557,221 @@ def train_phase(dev, cfg):
     return entries
 
 
+def with_flags(cfg, **flags):
+    import dataclasses
+
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **flags))
+
+
+def warm_moments(state):
+    """RMSprop moments started at ones, as tests/ref_oracle.py:110 warms them."""
+    for moments in state.opt_state.values():
+        for v in moments.values():
+            v.fill_(1.0)
+    return state
+
+
+def train_phase(dev, cfg):
+    """Phase 6, stage I; returns (kernels-line entries of the three train
+    kernels, launches per step, seconds per step)."""
+    import torch
+
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups, random_groups
+    from fmri_tpu_torch.data.synthetic import synthetic_images
+    from fmri_tpu_torch.train.optim import RmsProp
+    from fmri_tpu_torch.train.state import GROUPS, VaeGan, make_state
+    from fmri_tpu_torch.train.steps_vgan import make_vgan_stage1_step
+
+    t = cfg.train
+    cfg_on = with_flags(cfg, pallas_bn=True, pallas_backward=True)
+    weights = from_jax_groups(random_groups(cfg, seed=0, kind="vae-gan"), cfg, "vae-gan")
+
+    def new_state(c, device):
+        nets = VaeGan(c)
+        nets.load_state_dict(weights, strict=True)
+        return warm_moments(make_state(nets.to(device), {
+            g: RmsProp(t.rms_decay, t.rms_eps, t.grad_clip) for g in GROUPS}))
+
+    b, latent = t.batch_size, cfg.model.latent_dim
+    x = torch.from_numpy(2.0 * synthetic_images(b, cfg.model.image_size, seed=0)[0]
+                         - 1.0).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    eps, z_p = (torch.randn((b, latent), generator=gen, device=dev) for _ in range(2))
+    hyper = (t.margin, t.equilibrium, t.lambda_mse)
+    step_on, step_off = make_vgan_stage1_step(cfg_on), make_vgan_stage1_step(cfg)
+
+    # the main path: one step with both flags on, every call recorded
+    on = new_state(cfg_on, dev)
+    (on, m_on), launches, calls, cold = record_step(
+        lambda: step_on.train_step(on, x, eps, z_p, *hyper))
+    print(f"[train] {cfg.model.image_size} px stage-I step, batch {b}, both kernel flags on: first step "
+          f"{cold:.3f} s; launches per step {launches}; metrics "
+          f"{ {k: round(float(v), 6) for k, v in m_on.items()} }", flush=True)
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the train step")
+    check(launches["tap_matmul"] == DW_LAUNCHES_PER_STEP,
+          f"tap_matmul: {launches['tap_matmul']} launches per step, want "
+          f"{DW_LAUNCHES_PER_STEP} (one per conv/deconv weight use)")
+
+    # 1. against the library backward (both flags off) on the card
+    off, m_off = step_off.train_step(new_state(cfg, dev), x, eps, z_p, *hyper)
+    check_step("kernels vs library backward on the card", on, m_on, off, m_off,
+               weights, STEP_TOL)
+
+    # 2. card against the CPU, batch 8
+    small = (x[:8], eps[:8], z_p[:8])
+    card, m_card = step_on.train_step(new_state(cfg_on, dev), *small, *hyper)
+    cpu, m_cpu = step_on.train_step(new_state(cfg_on, "cpu"),
+                                    *(a.cpu() for a in small), *hyper)
+    check_step("card vs CPU at batch 8", card, m_card, cpu, m_cpu, weights, CPU_TOL)
+
+    # 3. five timed steps
+    before = {k: v.clone() for k, v in on.nets.state_dict().items()}
+    n_steps = 5
+    (on, seconds, _), counted, _, _ = record_step(lambda: timed_steps(
+        step_on.train_step, on, n_steps,
+        lambda: (x, *(torch.randn((b, latent), generator=gen, device=dev)
+                      for _ in range(2)), *hyper)), record=False)
+    print(f"[train] {n_steps} steps: {seconds:.4f} s per step, {b / seconds:.1f} "
+          f"images/s (host clock, warm)", flush=True)
+    profile_step(lambda: step_on.train_step(
+        on, x, *(torch.randn((b, latent), generator=gen, device=dev) for _ in range(2)),
+        *hyper), "train", seconds)
+    moved = [k for k, v in on.nets.state_dict().items()
+             if k.endswith("weight") and not torch.equal(v, before[k])]
+    check(any(k.startswith("encoder.") for k in moved), "the timed steps moved no weight")
+    for n, count in counted.items():
+        check(count == n_steps * launches[n],
+              f"{n}: {count} launches over {n_steps} steps, {launches[n]} per step")
+
+    # 4. every kernel against its plain version at every shape of the step
+    totals = hold_against_plain(calls, "train", timed=True)
+    fp32 = any(str(torch.float32) in str(key) for key in calls["conv2d_dw"])
+    return kernel_entries(totals, launches, fp32), launches, seconds
+
+
+def cognitive_phase(dev, cfg):
+    """Phase 7: the stage-II (with the teacher) and stage-III steps, then
+    stage III with the fused decoder batch. Returns ({path: launches per
+    step}, {path: seconds per step})."""
+    import torch
+
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups, random_groups
+    from fmri_tpu_torch.data.synthetic import synthetic_pairs
+    from fmri_tpu_torch.train.state import VaeGanCognitiveTrain, make_cognitive_state
+    from fmri_tpu_torch.train.steps_vgan import make_vgan_cognitive_step
+
+    t, c = cfg.train, cfg.model
+    kind = "vae-gan-cognitive"
+    weights = from_jax_groups(random_groups(cfg, seed=0, kind=kind), cfg, kind)
+
+    def new_state(cfg_, device, stage):
+        nets = VaeGanCognitiveTrain(cfg_)
+        nets.load_state_dict(weights, strict=True)
+        return warm_moments(make_cognitive_state(nets.to(device), cfg_, stage))
+
+    b = t.batch_size
+    data = synthetic_pairs(b, c.image_size, c.num_voxels, seed=0)
+    fmri = torch.from_numpy(data["fmri"]).to(dev)
+    image = torch.from_numpy(2.0 * data["image"] - 1.0).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def draw():
+        return (fmri, image, *(torch.randn((b, c.latent_dim), generator=gen, device=dev)
+                                for _ in range(3)), t.margin, t.equilibrium, t.lambda_mse)
+
+    cfg_on = with_flags(cfg, pallas_bn=True, pallas_backward=True)
+    # the frozen groups (teacher_net.decoder and .discriminator are the
+    # student's own modules); every BatchNorm ticks but the unused teacher's
+    frozen = {2: ("decoder.", "teacher_net.encoder.", "teacher_net.decoder."),
+              3: ("encoder.", "teacher_net.encoder.")}
+    still = {2: (), 3: ("teacher_net.encoder.",)}
+    launches_by_path, seconds = {}, {}
+    for stage in (2, 3):
+        path = f"stage{stage}"
+        step_on = make_vgan_cognitive_step(cfg_on, stage)
+        args = draw()
+
+        # the main path: one step with both flags on, every call recorded
+        on = new_state(cfg_on, dev, stage)
+        (on, m_on), launches, calls, cold = record_step(lambda: step_on.train_step(on, *args))
+        print(f"[{path}] {c.image_size} px stage-{'II' if stage == 2 else 'III'} step, "
+              f"batch {b}, both kernel flags on: first step {cold:.3f} s; launches per "
+              f"step {launches}; metrics { {k: round(float(v), 6) for k, v in m_on.items()} }",
+              flush=True)
+        check(launches == COGNITIVE_LAUNCHES[stage],
+              f"{path}: launches per step {launches}, want {COGNITIVE_LAUNCHES[stage]}")
+        launches_by_path[path] = launches
+        sd = on.nets.state_dict()
+        for k, v in sd.items():
+            if k.startswith(frozen[stage]) and "running" not in k and "num_batches" not in k:
+                check(torch.equal(v.cpu(), weights[k]), f"{path}: frozen {k} moved")
+            if "running_mean" in k:
+                check(torch.equal(v.cpu(), weights[k]) == k.startswith(still[stage]),
+                      f"{path}: BatchNorm statistics {k} "
+                      f"{'ticked' if k.startswith(still[stage]) else 'did not tick'}")
+        check(int(sd["decoder.fc.1.num_batches_tracked"]) == (3 if stage == 2 else 2),
+              f"{path}: decoder ticks {int(sd['decoder.fc.1.num_batches_tracked'])}")
+        print(f"[{path}] frozen groups {frozen[stage]} bitwise unchanged; every "
+              f"BatchNorm ticked but {still[stage] or 'none'}; the decoder "
+              f"{int(sd['decoder.fc.1.num_batches_tracked'])} times", flush=True)
+
+        # 1. against the library backward (both flags off) on the card
+        off, m_off = make_vgan_cognitive_step(cfg, stage).train_step(
+            new_state(cfg, dev, stage), *args)
+        check_step(f"{path} kernels vs library backward on the card", on, m_on, off,
+                   m_off, weights, STEP_TOL)
+
+        # 2. card against the CPU, batch 8
+        small = [a[:8] if torch.is_tensor(a) else a for a in args]
+        card, m_card = step_on.train_step(new_state(cfg_on, dev, stage), *small)
+        cpu, m_cpu = step_on.train_step(
+            new_state(cfg_on, "cpu", stage),
+            *(a.cpu() if torch.is_tensor(a) else a for a in small))
+        check_step(f"{path} card vs CPU at batch 8", card, m_card, cpu, m_cpu, weights,
+                   CPU_TOL)
+
+        # 3. five timed steps
+        n_steps = 5
+        (on, seconds[path], _), counted, _, _ = record_step(
+            lambda: timed_steps(step_on.train_step, on, n_steps, draw), record=False)
+        print(f"[{path}] {n_steps} steps: {seconds[path]:.4f} s per step, "
+              f"{b / seconds[path]:.1f} pairs/s (host clock, warm)", flush=True)
+        for n, count in counted.items():
+            check(count == n_steps * launches[n],
+                  f"{path} {n}: {count} launches over {n_steps} steps, {launches[n]} per step")
+        profile_step(lambda: step_on.train_step(on, *draw()), path, seconds[path])
+
+        # 4. every kernel call of the step against its plain version
+        hold_against_plain(calls, path, timed=False)
+
+    # stage III with the fused decoder batch: pallas_bn off (vsplit forbids
+    # it), the weight-grad kernel on; held against the unfused step
+    cfg_fused = with_flags(cfg, pallas_backward=True, fused_decoder_batch=True)
+    cfg_seq = with_flags(cfg, pallas_backward=True)
+    args = draw()
+    (fused, m_fused), launches, calls, _ = record_step(
+        lambda: make_vgan_cognitive_step(cfg_fused, 3).train_step(
+            new_state(cfg_fused, dev, 3), *args))
+    print(f"[stage3_fused] launches per step {launches}", flush=True)
+    check(launches == {"bn_bwd_reduce": 0, "bn_bwd_apply": 0,
+                       "tap_matmul": FUSED_DW_LAUNCHES},
+          f"stage3_fused: launches per step {launches}")
+    launches_by_path["stage3_fused"] = launches
+    seq, m_seq = make_vgan_cognitive_step(cfg_seq, 3).train_step(
+        new_state(cfg_seq, dev, 3), *args)
+    check_step("stage3 fused vs unfused decoder batch on the card", fused, m_fused, seq,
+               m_seq, weights, STEP_TOL)
+    hold_against_plain(calls, "stage3_fused", timed=False)
+    fused_step = make_vgan_cognitive_step(cfg_fused, 3).train_step
+    (fused, seconds["stage3_fused"], _), _, _, _ = record_step(
+        lambda: timed_steps(fused_step, fused, 5, draw), record=False)
+    print(f"[stage3_fused] 5 steps: {seconds['stage3_fused']:.4f} s per step "
+          f"(host clock, warm)", flush=True)
+    profile_step(lambda: fused_step(fused, *draw()), "stage3_fused", seconds["stage3_fused"])
+    return launches_by_path, seconds
+
+
 def main() -> None:
     import torch
 
@@ -546,7 +786,7 @@ def main() -> None:
             objective_scores, quality_metrics, reconstruct_dataset,
         )
         from fmri_tpu_torch.eval.serve import ServingModel
-        from fmri_tpu_torch.eval.steps import VaeGanCognitive
+        from fmri_tpu_torch.eval.steps import VaeGanCognitive, VaeGanVisual
         from fmri_tpu_torch.metrics.quality import distractor_indices
         from fmri_tpu_torch.ops import build
         from fmri_tpu_torch.ops import ssim as ssim_ops
@@ -663,6 +903,34 @@ def main() -> None:
     print(f"[inference] agrees with the plain SSIM and with the CPU (|card - cpu| "
           f"= {err:.3g})", flush=True)
 
+    # 4b. the stage-I inference path (image -> image, --stage 1), the second
+    #     entry point to the SSIM kernel: the same images, a stage-I model
+    stage1 = {k: v for k, v in from_jax_groups(
+        random_groups(cfg, seed=0, kind="vae-gan"), cfg, "vae-gan").items()
+        if not k.startswith("discriminator.")}
+    visual = VaeGanVisual(cfg.model)
+    visual.load_state_dict(stage1, strict=True)
+    visual.to(dev)
+    images = [{"image": batch["image"]} for batch in batches]
+    ssim_plane_sums.launches = 0
+    r1, t1 = reconstruct_dataset(visual, images, mean=cfg.data.mean, std=cfg.data.std)
+    m1 = quality_metrics(r1, t1)
+    s1 = objective_scores(r1, t1, tops=(2, 5, 10))
+    launches["ssim_stage1"] = ssim_plane_sums.launches
+    check(launches["ssim_stage1"] > 0, "ssim was not launched on the stage-I inference path")
+    check(tuple(r1.shape) == (n, 64, 64, 3) and bool(torch.isfinite(r1).all()),
+          f"stage-I recons {tuple(r1.shape)}, finite {bool(torch.isfinite(r1).all())}")
+    err1 = abs(m1["ssim"] - quality_metrics(r1, t1, ssim_fn=ssim_plain)["ssim"])
+    check(err1 <= TOL, f"stage-I quality ssim differs from plain by {err1}")
+    cpu_visual = VaeGanVisual(cfg.model)
+    cpu_visual.load_state_dict(stage1, strict=True)
+    x8 = torch.from_numpy(2.0 * data["image"][:8] - 1.0)
+    err = float((visual.reconstruct(x8.to(dev)).cpu() - cpu_visual.reconstruct(x8)).abs().max())
+    check(err <= 1e-4, f"stage-I card vs CPU reconstruction differ by {err}")
+    print(f"[inference] stage I (image -> image) over the same {n} images: metrics {m1}; "
+          f"objective {s1}; ssim launches {launches['ssim_stage1']}; |kernel - plain| "
+          f"{err1:.3g}; |card - cpu| {err:.3g}", flush=True)
+
     # 5. serving
     served = ServingModel(cfg, model, max_batch=64, output="uint8", device=dev)
     served.warmup()
@@ -691,10 +959,18 @@ def main() -> None:
     print(f"[serving] padded batch vs alone: float {ferr:.3g}, uint8 {lsb} LSB",
           flush=True)
 
-    # 6. train
-    train_kernels = train_phase(dev, cfg)
+    # 6. train, stage I
+    train_kernels, stage1_launches, stage1_seconds = train_phase(dev, cfg)
 
-    # 7. kernels line; ssim at every shape the inference run gave it, each
+    # 7. train, stages II and III
+    launches_by_path, seconds = cognitive_phase(dev, cfg)
+    launches_by_path = {"stage1": stage1_launches, **launches_by_path}
+    seconds = {"stage1": stage1_seconds, **seconds}
+    for entry in train_kernels:
+        entry["launches_by_path"] = {path: counts[entry["name"]]
+                                     for path, counts in launches_by_path.items()}
+
+    # 8. kernels line; ssim at every shape the inference run gave it, each
     #    held against the plain version, times summed over the run's launches
     ssim_tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "flops": 0.0,
                 "bytes": 0.0, "sources": set(), "shapes": []}
@@ -745,6 +1021,8 @@ def main() -> None:
         "source": "fmri_tpu_torch/ops/csrc/ssim.cu",
         "replaces": "fmri_tpu/ops/pallas_ssim.py:79",
         "launches": launches["ssim"],
+        "launches_by_path": {"inference": launches["ssim"],
+                             "inference_stage1": launches["ssim_stage1"]},
         "max_abs_err": max_err,
         "ms": ssim_tot["ms"],
         "device_ms": ssim_tot["device_ms"],
@@ -756,6 +1034,9 @@ def main() -> None:
         "ms_b1024": ms_b1024,
         "shapes": ssim_tot["shapes"],
     }] + train_kernels
+    print(f"[train] seconds per step at batch {cfg.train.batch_size}, both kernel flags "
+          f"on (stage3_fused: pallas_backward only), host clock, warm: "
+          f"{json.dumps(seconds)}", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,18 +3,29 @@ reference-layout ``.pth``, or seeded random trees.
 
 * :func:`from_jax_groups` turns named numpy groups ``{"encoder": {"params",
   "batch_stats"}, "decoder": ..., ...}`` (the JAX package's NHWC/HWIO
-  layout) into a state dict in the reference's torch layout and naming, for
-  ``kind="vae-gan"`` (visual encoder, decoder, discriminator: the stage-I
-  ``VaeGan``) or ``"vae-gan-cognitive"`` (cognitive encoder and decoder: the
-  inference part of ``VaeGanCognitive``). It is the port's own copy of the
-  inverse converters of ``fmri_tpu/checkpoints/torch_import.py:200-296`` and
-  gives the same arrays as that module's ``export_state_dict``. The
-  180-degree deconv-tap rotation happens here (``_inv_deconv``), never in
-  the op.
+  layout) into a state dict in the reference's torch layout and naming. A
+  kind names the module the state dict is for, and every group of it is
+  required (a missing one raises ``KeyError``):
+
+  - ``"vae-gan"``: ``encoder`` (visual), ``decoder``, ``discriminator``:
+    the stage-I ``VaeGan`` (``train/state.py``);
+  - ``"vae-gan-cognitive"``: ``encoder`` (cognitive), ``decoder``,
+    ``discriminator``, the stage-II/III ``VaeGanCognitiveTrain``; with a
+    ``teacher_encoder`` group also ``teacher_net.encoder.*`` and the
+    ``teacher_net.decoder.*``/``teacher_net.discriminator.*`` copies of
+    the shared modules. This is the JAX package's kind of the same name;
+  - ``"vae-gan-cognitive-eval"``: ``encoder`` (cognitive) and ``decoder``,
+    the inference module ``eval/steps.py::VaeGanCognitive``.
+
+  It is the port's own copy of the inverse converters of
+  ``fmri_tpu/checkpoints/torch_import.py:200-384`` and gives the same
+  arrays as that module's ``export_state_dict``. The 180-degree deconv-tap
+  rotation happens here (``_inv_deconv``), never in the op.
 * :func:`moments_from_jax` maps optimizer moments (trees shaped like the
-  params) through the same permutations, into the port's per-parameter
-  layout.
-* :func:`load_pth` reads a reference-layout ``.pth``.
+  params of the groups given) through the same permutations, into the
+  port's per-parameter layout.
+* :func:`load_pth` reads a reference-layout ``.pth`` for inference,
+  :func:`load_train_pth` for training.
 * :func:`random_groups` makes seeded numpy trees in the JAX layout, for runs
   that need weights but no checkpoint.
 """
@@ -157,8 +168,12 @@ def _image_discriminator(group: Mapping, cfg: Config, prefix: str) -> Dict:
 KINDS = {
     "vae-gan": {"encoder": _visual_encoder, "decoder": _decoder,
                 "discriminator": _image_discriminator},
-    "vae-gan-cognitive": {"encoder": _cognitive_encoder, "decoder": _decoder},
+    "vae-gan-cognitive": {"encoder": _cognitive_encoder, "decoder": _decoder,
+                          "discriminator": _image_discriminator},
+    "vae-gan-cognitive-eval": {"encoder": _cognitive_encoder, "decoder": _decoder},
 }
+# the stage-I teacher of "vae-gan-cognitive" (torch_import.py:372-383)
+TEACHER = "teacher_encoder"
 
 
 def _kind(kind: str) -> Mapping:
@@ -168,37 +183,62 @@ def _kind(kind: str) -> Mapping:
         raise KeyError(f"unknown kind {kind!r}; one of {sorted(KINDS)}") from None
 
 
-def from_jax_groups(groups: Mapping[str, Mapping], cfg: Config,
-                    kind: str = "vae-gan-cognitive") -> Dict[str, torch.Tensor]:
-    """JAX-layout groups -> the ``<group>.*`` state dict of ``kind``, as CPU
-    tensors. A group without ``batch_stats`` gives parameters only."""
-    sd: Dict[str, np.ndarray] = {}
-    for group, fn in _kind(kind).items():
-        sd.update(fn(groups[group], cfg, f"{group}."))
+def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     # np.array copies: arrays from JAX are read-only, and torch needs writable
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
+def from_jax_groups(groups: Mapping[str, Mapping], cfg: Config,
+                    kind: str = "vae-gan-cognitive-eval") -> Dict[str, torch.Tensor]:
+    """JAX-layout groups -> the state dict of ``kind``, as CPU tensors.
+    Every group of the kind must be in ``groups``; others are ignored, but
+    for ``"vae-gan-cognitive"`` a ``teacher_encoder`` group adds the
+    ``teacher_net.*`` keys. A group without ``batch_stats`` gives
+    parameters only."""
+    sd: Dict[str, np.ndarray] = {}
+    for group, fn in _kind(kind).items():
+        if group not in groups:
+            raise KeyError(f"kind {kind!r} needs group {group!r}; got {sorted(groups)}")
+        sd.update(fn(groups[group], cfg, f"{group}."))
+    if kind == "vae-gan-cognitive" and TEACHER in groups:
+        sd.update(_visual_encoder(groups[TEACHER], cfg, "teacher_net.encoder."))
+        sd.update({f"teacher_net.{k}": v for k, v in list(sd.items())
+                   if k.startswith(("decoder.", "discriminator."))})
+    return _tensors(sd)
+
+
 def moments_from_jax(trees: Mapping[str, Any], cfg: Config,
                      kind: str = "vae-gan") -> Dict[str, Dict[str, torch.Tensor]]:
-    """Optimizer moments shaped like each group's JAX params (e.g. RMSprop's
-    ``sq_avg``) -> ``{group: {parameter name: tensor}}`` in the port's
-    layout, by the same permutations as the weights."""
-    sd = from_jax_groups({g: {"params": t} for g, t in trees.items()}, cfg, kind)
-    out: Dict[str, Dict[str, torch.Tensor]] = {g: {} for g in trees}
-    for key, v in sd.items():
-        group, name = key.split(".", 1)
-        out[group][name] = v
+    """Optimizer moments shaped like the JAX params of the groups given (e.g.
+    RMSprop's ``sq_avg`` of the trained groups) -> ``{group: {parameter
+    name: tensor}}`` in the port's layout, by the same permutations as the
+    weights."""
+    fns = dict(_kind(kind))
+    if kind == "vae-gan-cognitive":
+        fns[TEACHER] = _visual_encoder
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for group, tree in trees.items():
+        if group not in fns:
+            raise KeyError(f"kind {kind!r} has no group {group!r}")
+        sd = fns[group]({"params": tree}, cfg, "")
+        out[group] = _tensors(sd)
     return out
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:
     """The ``encoder.*``/``decoder.*`` tensors of a reference-layout
-    ``VaeGanCognitive`` ``.pth`` (a plain state dict; ``weights_only=True``
-    unpickles nothing else). ``discriminator.*`` and ``teacher_net.*`` are
-    dropped; any other key is kept so a strict load reports it."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return {k: v for k, v in sd.items() if not k.startswith(UNUSED_PREFIXES)}
+    ``VaeGan`` or ``VaeGanCognitive`` ``.pth``, for inference (a plain state
+    dict; ``weights_only=True`` unpickles nothing else).
+    ``discriminator.*`` and ``teacher_net.*`` are dropped; any other key is
+    kept so a strict load reports it."""
+    return {k: v for k, v in load_train_pth(path).items()
+            if not k.startswith(UNUSED_PREFIXES)}
+
+
+def load_train_pth(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a reference-layout ``.pth``, ``discriminator.*`` and
+    ``teacher_net.*`` included, for a train module's strict load."""
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def _uniform(rng, shape, fan_in):
@@ -285,19 +325,26 @@ def _random_image_discriminator(rng, c) -> Dict[str, Any]:
     return {"params": p, "batch_stats": s}
 
 
-def random_groups(cfg: Config, seed: int = 0, kind: str = "vae-gan-cognitive"
+def random_groups(cfg: Config, seed: int = 0, kind: str = "vae-gan-cognitive-eval"
                   ) -> Dict[str, Dict[str, Any]]:
     """Seeded numpy groups of ``kind`` in the JAX package's layout and
-    naming, with non-trivial BatchNorm statistics: ``encoder`` (cognitive)
-    and ``decoder`` for ``"vae-gan-cognitive"``; ``encoder`` (visual),
-    ``decoder`` and ``discriminator`` for ``"vae-gan"``."""
+    naming, with non-trivial BatchNorm statistics: ``encoder`` (visual),
+    ``decoder`` and ``discriminator`` for ``"vae-gan"``; ``encoder``
+    (cognitive) and ``decoder`` for ``"vae-gan-cognitive-eval"``, then
+    ``discriminator`` and ``teacher_encoder`` (visual) for
+    ``"vae-gan-cognitive"`` (its first two groups are the eval kind's of
+    the same seed)."""
     _kind(kind)
     c = cfg.model
     rng = np.random.default_rng(seed)
+    if kind == "vae-gan":
+        encoder = _random_visual_encoder(rng, c)
+        decoder = _random_decoder(rng, c)
+        return {"encoder": encoder, "decoder": decoder,
+                "discriminator": _random_image_discriminator(rng, c)}
+    encoder = _random_cognitive_encoder(rng, c)
+    groups = {"encoder": encoder, "decoder": _random_decoder(rng, c)}
     if kind == "vae-gan-cognitive":
-        encoder = _random_cognitive_encoder(rng, c)
-        return {"encoder": encoder, "decoder": _random_decoder(rng, c)}
-    encoder = _random_visual_encoder(rng, c)
-    decoder = _random_decoder(rng, c)
-    return {"encoder": encoder, "decoder": decoder,
-            "discriminator": _random_image_discriminator(rng, c)}
+        groups["discriminator"] = _random_image_discriminator(rng, c)
+        groups[TEACHER] = _random_visual_encoder(rng, c)
+    return groups

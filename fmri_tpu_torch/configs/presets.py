@@ -2,11 +2,15 @@
 
 The port's own copy of ``fmri_tpu/configs/presets.py`` (the port imports
 nothing from ``fmri_tpu``); ``tests/test_torch_models.py`` holds every preset
-field-for-field against the reference. ``pallas_bn`` and ``pallas_backward``
-route the train step's BatchNorm backward and conv weight grads through the
-port's CUDA kernels (off in every preset, as in the JAX package);
-``alt_backward`` and ``fused_decoder_batch`` are kept so presets stay
-comparable, and nothing in the port reads them yet.
+field-for-field against the reference. What reads the flags (all off in
+every preset, as in the JAX package):
+  * ``pallas_bn`` (``models/norm.py``) and ``pallas_backward``
+    (``ops/conv.py``) route the train steps' BatchNorm backward and conv
+    weight grads through the port's CUDA kernels;
+  * ``fused_decoder_batch`` (``train/steps_vgan.py``) decodes a step's
+    latent batches in one pass with ``vsplit`` BatchNorm;
+  * ``alt_backward`` is not ported: every net and step factory raises on it
+    (``models/nets.py::refuse_alt_backward``).
 
 Presets:
   * ``res64``  — image_size=64,  latent_dim=128

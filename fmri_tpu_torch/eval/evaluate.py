@@ -15,8 +15,8 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fmri_tpu_torch.data.transforms import denormalize, resize_batch
-from fmri_tpu_torch.eval.steps import VaeGanCognitive
+from fmri_tpu_torch.data.transforms import denormalize, normalize, resize_batch
+from fmri_tpu_torch.eval.steps import VaeGanCognitive, VaeGanVisual
 from fmri_tpu_torch.metrics.quality import mse, objective_assessment, pearson_correlation, ssim
 
 
@@ -26,32 +26,36 @@ def _to_device(a, device: torch.device) -> torch.Tensor:
     return torch.tensor(np.asarray(a), device=device)  # copies: memmaps are read-only
 
 
-def reconstruct_dataset(model: VaeGanCognitive, batches: Iterable[Dict], *,
+def reconstruct_dataset(model: VaeGanCognitive | VaeGanVisual,
+                        batches: Iterable[Dict], *,
                         mean: Sequence[float] = (0.5, 0.5, 0.5),
                         std: Sequence[float] = (0.5, 0.5, 0.5),
                         sample: bool = False, seed: int = 0,
                         max_batches: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Reconstruct every ``{"fmri", "image"}`` batch (numpy or tensors).
-    Returns (recons, targets): denormalized NHWC float32 tensors on the
-    model's device; uint8 targets are dequantized to [0, 1]. With ``sample``
-    the latent is mu + eps * exp(logvar / 2), eps drawn from a
-    ``torch.Generator`` seeded with ``seed``."""
+    """Reconstruct every batch (numpy or tensors): a ``VaeGanCognitive``
+    from the fMRI of ``{"fmri", "image"}`` batches, a ``VaeGanVisual``
+    from the normalized image of ``{"image"}`` batches. Returns (recons,
+    targets): denormalized NHWC float32 tensors on the model's device;
+    uint8 targets are dequantized to [0, 1]. With ``sample`` the latent is
+    mu + eps * exp(logvar / 2), eps drawn from a ``torch.Generator`` seeded
+    with ``seed``."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed) if sample else None
     recons, targets = [], []
     for i, batch in enumerate(batches):
         if max_batches and i >= max_batches:
             break
-        fmri = _to_device(batch["fmri"], device)
         target = _to_device(batch["image"], device)
         if target.dtype == torch.uint8:
             target = target.float() / 255.0
+        x = (normalize(target, mean, std) if isinstance(model, VaeGanVisual)
+             else _to_device(batch["fmri"], device).float())
         eps = None
         if gen is not None:
-            eps = torch.randn((fmri.shape[0], model.cfg.latent_dim),
+            eps = torch.randn((x.shape[0], model.cfg.latent_dim),
                               generator=gen, device=device)
-        recon = model.reconstruct(fmri.float(), eps)
+        recon = model.reconstruct(x, eps)
         recons.append(denormalize(recon, mean, std))
         targets.append(target)
     return torch.cat(recons), torch.cat(targets)

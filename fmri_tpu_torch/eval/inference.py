@@ -1,18 +1,20 @@
-"""Inference / evaluation CLI for the cognitive VAE/GAN (stage 2 or 3
-checkpoints): fMRI -> image reconstruction, PCC/SSIM/MSE, 2/5/10-way
+"""Inference / evaluation CLI for the VAE/GAN: image -> image through the
+stage-I ``VaeGan`` (``--stage 1``) or fMRI -> image through the cognitive
+model (``--stage 2|3``); PCC/SSIM/MSE against the images, 2/5/10-way
 objective assessment with CSV and bar chart, optional PNG dump.
 
     python -m fmri_tpu_torch.eval.inference --family vgan --stage 3 \\
         --preset res64 --ckpt model.pth --dataset synthetic -o out
 
 Weights come from a reference-layout ``.pth``, as written by
-``python -m fmri_tpu.checkpoints.torch_import --export --kind
-vae-gan-cognitive``. Data is ``--dataset synthetic`` or a packed pair
-directory (``--input``). Runs on ``cuda`` unless ``--device cpu``.
+``python -m fmri_tpu.checkpoints.torch_import --export --kind vae-gan``
+(stage 1) or ``--kind vae-gan-cognitive`` (stages 2 and 3). Data is
+``--dataset synthetic`` or a packed directory (``--input``; stage 1 reads
+its images). Runs on ``cuda`` unless ``--device cpu``.
 
 Not in this port yet: the Inception Score (the summary has no ``is_*``
-keys), the other families and stage 1, the raw BOLD5000/COCO/MNIST loaders.
-Counterpart of ``fmri_tpu/eval/inference.py:40-154``.
+keys), the WAE families (ROADMAP slice 4), the raw BOLD5000/COCO/MNIST
+loaders. Counterpart of ``fmri_tpu/eval/inference.py:40-154``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stage", type=int, choices=[1, 2, 3], default=3)
     p.add_argument("--preset", default="res64")
     p.add_argument("--ckpt", required=True,
-                   help="reference-layout VaeGanCognitive .pth state dict")
+                   help="reference-layout VaeGan (stage 1) or VaeGanCognitive "
+                        ".pth state dict")
     p.add_argument("--dataset", default="synthetic",
                    choices=["coco", "bold", "mnist69", "synthetic"])
     p.add_argument("--input", "-i", default=None, help="packed pair directory")
@@ -61,18 +64,23 @@ def _holdout(arrays, k):
     return {key: v[:k] for key, v in arrays.items()}
 
 
-def load_valid_pairs(args, cfg):
-    """The validation {'fmri', 'image'} arrays, split as the reference CLI
-    splits them (``fmri_tpu/train/run.py:_load_pairs``): the first
-    max(n // 10, batch) examples."""
+def load_valid(args, cfg):
+    """The validation {'fmri', 'image'} arrays (stage 1: {'image'}), split as
+    the reference CLI splits them (``fmri_tpu/train/run.py:_load_pairs``,
+    ``_load_images``): the first max(n // 10, batch) examples."""
     from fmri_tpu_torch.data.packed import is_packed_dir, open_packed
 
     bs = cfg.train.batch_size
+    keys = ("image",) if args.stage == 1 else ("fmri", "image")
     if args.input and is_packed_dir(args.input):
+        arrays = open_packed(args.valid_input or args.input)
+        missing = set(keys) - set(arrays)
+        if missing:
+            raise SystemExit(f"packed dir lacks arrays {sorted(missing)}")
+        arrays = {k: arrays[k] for k in keys}
         if args.valid_input:
-            return open_packed(args.valid_input)
-        arrays = open_packed(args.input)
-        return _holdout(arrays, max(len(arrays["fmri"]) // 10, bs))
+            return arrays
+        return _holdout(arrays, max(len(arrays["image"]) // 10, bs))
     if args.dataset != "synthetic":
         raise SystemExit(f"--dataset {args.dataset} is not ported yet; use "
                          "--dataset synthetic or a packed --input directory")
@@ -80,14 +88,14 @@ def load_valid_pairs(args, cfg):
 
     n = args.synthetic_n or max(4 * bs, 64)
     data = synthetic_pairs(n, cfg.data.image_size, cfg.model.num_voxels, seed=0)
-    return _holdout(data, max(n // 10, bs))
+    return _holdout({k: data[k] for k in keys}, max(n // 10, bs))
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.family != "vgan" or args.stage not in (2, 3):
-        raise SystemExit(f"--family {args.family} --stage {args.stage} is not "
-                         "ported yet; this port serves --family vgan --stage 2|3")
+    if args.family != "vgan":
+        raise SystemExit(f"--family {args.family} is not ported yet (ROADMAP "
+                         "slice 4); this port serves --family vgan")
 
     from fmri_tpu_torch.checkpoints.convert import load_pth
     from fmri_tpu_torch.configs.presets import get_config, override_num_voxels
@@ -96,7 +104,7 @@ def main(argv=None) -> int:
         objective_scores, quality_metrics, reconstruct_dataset,
         save_objective_bar_chart, save_objective_csv, save_reconstructions,
     )
-    from fmri_tpu_torch.eval.steps import VaeGanCognitive
+    from fmri_tpu_torch.eval.steps import VaeGanCognitive, VaeGanVisual
 
     device = resolve_device(args.device)
     cfg = get_config(args.preset)
@@ -106,12 +114,12 @@ def main(argv=None) -> int:
     if args.num_voxels is not None:
         cfg = override_num_voxels(cfg, args.num_voxels)
 
-    valid = load_valid_pairs(args, cfg)
-    model = VaeGanCognitive(cfg.model)
+    valid = load_valid(args, cfg)
+    model = (VaeGanVisual if args.stage == 1 else VaeGanCognitive)(cfg.model)
     model.load_state_dict(load_pth(args.ckpt), strict=True)
     model.to(device)
 
-    n, bs = len(valid["fmri"]), cfg.train.batch_size
+    n, bs = len(valid["image"]), cfg.train.batch_size
     batches = ({k: v[lo:lo + bs] for k, v in valid.items()}
                for lo in range(0, n, bs))
     recons, targets = reconstruct_dataset(

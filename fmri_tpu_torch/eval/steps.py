@@ -1,10 +1,15 @@
-"""The cognitive VAE/GAN eval module: fMRI -> reconstruction, and decoding
-from the prior.
+"""The VAE/GAN eval modules: an encoder and the decoder, reconstruction and
+decoding from the prior.
 
-Counterpart of ``make_vgan_cognitive_step``'s ``eval_step``
-(``fmri_tpu/train/steps_vgan.py:591-604``) and of ``generate_step``
-(``steps_vgan.py:54-63``). Noise comes from the caller (its own
-``torch.Generator``), so tests can inject the same draws into both packages.
+* :class:`VaeGanCognitive`: fMRI -> image, the counterpart of
+  ``make_vgan_cognitive_step``'s ``eval_step``
+  (``fmri_tpu/train/steps_vgan.py:591-604``);
+* :class:`VaeGanVisual`: image -> image, the stage-I ``eval_step``
+  (``steps_vgan.py:273-286``).
+
+``generate`` is ``generate_step`` (``steps_vgan.py:54-63``). Noise comes
+from the caller (its own ``torch.Generator``), so tests can inject the same
+draws into both packages.
 """
 
 from __future__ import annotations
@@ -13,28 +18,29 @@ import torch
 from torch import nn
 
 from fmri_tpu_torch.configs.presets import ModelConfig
-from fmri_tpu_torch.models.nets import CognitiveEncoder, Decoder, reparameterize
+from fmri_tpu_torch.models.nets import (
+    CognitiveEncoder, Decoder, VisualEncoder, reparameterize,
+)
 
 
-class VaeGanCognitive(nn.Module):
-    """``encoder`` (CognitiveEncoder) + ``decoder`` (Decoder): the
-    ``encoder.*``/``decoder.*`` part of the reference's ``VaeGanCognitive``
-    state dict (``vae_gan.py:323-432``). Kept in eval mode: BatchNorm uses
-    running statistics, so padded rows cannot perturb real ones."""
+class _EvalVaeGan(nn.Module):
+    """``encoder`` + ``decoder``, the ``encoder.*``/``decoder.*`` part of a
+    reference state dict. Kept in eval mode: BatchNorm uses running
+    statistics, so padded rows cannot perturb real ones."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, encoder: nn.Module):
         super().__init__()
         self.cfg = cfg
-        self.encoder = CognitiveEncoder(cfg)
+        self.encoder = encoder
         self.decoder = Decoder(cfg)
         self.eval()
 
     @torch.no_grad()
-    def reconstruct(self, fmri: torch.Tensor,
+    def reconstruct(self, x: torch.Tensor,
                     eps: torch.Tensor | None = None) -> torch.Tensor:
-        """[B, V] -> [B, H, W, 3] in [-1, 1]. z = mu, or
+        """The encoder's input -> [B, H, W, 3] in [-1, 1]. z = mu, or
         mu + eps * exp(logvar / 2) when ``eps`` is given."""
-        mu, logvar = self.encoder(fmri)
+        mu, logvar = self.encoder(x)
         z = mu if eps is None else reparameterize(mu, logvar, eps)
         return self.decoder(z)
 
@@ -44,3 +50,19 @@ class VaeGanCognitive(nn.Module):
         statistics (the reference's ``model(None)`` branch,
         ``vae_gan.py:294-297``)."""
         return self.decoder(z)
+
+
+class VaeGanCognitive(_EvalVaeGan):
+    """fMRI voxels [B, V] -> image: the inference part of the reference's
+    ``VaeGanCognitive`` (``vae_gan.py:323-432``)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg, CognitiveEncoder(cfg))
+
+
+class VaeGanVisual(_EvalVaeGan):
+    """Normalized NHWC images -> image: the inference part of the stage-I
+    ``VaeGan`` (``vae_gan.py:235-320``)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg, VisualEncoder(cfg))

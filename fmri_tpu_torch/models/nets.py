@@ -15,9 +15,14 @@ convention; the JAX package writes the same EMA as flax momentum 0.1,
 ``nets.py:33-36``). The BatchNorm after every conv and deconv is
 :class:`fmri_tpu_torch.models.norm.BatchNorm2d`, whose train-mode backward
 takes the hand-written kernels when ``ModelConfig.pallas_bn`` is set; the
-FC BatchNorms are torch's own, as in the JAX package (not behind the flag).
-The 5x5 convs and deconvs take their weight grad from ``ops/dw.py`` when
-``ModelConfig.pallas_backward`` is set.
+FC BatchNorms are :class:`~fmri_tpu_torch.models.norm.BatchNorm1d`, not
+behind the flag, as in the JAX package. ``Decoder.forward(z, vsplit=k)``
+decodes k back-to-back latent batches in one pass with per-sub-batch
+BatchNorm statistics (the fused decoder batch). The 5x5 convs and deconvs
+take their weight grad from ``ops/dw.py`` when ``ModelConfig.pallas_backward``
+is set. ``ModelConfig.alt_backward`` (the JAX package's XLA rewrites of the
+conv backward, ``fmri_tpu/ops/conv_alt.py``) is not ported: every net
+refuses it.
 
 Modules compute in NCHW. Images cross their boundary in NHWC, the public
 layout: ``VisualEncoder`` and ``ImageDiscriminator`` take NHWC and
@@ -30,7 +35,7 @@ import torch
 from torch import nn
 
 from fmri_tpu_torch.configs.presets import ModelConfig
-from fmri_tpu_torch.models.norm import BN_EPS, BN_MOMENTUM, BatchNorm2d
+from fmri_tpu_torch.models.norm import BatchNorm1d, BatchNorm2d
 from fmri_tpu_torch.ops.conv import conv2d, conv2d_transpose, linear
 
 
@@ -38,8 +43,12 @@ def _cd(cfg: ModelConfig) -> str | None:
     return None if cfg.compute_dtype in (None, "float32") else cfg.compute_dtype
 
 
-def _bn1d(n: int) -> nn.BatchNorm1d:
-    return nn.BatchNorm1d(n, eps=BN_EPS, momentum=BN_MOMENTUM)
+def refuse_alt_backward(cfg: ModelConfig) -> None:
+    """Raise on ``alt_backward``, which nothing in the port implements yet."""
+    if cfg.alt_backward:
+        raise NotImplementedError(
+            "ModelConfig.alt_backward (fmri_tpu/ops/conv_alt.py) is not ported "
+            "yet: ROADMAP queue 1 item 2")
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -81,11 +90,11 @@ class DecoderBlock(nn.Module):
             output_padding=self.output_padding, bias=False)
         self.bn = BatchNorm2d(cout, pallas=cfg.pallas_bn)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, vsplit: int = 1) -> torch.Tensor:
         y = conv2d_transpose(x, self.conv.weight, self.stride, self.padding,
                              self.output_padding, self.compute_dtype,
                              self.pallas_backward)
-        return torch.relu(self.bn(y))
+        return torch.relu(self.bn(y, vsplit))
 
 
 class VisualEncoder(nn.Module):
@@ -94,13 +103,14 @@ class VisualEncoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        refuse_alt_backward(cfg)
         self.compute_dtype = _cd(cfg)
         chans = (3, *cfg.encoder_channels)
         self.conv = nn.Sequential(*[EncoderBlock(chans[i], chans[i + 1], cfg)
                                     for i in range(len(cfg.encoder_channels))])
         flat = cfg.fc_input * cfg.fc_input * cfg.encoder_channels[-1]
         self.fc = nn.Sequential(nn.Linear(flat, cfg.fc_output, bias=False),
-                                _bn1d(cfg.fc_output), nn.ReLU())
+                                BatchNorm1d(cfg.fc_output), nn.ReLU())
         self.l_mu = nn.Linear(cfg.fc_output, cfg.latent_dim)
         self.l_var = nn.Linear(cfg.fc_output, cfg.latent_dim)
 
@@ -122,10 +132,11 @@ class CognitiveEncoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        refuse_alt_backward(cfg)
         self.compute_dtype = _cd(cfg)
         self.fc1 = nn.Sequential(
             nn.Linear(cfg.num_voxels, cfg.cog_hidden, bias=False),
-            _bn1d(cfg.cog_hidden), nn.ReLU())
+            BatchNorm1d(cfg.cog_hidden), nn.ReLU())
         self.l_mu = nn.Linear(cfg.cog_hidden, cfg.latent_dim)
         self.l_var = nn.Linear(cfg.cog_hidden, cfg.latent_dim)
 
@@ -145,12 +156,13 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        refuse_alt_backward(cfg)
         self.compute_dtype = _cd(cfg)
         self.pallas_backward = cfg.pallas_backward
         self.size0, self.fc_input = cfg.encoder_channels[-1], cfg.fc_input
         flat = self.fc_input * self.fc_input * self.size0
         self.fc = nn.Sequential(nn.Linear(cfg.latent_dim, flat, bias=False),
-                                _bn1d(flat), nn.ReLU())
+                                BatchNorm1d(flat), nn.ReLU())
         chans = (self.size0, self.size0, cfg.decoder_channels[1],
                  cfg.decoder_channels[2])
         blocks = [DecoderBlock(chans[i], chans[i + 1], cfg.output_pad_dec[i], cfg)
@@ -159,14 +171,16 @@ class Decoder(nn.Module):
             nn.Conv2d(chans[3], cfg.decoder_channels[3], 5, 1, 2), nn.Tanh())
         self.conv = nn.Sequential(*blocks, out)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, vsplit: int = 1) -> torch.Tensor:
+        """``vsplit=k``: z holds k back-to-back latent batches, decoded in one
+        pass with each sub-batch's own BatchNorm statistics (train mode)."""
         cd = self.compute_dtype
         x = linear(z, self.fc[0].weight, None, cd)
-        x = torch.relu(self.fc[1](x))
+        x = torch.relu(self.fc[1](x, vsplit))
         # C-major flatten, as the reference's view(B, C, H, W)
         x = x.view(x.shape[0], self.size0, self.fc_input, self.fc_input)
         for blk in self.conv[:3]:
-            x = blk(x)
+            x = blk(x, vsplit)
         out = self.conv[3][0]
         x = conv2d(x, out.weight, 1, 2, cd, self.pallas_backward) + out.bias.view(1, -1, 1, 1)
         return torch.tanh(x).permute(0, 2, 3, 1).contiguous()
@@ -181,6 +195,7 @@ class ImageDiscriminator(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        refuse_alt_backward(cfg)
         self.compute_dtype = _cd(cfg)
         self.pallas_backward = cfg.pallas_backward
         self.stride_gan, self.recon_level = cfg.stride_gan, cfg.recon_level
@@ -190,7 +205,8 @@ class ImageDiscriminator(nn.Module):
         self.conv = nn.Sequential(*layers)
         flat = cfg.fc_input_gan * cfg.fc_input_gan * ch[-1]
         self.fc = nn.Sequential(
-            nn.Linear(flat, cfg.fc_output_gan, bias=False), _bn1d(cfg.fc_output_gan),
+            nn.Linear(flat, cfg.fc_output_gan, bias=False),
+            BatchNorm1d(cfg.fc_output_gan),
             nn.ReLU(), nn.Linear(cfg.fc_output_gan, 1), nn.Sigmoid())
 
     def forward(self, x: torch.Tensor):

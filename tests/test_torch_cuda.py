@@ -1,7 +1,9 @@
 """The port on the card (``cuda`` marker; each test skips without one): the
 SSIM, BatchNorm-backward and weight-grad kernels against their plain
-versions, the wrappers' checks, and the inference, serving and stage-I
-train paths on the card against the same paths on the CPU.
+versions, the wrappers' checks, the inference, serving and stage-I train
+paths on the card against the same paths on the CPU, and the stage-II/III
+train steps with the kernels against the library backward, with their
+launches per step.
 
 Imports only torch, numpy and the port, so it runs where the JAX package's
 dependencies are not installed:
@@ -309,3 +311,99 @@ def test_res64_step_launches_the_weight_grad_15_times(cuda_device):
     make_vgan_stage1_step(cfg).train_step(state, x, eps, z_p, 0.35, 0.68, 1e-6)
     torch.cuda.synchronize()
     assert port_dw.tap_matmul.launches - before == 15
+
+
+# ------------------------------------------------ the cognitive steps
+
+COGNITIVE_LAUNCHES = {2: (8, 8, 4), 3: (11, 11, 12)}
+
+
+def _cognitive_state(cfg, stage, device):
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups
+    from fmri_tpu_torch.train.state import VaeGanCognitiveTrain, make_cognitive_state
+
+    weights = from_jax_groups(random_groups(cfg, 0, "vae-gan-cognitive"), cfg,
+                              "vae-gan-cognitive")
+    nets = VaeGanCognitiveTrain(cfg)
+    nets.load_state_dict(weights, strict=True)
+    state = make_cognitive_state(nets.to(device), cfg, stage)
+    for moments in state.opt_state.values():
+        for v in moments.values():
+            v.fill_(1.0)
+    return state, weights
+
+
+def _cognitive_inputs(cfg, b, device):
+    rng = np.random.default_rng(0)
+    c = cfg.model
+    fmri = rng.normal(size=(b, c.num_voxels)).astype(np.float32)
+    image = rng.uniform(-1, 1, (b, c.image_size, c.image_size, 3)).astype(np.float32)
+    noise = [rng.normal(size=(b, c.latent_dim)).astype(np.float32) for _ in range(3)]
+    return [torch.from_numpy(a).to(device) for a in (fmri, image, *noise)]
+
+
+def _launches():
+    return (port_bn.bn_bwd_reduce.launches, port_bn.bn_bwd_apply.launches,
+            port_dw.tap_matmul.launches)
+
+
+@pytest.mark.parametrize("stage", [2, 3])
+def test_cognitive_step_kernels_match_the_library_on_the_card(cuda_device, stage):
+    """The stage-II (with the teacher) and stage-III steps at tiny with both
+    kernel flags on against the same step with both off, on the card, from
+    the same state and noise: losses within 1e-5 relative, parameters,
+    moments and BN running statistics within 1e-3 relative in L2 per tensor
+    (parameters: of how far the flags-off step moved them); the kernels
+    launched exactly as counted on the CPU (``tests/test_torch_cognitive.py``)."""
+    import dataclasses
+
+    from fmri_tpu_torch.train.steps_vgan import make_vgan_cognitive_step
+
+    cfg = get_config("tiny")
+    out = {}
+    for flags in (True, False):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, pallas_bn=flags, pallas_backward=flags))
+        state, weights = _cognitive_state(c, stage, cuda_device)
+        before = _launches()
+        state, m = make_vgan_cognitive_step(c, stage).train_step(
+            state, *_cognitive_inputs(c, 8, cuda_device), 0.35, 0.68, 1e-6)
+        torch.cuda.synchronize()
+        out[flags] = (state, m, tuple(a - b for a, b in zip(_launches(), before)))
+    (on, m_on, n_on), (off, m_off, n_off) = out[True], out[False]
+    assert n_on == COGNITIVE_LAUNCHES[stage] and n_off == (0, 0, 0)
+    for k in m_off:
+        assert float(m_on[k]) == pytest.approx(float(m_off[k]), rel=1e-5, abs=1e-7), k
+    sd_on, sd_off = on.nets.state_dict(), off.nets.state_dict()
+    for k, ref in sd_off.items():
+        got, ref = sd_on[k].cpu(), ref.cpu()
+        if k.endswith("num_batches_tracked"):
+            assert torch.equal(got, ref)
+            continue
+        scale = ref if "running" in k else ref - weights[k]
+        assert float((got - ref).norm()) <= 1e-3 * max(float(scale.norm()), 1e-12), k
+    for g, moments in off.opt_state.items():
+        for k, ref in moments.items():
+            got = on.opt_state[g][k].cpu()
+            assert float((got - ref.cpu()).norm()) <= 1e-3 * float(ref.norm()), (g, k)
+
+
+@pytest.mark.parametrize("stage,fused", [(2, False), (3, False), (3, True)])
+def test_res64_cognitive_step_launches(cuda_device, stage, fused):
+    """One res64 cognitive step at batch 8 launches each kernel as counted on
+    the CPU: stage II 8/8/4, stage III 11/11/12; stage III with the fused
+    decoder batch (``pallas_bn`` off) launches ``tap_matmul`` 8 times."""
+    import dataclasses
+
+    from fmri_tpu_torch.train.steps_vgan import make_vgan_cognitive_step
+
+    cfg = get_config("res64")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, pallas_bn=not fused, pallas_backward=True, fused_decoder_batch=fused))
+    state, _ = _cognitive_state(cfg, stage, cuda_device)
+    before = _launches()
+    make_vgan_cognitive_step(cfg, stage).train_step(
+        state, *_cognitive_inputs(cfg, 8, cuda_device), 0.35, 0.68, 1e-6)
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(_launches(), before))
+    assert got == ((0, 0, 8) if fused else COGNITIVE_LAUNCHES[stage])

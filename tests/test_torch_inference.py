@@ -208,7 +208,7 @@ def test_inference_cli_on_a_pth(tiny, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv, message", [
     (["--family", "wae"], "not ported yet"),
-    (["--family", "vgan", "--stage", "1"], "not ported yet"),
+    (["--family", "wae-vgan"], "not ported yet"),
     (["--family", "vgan", "--dataset", "bold"], "not ported yet"),
 ])
 def test_inference_cli_refuses_what_is_not_ported(tmp_path, argv, message):

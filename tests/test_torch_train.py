@@ -323,15 +323,6 @@ def test_spliced_equals_naive(flags):
     assert int(s1.step) == 1
 
 
-def test_unported_modes_raise():
-    cfg = presets.get_config("tiny")
-    for mode in ("vae", "beta-vae", "dcgan"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            make_vgan_stage1_step(cfg, mode)
-    with pytest.raises(ValueError):
-        make_vgan_stage1_step(cfg, "gan")
-
-
 # (preset, kernel flags, compute dtype, batch, bounds after step 1, after step 3)
 CASES = {
     "tiny-fp32": ("tiny", False, None, 8,
