@@ -14,7 +14,7 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      ``from_jax_groups``; 1,024 synthetic pairs at batch 64 through
      ``reconstruct_dataset``, ``quality_metrics`` and ``objective_scores``
      (2/5/10-way). The SSIM kernel's launches are counted over this phase
-     alone and must be above 0, and each is recorded with its shape (1,024
+     alone and must be exactly 4, and each is recorded with its shape (1,024
      images for ``quality_metrics``, 2,048, 5,120 and 10,240 for the n-way
      tests); the metrics must agree with the same run on
      the plain SSIM (SSIM within 1e-5, n-way fractions within 1/N), and a
@@ -22,8 +22,9 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      may pick FFT or Winograd convolutions, which round differently). Then
      the stage-I inference path (``--stage 1``: image -> image through a
      stage-I ``VaeGanVisual`` over the same 1,024 images), its SSIM launches
-     counted alone, its metrics against the plain SSIM and 8 images
-     against the CPU;
+     counted alone (exactly 4) and each call recorded and held against the
+     plain version as phase 8 holds phase 4's, its metrics against the
+     plain SSIM and 8 images against the CPU;
   5. serving: ``ServingModel`` (max_batch 64, uint8 output) answers requests
      of 1, 5, 64 and 130 rows and ``generate(4)``; a request reconstructed
      alone equals it reconstructed inside a padded batch (float output
@@ -112,6 +113,9 @@ DW_TOL, DW_TOL_BF16 = 2e-5, 1e-4
 # (the kernel and ssim_plain alike), so this bound catches a wrong window,
 # tap or band, not rounding
 SSIM_IMAGE_TOL = 1e-3
+# SSIM launches per inference run: quality_metrics 1, objective_scores 3
+# (the 2/5/10-way tests)
+SSIM_LAUNCHES_PER_RUN = 4
 
 
 def fail(msg: str) -> None:
@@ -284,6 +288,31 @@ class Recorder:
 
     def restore(self) -> None:
         setattr(self.module, self.name, self.orig)
+
+
+def hold_ssim_call(a, b, rest):
+    """One recorded SSIM call against its plain version: the mean within
+    ``TOL``, the same bits twice, and per image against the plain version
+    in float64 within ``SSIM_IMAGE_TOL``. Returns (|kernel - plain| of the
+    mean, per-image error of the kernel and of the plain version)."""
+    import torch
+
+    from fmri_tpu_torch.ops.ssim import ssim, ssim_plain, ssim_plane_sums
+
+    err = abs(float(ssim(a, b, *rest)) - float(ssim_plain(a, b, *rest)))
+    check(err <= TOL, f"ssim {list(a.shape)}: |kernel - plain| = {err} > {TOL}")
+    check(torch.equal(ssim_plane_sums(a, b, *rest), ssim_plane_sums(a, b, *rest)),
+          f"ssim {list(a.shape)}: two runs differ")
+    # per image, both fp32 versions against float64: in flat regions the
+    # variances E[x^2] - mu^2 cancel down to C2 = 9e-4, where fp32
+    # rounding moves a pixel's score by about 1e-4
+    exact = ssim_plain(a.double(), b.double(), *rest, size_average=False)
+    img_err = float((ssim(a, b, *rest, size_average=False) - exact).abs().max())
+    img_err_plain = float((ssim_plain(a, b, *rest, size_average=False)
+                           - exact).abs().max())
+    check(img_err <= SSIM_IMAGE_TOL,
+          f"ssim {list(a.shape)}: per image {img_err} from float64 > {SSIM_IMAGE_TOL}")
+    return err, img_err, img_err_plain
 
 
 def compare_steps(a, ma, b, mb, start) -> dict:
@@ -862,8 +891,9 @@ def main() -> None:
     launches = {"ssim": ssim_plane_sums.launches}
     recorder.restore()
     recorded = sum(count for _, count in ssim_calls.values())
-    check(recorded == launches["ssim"],
-          f"ssim: {launches['ssim']} launches but {recorded} recorded calls")
+    check(recorded == launches["ssim"] == SSIM_LAUNCHES_PER_RUN,
+          f"ssim: {launches['ssim']} launches and {recorded} recorded calls, want "
+          f"{SSIM_LAUNCHES_PER_RUN}")
     warm = main_path()[-1]
     print(f"[inference] {n} images; metrics {metrics}; objective {scores}; "
           f"launches {launches}", flush=True)
@@ -912,12 +942,24 @@ def main() -> None:
     visual.load_state_dict(stage1, strict=True)
     visual.to(dev)
     images = [{"image": batch["image"]} for batch in batches]
+    ssim_calls1 = {}
+    recorder = Recorder(ssim_ops, "ssim_plane_sums", ssim_calls1)
     ssim_plane_sums.launches = 0
     r1, t1 = reconstruct_dataset(visual, images, mean=cfg.data.mean, std=cfg.data.std)
     m1 = quality_metrics(r1, t1)
     s1 = objective_scores(r1, t1, tops=(2, 5, 10))
     launches["ssim_stage1"] = ssim_plane_sums.launches
-    check(launches["ssim_stage1"] > 0, "ssim was not launched on the stage-I inference path")
+    recorder.restore()
+    recorded = sum(count for _, count in ssim_calls1.values())
+    check(recorded == launches["ssim_stage1"] == SSIM_LAUNCHES_PER_RUN,
+          f"ssim on the stage-I inference path: {launches['ssim_stage1']} launches and "
+          f"{recorded} recorded calls, want {SSIM_LAUNCHES_PER_RUN}")
+    # every call of this path against the plain version on its own inputs
+    for (a, b, *rest), count in ssim_calls1.values():
+        err, img_err, _ = hold_ssim_call(a, b, rest)
+        max_err = max(max_err, err)
+        print(f"[inference] stage I: ssim {list(a.shape)} x{count} |kernel - plain| "
+              f"{err:.3g}, per image from float64 {img_err:.3g}", flush=True)
     check(tuple(r1.shape) == (n, 64, 64, 3) and bool(torch.isfinite(r1).all()),
           f"stage-I recons {tuple(r1.shape)}, finite {bool(torch.isfinite(r1).all())}")
     err1 = abs(m1["ssim"] - quality_metrics(r1, t1, ssim_fn=ssim_plain)["ssim"])
@@ -976,19 +1018,7 @@ def main() -> None:
                 "bytes": 0.0, "sources": set(), "shapes": []}
     ms_b1024 = None
     for (a, b, *rest), count in ssim_calls.values():
-        err = abs(float(ssim(a, b, *rest)) - float(ssim_plain(a, b, *rest)))
-        check(err <= TOL, f"ssim {list(a.shape)}: |kernel - plain| = {err} > {TOL}")
-        check(torch.equal(ssim_plane_sums(a, b, *rest), ssim_plane_sums(a, b, *rest)),
-              f"ssim {list(a.shape)}: two runs differ")
-        # per image, both fp32 versions against float64: in flat regions the
-        # variances E[x^2] - mu^2 cancel down to C2 = 9e-4, where fp32
-        # rounding moves a pixel's score by about 1e-4
-        exact = ssim_plain(a.double(), b.double(), *rest, size_average=False)
-        img_err = float((ssim(a, b, *rest, size_average=False) - exact).abs().max())
-        img_err_plain = float((ssim_plain(a, b, *rest, size_average=False)
-                               - exact).abs().max())
-        check(img_err <= SSIM_IMAGE_TOL,
-              f"ssim {list(a.shape)}: per image {img_err} from float64 > {SSIM_IMAGE_TOL}")
+        err, img_err, img_err_plain = hold_ssim_call(a, b, rest)
         max_err = max(max_err, err)
         ms = cuda_ms(lambda: ssim_plane_sums(a, b, *rest), iters=20)
         dev_ms, source = device_ms(lambda: ssim_plane_sums(a, b, *rest))

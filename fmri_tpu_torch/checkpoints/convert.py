@@ -4,16 +4,19 @@ reference-layout ``.pth``, or seeded random trees.
 * :func:`from_jax_groups` turns named numpy groups ``{"encoder": {"params",
   "batch_stats"}, "decoder": ..., ...}`` (the JAX package's NHWC/HWIO
   layout) into a state dict in the reference's torch layout and naming. A
-  kind names the module the state dict is for, and every group of it is
-  required (a missing one raises ``KeyError``):
+  kind names the module the state dict is for: its required groups
+  (``KINDS``; a missing one raises ``KeyError``) and its optional ones
+  (``OPTIONAL``):
 
   - ``"vae-gan"``: ``encoder`` (visual), ``decoder``, ``discriminator``:
     the stage-I ``VaeGan`` (``train/state.py``);
   - ``"vae-gan-cognitive"``: ``encoder`` (cognitive), ``decoder``,
-    ``discriminator``, the stage-II/III ``VaeGanCognitiveTrain``; with a
-    ``teacher_encoder`` group also ``teacher_net.encoder.*`` and the
+    ``discriminator``, and the optional ``teacher_encoder``, which gives
+    ``teacher_net.encoder.*`` and the
     ``teacher_net.decoder.*``/``teacher_net.discriminator.*`` copies of
-    the shared modules. This is the JAX package's kind of the same name;
+    the shared modules: the stage-II/III ``VaeGanCognitiveTrain`` loads
+    it strictly with the teacher. This is the JAX package's kind of the
+    same name;
   - ``"vae-gan-cognitive-eval"``: ``encoder`` (cognitive) and ``decoder``,
     the inference module ``eval/steps.py::VaeGanCognitive``.
 
@@ -164,7 +167,8 @@ def _image_discriminator(group: Mapping, cfg: Config, prefix: str) -> Dict:
     return out
 
 
-# {kind: {group: converter}}; each group's keys carry the prefix "<group>."
+# {kind: {group: converter}}: the required groups; each group's keys carry
+# the prefix "<group>."
 KINDS = {
     "vae-gan": {"encoder": _visual_encoder, "decoder": _decoder,
                 "discriminator": _image_discriminator},
@@ -172,8 +176,14 @@ KINDS = {
                           "discriminator": _image_discriminator},
     "vae-gan-cognitive-eval": {"encoder": _cognitive_encoder, "decoder": _decoder},
 }
-# the stage-I teacher of "vae-gan-cognitive" (torch_import.py:372-383)
-TEACHER = "teacher_encoder"
+# {kind: {group: (converter, prefix, shared prefixes)}}: the optional groups.
+# The stage-I teacher of "vae-gan-cognitive" (torch_import.py:372-383) brings
+# its visual encoder and teacher_net.* copies of the shared decoder and
+# discriminator.
+OPTIONAL = {
+    "vae-gan-cognitive": {"teacher_encoder": (
+        _visual_encoder, "teacher_net.encoder.", ("decoder.", "discriminator."))},
+}
 
 
 def _kind(kind: str) -> Mapping:
@@ -191,19 +201,19 @@ def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 def from_jax_groups(groups: Mapping[str, Mapping], cfg: Config,
                     kind: str = "vae-gan-cognitive-eval") -> Dict[str, torch.Tensor]:
     """JAX-layout groups -> the state dict of ``kind``, as CPU tensors.
-    Every group of the kind must be in ``groups``; others are ignored, but
-    for ``"vae-gan-cognitive"`` a ``teacher_encoder`` group adds the
-    ``teacher_net.*`` keys. A group without ``batch_stats`` gives
-    parameters only."""
+    Every required group of the kind must be in ``groups``; an optional
+    group (:data:`OPTIONAL`) adds its keys where given; others are ignored.
+    A group without ``batch_stats`` gives parameters only."""
     sd: Dict[str, np.ndarray] = {}
     for group, fn in _kind(kind).items():
         if group not in groups:
             raise KeyError(f"kind {kind!r} needs group {group!r}; got {sorted(groups)}")
         sd.update(fn(groups[group], cfg, f"{group}."))
-    if kind == "vae-gan-cognitive" and TEACHER in groups:
-        sd.update(_visual_encoder(groups[TEACHER], cfg, "teacher_net.encoder."))
-        sd.update({f"teacher_net.{k}": v for k, v in list(sd.items())
-                   if k.startswith(("decoder.", "discriminator."))})
+    for group, (fn, prefix, shared) in OPTIONAL.get(kind, {}).items():
+        if group in groups:
+            sd.update(fn(groups[group], cfg, prefix))
+            owner = prefix[:prefix.index(".") + 1]  # "teacher_net."
+            sd.update({owner + k: v for k, v in list(sd.items()) if k.startswith(shared)})
     return _tensors(sd)
 
 
@@ -214,8 +224,7 @@ def moments_from_jax(trees: Mapping[str, Any], cfg: Config,
     name: tensor}}`` in the port's layout, by the same permutations as the
     weights."""
     fns = dict(_kind(kind))
-    if kind == "vae-gan-cognitive":
-        fns[TEACHER] = _visual_encoder
+    fns.update({g: spec[0] for g, spec in OPTIONAL.get(kind, {}).items()})
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     for group, tree in trees.items():
         if group not in fns:
@@ -346,5 +355,5 @@ def random_groups(cfg: Config, seed: int = 0, kind: str = "vae-gan-cognitive-eva
     groups = {"encoder": encoder, "decoder": _random_decoder(rng, c)}
     if kind == "vae-gan-cognitive":
         groups["discriminator"] = _random_image_discriminator(rng, c)
-        groups[TEACHER] = _random_visual_encoder(rng, c)
+        groups["teacher_encoder"] = _random_visual_encoder(rng, c)
     return groups

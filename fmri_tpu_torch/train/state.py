@@ -56,20 +56,18 @@ class VaeGan(nn.Module):
 
 class VaeGanCognitiveTrain(nn.Module):
     """The stage-II/III model: ``encoder`` (CognitiveEncoder), ``decoder``,
-    ``discriminator`` and, with ``teacher``, ``teacher_net``: a stage-I
-    :class:`VaeGan` whose ``decoder`` and ``discriminator`` are this
-    module's own. Group ``"teacher_encoder"`` is ``teacher_net.encoder``,
-    the JAX group name."""
+    ``discriminator`` and ``teacher_net``: a stage-I :class:`VaeGan` whose
+    ``decoder`` and ``discriminator`` are this module's own. Group
+    ``"teacher_encoder"`` is ``teacher_net.encoder``, the JAX group name."""
 
-    def __init__(self, cfg: Config, teacher: bool = True):
+    def __init__(self, cfg: Config):
         super().__init__()
         self.encoder = CognitiveEncoder(cfg.model)
         self.decoder = Decoder(cfg.model)
         self.discriminator = ImageDiscriminator(cfg.model)
-        if teacher:
-            self.teacher_net = VaeGan(cfg)
-            self.teacher_net.decoder = self.decoder
-            self.teacher_net.discriminator = self.discriminator
+        self.teacher_net = VaeGan(cfg)
+        self.teacher_net.decoder = self.decoder
+        self.teacher_net.discriminator = self.discriminator
 
     def group(self, name: str) -> Dict[str, nn.Parameter]:
         """The named parameters of one group."""
@@ -110,8 +108,8 @@ def init_vaegan(cfg: Config, seed: int = 0) -> VaeGan:
         return init_parameters(VaeGan(cfg))
 
 
-def init_cognitive(cfg: Config, stage1: VaeGan | None = None, seed: int = 0,
-                   teacher: bool = True) -> VaeGanCognitiveTrain:
+def init_cognitive(cfg: Config, stage1: VaeGan | None = None,
+                   seed: int = 0) -> VaeGanCognitiveTrain:
     """A stage-II model on the CPU: a fresh CognitiveEncoder from ``seed``
     (``fmri_tpu/train/state.py:58-63``); the decoder, the discriminator and
     the teacher's encoder copied from the stage-I triplet ``stage1`` when
@@ -119,9 +117,9 @@ def init_cognitive(cfg: Config, stage1: VaeGan | None = None, seed: int = 0,
     too."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        nets = init_parameters(VaeGanCognitiveTrain(cfg, teacher))
+        nets = init_parameters(VaeGanCognitiveTrain(cfg))
     if stage1 is not None:
-        for name in ("decoder", "discriminator") + (("encoder",) if teacher else ()):
+        for name in ("decoder", "discriminator", "encoder"):
             target = nets.teacher_net.encoder if name == "encoder" else getattr(nets, name)
             target.load_state_dict(getattr(stage1, name).state_dict(), strict=True)
     return nets

@@ -327,7 +327,8 @@ def test_reference_pth_loads_strictly(tmp_path):
     ``torch.save`` writes the reference's shared modules) loads strictly
     into the train module, whose own state dict lists the shared decoder
     and discriminator under both prefixes; the inference module still
-    loads it through ``load_pth``."""
+    loads it through ``load_pth``. Without the teacher group the strict
+    load names the missing ``teacher_net.encoder.*`` keys."""
     jcfg, cfg = _configs()
     groups = convert.random_groups(cfg, 2, KIND)
     path = tmp_path / "stage2.pth"
@@ -344,9 +345,9 @@ def test_reference_pth_loads_strictly(tmp_path):
         assert torch.equal(sd[k], v), k
     model = VaeGanCognitive(cfg.model)
     model.load_state_dict(convert.load_pth(str(path)), strict=True)
-    with pytest.raises(RuntimeError, match="teacher_net"):
-        VaeGanCognitiveTrain(cfg, teacher=False).load_state_dict(
-            convert.load_train_pth(str(path)), strict=True)
+    with pytest.raises(RuntimeError, match="teacher_net.encoder"):  # no teacher group
+        VaeGanCognitiveTrain(cfg).load_state_dict(convert.from_jax_groups(
+            {g: groups[g] for g in GROUPS4[:3]}, cfg, KIND), strict=True)
 
 
 def test_init_cognitive_grafts_the_stage1_triplet():

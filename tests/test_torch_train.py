@@ -60,7 +60,7 @@ from fmri_tpu_torch.train.optim import RmsProp, exponential_lr
 from fmri_tpu_torch.train.state import (
     GROUPS, VaeGan, init_vaegan, make_state,
 )
-from fmri_tpu_torch.train.steps_vgan import make_vgan_stage1_step
+from fmri_tpu_torch.train.steps_vgan import MODES, make_vgan_stage1_step
 
 MARGIN, EQUILIBRIUM, LAMBDA_MSE = 0.35, 0.68, 1e-6
 
@@ -297,10 +297,12 @@ def _jax_state(groups, jcfg):
 
 
 @pytest.mark.parametrize("flags", [False, True])
-def test_spliced_equals_naive(flags):
-    """Both backwards give the same update: the spliced one is a
-    rearrangement by linearity (fp32 reassociation only: atol 1e-7 on
-    parameters, whose updates are about 3e-4)."""
+@pytest.mark.parametrize("mode", MODES)
+def test_spliced_equals_naive(mode, flags):
+    """Both backwards give the same update in every mode: the spliced one is
+    a rearrangement by linearity (fp32 reassociation only: atol 1e-7 on
+    parameters, whose updates are about 3e-4); 'dcgan' leaves the encoder
+    alone in both."""
     _, cfg = _configs("tiny", flags)
     groups = random_groups(cfg, 4, "vae-gan")
     nets = _port_nets(groups, cfg)
@@ -310,16 +312,20 @@ def test_spliced_equals_naive(flags):
     out = {}
     for backward in ("spliced", "naive"):
         state = _port_state(groups, cfg, copy.deepcopy(nets))
-        step = make_vgan_stage1_step(cfg, backward=backward)
+        step = make_vgan_stage1_step(cfg, mode, backward=backward)
         state, m = step.train_step(state, x, eps, z_p, MARGIN, EQUILIBRIUM, 0.3)
         out[backward] = (state, m)
     (s1, m1), (s2, m2) = out["spliced"], out["naive"]
     for k in m1:
         assert float(m1[k]) == pytest.approx(float(m2[k]), rel=1e-6), k
     sd1, sd2 = s1.nets.state_dict(), s2.nets.state_dict()
+    start = nets.state_dict()
     for k in sd1:
         np.testing.assert_allclose(sd1[k].numpy(), sd2[k].numpy(), rtol=0, atol=1e-7,
                                    err_msg=k)
+        if mode == "dcgan" and k.startswith("encoder.") and "running" not in k \
+                and "num_batches" not in k:
+            assert torch.equal(sd1[k], start[k]) and torch.equal(sd2[k], start[k]), k
     assert int(s1.step) == 1
 
 
