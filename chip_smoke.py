@@ -24,7 +24,10 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      stage-I ``VaeGanVisual`` over the same 1,024 images), its SSIM launches
      counted alone (exactly 4) and each call recorded and held against the
      plain version as phase 8 holds phase 4's, its metrics against the
-     plain SSIM and 8 images against the CPU;
+     plain SSIM and 8 images against the CPU; then (4c) the WAE inference
+     path (``--family wae --stage 3``: ``WaeCognitive``, the mean latent,
+     ``sample=True`` ignored) over the same 1,024 pairs with the same
+     checks and its own 4 SSIM launches;
   5. serving: ``ServingModel`` (max_batch 64, uint8 output) answers requests
      of 1, 5, 64 and 130 rows and ``generate(4)``; a request reconstructed
      alone equals it reconstructed inside a padded batch (float output
@@ -80,7 +83,24 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      time at [1024, 64, 64, 3] alone. The times are stage I's (the
      train kernels) and one inference run's (SSIM); ``launches_by_path``
      gives each kernel's launches on every path the run drove. A line
-     before it gives every train path's seconds per step.
+     before it gives every train path's seconds per step;
+  9. alt: the res64 stage-I step with ``alt_backward`` (both kernel flags
+     off, so ``ops/conv_alt.py``'s rewrites run) against the stock step
+     (``STEP_TOL``); every rewrite call of the step against the library's
+     grad of the same operands in float64 (1e-5; cuDNN's fp32 grad printed
+     beside it) and timed beside cuDNN's; 5 timed and one profiled step of
+     each, with cuDNN's dgrad kernels' device ms; then with
+     ``pallas_backward`` on too: 15 ``tap_matmul`` launches, no rewrite;
+  10. WAE train: WAE stage I, the cognitive WAE stages II and III and
+     WAE/Dual-GAN ('vae-gan') at res64, batch 64, both kernel flags on,
+     Adam's second moments (RMSprop's moments) at ones: launches per step
+     exactly ``WAE_LAUNCHES``, BatchNorm ticks ``WAE_TICKS``, frozen groups
+     bitwise unchanged; per tensor against the library backward and against
+     the CPU at batch 8, each within its bound or above its own rounding
+     noise (``check_tensors``: the reference on the reversed batch); 5
+     timed and one profiled step; every kernel call against its plain
+     version; then WAE/Dual-GAN with the fused decoder batch (``tap_matmul``
+     11 per step) against the unfused step.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -315,31 +335,50 @@ def hold_ssim_call(a, b, rest):
     return err, img_err, img_err_plain
 
 
-def compare_steps(a, ma, b, mb, start) -> dict:
-    """Worst relative differences of train state ``a`` (metrics ``ma``)
-    from ``b``: losses; per tensor, the L2 norm of the difference over how
-    far ``b`` moved the parameter from ``start`` (``param``) or over b's
-    norm (BN running statistics, RMSprop moments); gate flags equal."""
+def tensor_gaps(a, b, start) -> dict:
+    """{tensor: (kind, gap)} over the tensors of train state ``b``: the L2
+    norm of ``a``'s difference over how far ``b`` moved the parameter from
+    ``start`` (kind ``param``) or over b's norm (``stats``: BN running
+    statistics; ``sq``: RMSprop moments, Adam's two moments)."""
+    from fmri_tpu_torch.train.optim import AdamState
+
     def rel(x, y, scale):
         return float((x.cpu().double() - y.cpu().double()).norm()
                      / max(float(scale.cpu().double().norm()), 1e-30))
 
-    out = {"loss": max(abs(float(ma[k]) - float(mb[k])) / max(abs(float(mb[k])), 1e-12)
-                       for k in ma if k.startswith("loss")),
-           "gates_equal": all(float(ma[k]) == float(mb[k])
-                              for k in ("train_dec", "train_dis")),
-           "param": 0.0, "stats": 0.0, "sq": 0.0}
+    out = {}
     sa, sb = a.nets.state_dict(), b.nets.state_dict()
     for k, v in sb.items():
         if k.endswith("num_batches_tracked"):
             continue
-        if "running" in k:
-            out["stats"] = max(out["stats"], rel(sa[k], v, v))
-        else:
-            out["param"] = max(out["param"], rel(sa[k], v, v.cpu() - start[k]))
+        out[k] = (("stats", rel(sa[k], v, v)) if "running" in k
+                  else ("param", rel(sa[k], v, v.cpu() - start[k])))
     for g, moments in b.opt_state.items():
-        for k, v in moments.items():
-            out["sq"] = max(out["sq"], rel(a.opt_state[g][k], v, v))
+        pairs = [("sq", a.opt_state[g], moments)]
+        if isinstance(moments, AdamState):
+            pairs = [("mu", a.opt_state[g].mu, moments.mu), ("nu", a.opt_state[g].nu, moments.nu)]
+        for name, got, ref in pairs:
+            for k, v in ref.items():
+                out[f"{g}.{name}.{k}"] = ("sq", rel(got[k], v, v))
+    return out
+
+
+def compare_steps(a, ma, b, mb, start) -> dict:
+    """Worst relative differences of train state ``a`` (metrics ``ma``)
+    from ``b``: losses, and per kind the worst of ``tensor_gaps``; gate
+    flags, where the step has them, and Adam counts equal."""
+    from fmri_tpu_torch.train.optim import AdamState
+
+    out = {"loss": max(abs(float(ma[k]) - float(mb[k])) / max(abs(float(mb[k])), 1e-12)
+                       for k in ma if k.startswith("loss")),
+           "gates_equal": all(float(ma[k]) == float(mb[k])
+                              for k in ("train_dec", "train_dis") if k in mb),
+           "param": 0.0, "stats": 0.0, "sq": 0.0}
+    for kind, gap in tensor_gaps(a, b, start).values():
+        out[kind] = max(out[kind], gap)
+    for g, moments in b.opt_state.items():
+        if isinstance(moments, AdamState):
+            out["gates_equal"] &= int(a.opt_state[g].count) == int(moments.count)
     return out
 
 
@@ -395,10 +434,38 @@ def check_step(name, a, ma, b, mb, start, tol) -> None:
           f"{name}: {d} outside {tol}")
 
 
+# Two fp32 steps of the same math that round differently each sit about one
+# unit of their own rounding from the exact step. Where that unit is large,
+# a tensor is held to a multiple of it, measured by the reference's step on
+# the batch in reverse order: the WAE encoder's l_mu bias takes an update
+# that is a near-cancelling sum (the decoder's FC BatchNorm cancels the batch
+# sum of its cotangent down to the penalty's small part), and a weight whose
+# update is below its fp32 spacing (the decoder's first FC in WAE stage III)
+# moves by rounding alone.
+FLOOR_FACTOR = 3
+
+
+def check_tensors(name, a, ma, b, mb, start, tol, floor) -> None:
+    """``check_step`` per tensor: the gap of each tensor of ``a`` from the
+    reference ``b`` within its kind's bound in ``tol``, or within
+    ``FLOOR_FACTOR`` times that tensor's own rounding noise where larger;
+    ``floor`` is ``tensor_gaps`` of ``b``'s step on the batch in reverse
+    order, the same math summed in another order."""
+    d = compare_steps(a, ma, b, mb, start)
+    gaps = tensor_gaps(a, b, start)
+    ratio, worst = max((gap / max(tol[kind], FLOOR_FACTOR * floor[k][1]), k)
+                       for k, (kind, gap) in gaps.items())
+    print(f"[train] {name}: {d} (bounds {tol}); per tensor at most {ratio:.3f} of its "
+          f"bound ({worst}: gap {gaps[worst][1]:.3g}, noise {floor[worst][1]:.3g})",
+          flush=True)
+    check(d["gates_equal"] and d["loss"] <= tol["loss"] and ratio <= 1.0,
+          f"{name}: {worst} over its bound ({ratio:.3f})")
+
+
 def timed_steps(step, state, n_steps, draw):
     """(state, seconds per step, metrics): ``n_steps`` steps on fresh noise
     from ``draw()``, host clock, one synchronize at the end; checks finite
-    metrics and gates in {0, 1}."""
+    metrics and gates, where the step has them, in {0, 1}."""
     import numpy as np
     import torch
 
@@ -412,7 +479,7 @@ def timed_steps(step, state, n_steps, draw):
     seconds = (time.perf_counter() - t0) / n_steps
     for m in history:
         check(all(np.isfinite(float(v)) for v in m.values()), f"non-finite metrics {m}")
-        check(all(float(m[k]) in (0.0, 1.0) for k in ("train_dec", "train_dis")),
+        check(all(float(m[k]) in (0.0, 1.0) for k in ("train_dec", "train_dis") if k in m),
               f"gates not in {{0, 1}}: {m}")
     return state, seconds, history
 
@@ -421,7 +488,8 @@ def profile_step(run, path: str, step_s: float) -> dict:
     """The device time of one more warm step, by kernel (``torch.profiler``,
     CUDA activity), beside ``step_s``, the unprofiled step's host time: the
     device's busy share of the step and its largest kernels. Prints and
-    returns ``{"device_ms", "kernels", "busy_share", "top"}``."""
+    returns ``{"device_ms", "kernels", "busy_share", "top", "by_kernel"}``, the
+    last the device ms of every kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -435,7 +503,8 @@ def profile_step(run, path: str, step_s: float) -> dict:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     out = {"device_ms": busy_ms, "kernels": sum(e.count for e in kernels),
            "busy_share": busy_ms / (1e3 * step_s),
-           "top": [(e.key[:70], e.count, e.self_device_time_total / 1e3) for e in top]}
+           "top": [(e.key[:70], e.count, e.self_device_time_total / 1e3) for e in top],
+           "by_kernel": {e.key: e.self_device_time_total / 1e3 for e in kernels}}
     print(f"[{path}] profiled step: device busy {busy_ms:.2f} ms in {out['kernels']} "
           f"kernels, {100 * out['busy_share']:.1f}% of the {1e3 * step_s:.2f} ms step; "
           f"largest: " + "; ".join(f"{name} x{n} {ms:.2f} ms" for name, n, ms in out["top"]),
@@ -592,10 +661,21 @@ def with_flags(cfg, **flags):
     return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **flags))
 
 
+def reversed_batch(a):
+    """A tensor with its batch (leading) axis reversed; anything else as it is."""
+    import torch
+
+    return a.flip(0) if torch.is_tensor(a) else a
+
+
 def warm_moments(state):
-    """RMSprop moments started at ones, as tests/ref_oracle.py:110 warms them."""
+    """RMSprop moments started at ones, as tests/ref_oracle.py:110 warms them;
+    Adam's second moments at ones (first moments and count at zero), so its
+    first update is linear in the gradient (tests/test_torch_wae.py)."""
+    from fmri_tpu_torch.train.optim import AdamState
+
     for moments in state.opt_state.values():
-        for v in moments.values():
+        for v in (moments.nu if isinstance(moments, AdamState) else moments).values():
             v.fill_(1.0)
     return state
 
@@ -801,6 +881,363 @@ def cognitive_phase(dev, cfg):
     return launches_by_path, seconds
 
 
+# the stage-I step with alt_backward and pallas_backward both on: the kernel
+# wins every conv the rewrites would take, so the weight grads stay at 15
+ALT_DW_LAUNCHES = DW_LAUNCHES_PER_STEP
+
+
+def alt_phase(dev, cfg):
+    """Phase 9: the res64 stage-I step with ``alt_backward`` on (both kernel
+    flags off, so the rewrites of ``ops/conv_alt.py`` run) against the stock
+    step; each rewrite call of the step against cuDNN's input grad or
+    ``convolution_backward``'s weight grad; 5 timed steps and one profiled
+    step of each, with cuDNN's dgrad kernels' device ms; then the step with
+    ``pallas_backward`` (and ``pallas_bn``) on too. Returns ({path: launches
+    per step}, {path: seconds per step}, {path: dgrad ms})."""
+    import torch
+
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups, random_groups
+    from fmri_tpu_torch.data.synthetic import synthetic_images
+    from fmri_tpu_torch.ops import conv_alt
+    from fmri_tpu_torch.train.optim import RmsProp
+    from fmri_tpu_torch.train.state import GROUPS, VaeGan, make_state
+    from fmri_tpu_torch.train.steps_vgan import make_vgan_stage1_step
+
+    t = cfg.train
+    weights = from_jax_groups(random_groups(cfg, seed=0, kind="vae-gan"), cfg, "vae-gan")
+
+    def new_state(c, device):
+        nets = VaeGan(c)
+        nets.load_state_dict(weights, strict=True)
+        return warm_moments(make_state(nets.to(device), {
+            g: RmsProp(t.rms_decay, t.rms_eps, t.grad_clip) for g in GROUPS}))
+
+    b, latent = t.batch_size, cfg.model.latent_dim
+    x = torch.from_numpy(2.0 * synthetic_images(b, cfg.model.image_size, seed=0)[0]
+                         - 1.0).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    hyper = (t.margin, t.equilibrium, t.lambda_mse)
+
+    def draw():
+        return (x, *(torch.randn((b, latent), generator=gen, device=dev) for _ in range(2)),
+                *hyper)
+
+    cfg_alt = with_flags(cfg, alt_backward=True)
+    step_alt, step_stock = make_vgan_stage1_step(cfg_alt), make_vgan_stage1_step(cfg)
+    names = ("conv2d_dx_phases", "conv2d_dw_patches")
+
+    def rewrites(run):
+        """(run()'s result, calls of each rewrite with their arguments)."""
+        calls = {n: {} for n in names}
+        recorders = [Recorder(conv_alt, n, calls[n]) for n in names]
+        try:
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            for r in recorders:
+                r.restore()
+        return out, calls
+
+    args = draw()
+    ((alt, m_alt), launches, _, cold), calls = rewrites(lambda: record_step(
+        lambda: step_alt.train_step(new_state(cfg_alt, dev), *args), record=False))
+    counts = {n: sum(c for _, c in v.values()) for n, v in calls.items()}
+    print(f"[alt] {cfg.model.image_size} px stage-I step, batch {b}, alt_backward on, "
+          f"kernel flags off: first step {cold:.3f} s; rewrite calls per step {counts}; "
+          f"kernel launches {launches}", flush=True)
+    check(all(n > 0 for n in counts.values()), f"alt: a rewrite never ran: {counts}")
+    check(all(n == 0 for n in launches.values()), f"alt: kernels launched {launches}")
+    stock, m_stock = step_stock.train_step(new_state(cfg, dev), *args)
+    check_step("alt_backward vs the stock backward on the card", alt, m_alt, stock,
+               m_stock, weights, STEP_TOL)
+
+    # each rewrite call against the library's grad of the same operands in
+    # float64 (cuDNN's fp32 weight grad of the 64 -> 3 out conv is itself
+    # ~1.6% of its largest value off float64, the rewrite ~1e-6: both printed)
+    def library(name, args, dtype=torch.float32):
+        """The rewrite's result from ``convolution_backward`` in ``dtype``."""
+        if name == "conv2d_dx_phases":
+            dy, w, x_hw, pad = args
+            xa, stride, which = torch.zeros((dy.shape[0], w.shape[1], *x_hw), device=dev), 2, 0
+        else:
+            xa, dy, pad, k = args
+            w, stride, which = torch.zeros((dy.shape[1], xa.shape[1], k, k), device=dev), 1, 1
+        return torch.ops.aten.convolution_backward(
+            dy.to(dtype), xa.to(dtype), w.to(dtype), None, [stride] * 2, [pad] * 2,
+            [1, 1], False, [0, 0], 1, [which == 0, which == 1, False])[which]
+
+    rewrite_ms = {}
+    for name in names:
+        fn = getattr(conv_alt, name)
+        for args, n in calls[name].values():
+            exact = library(name, args, torch.float64)
+            err = rel_err(fn(*args), exact)
+            lib_err = rel_err(library(name, args), exact)
+            shapes = [list(a.shape) for a in args[:2]]
+            check(err <= TOL, f"alt {name} {shapes}: {err} from float64 > {TOL}")
+            ms = cuda_ms(lambda: fn(*args), iters=20)
+            lib_ms = cuda_ms(lambda: library(name, args), iters=20)
+            rewrite_ms[name] = rewrite_ms.get(name, 0.0) + n * ms
+            print(f"[alt] {name} {shapes} x{n}: {ms:.4f} ms per call, cuDNN {lib_ms:.4f} "
+                  f"ms; from float64: rewrite {err:.3g}, cuDNN fp32 {lib_err:.3g}",
+                  flush=True)
+    print(f"[alt] the rewrites' ms per stage-I step (wrapper calls): {rewrite_ms}",
+          flush=True)
+
+    # timed and profiled steps, alt and stock
+    seconds, dgrad, launches_by_path = {}, {}, {"stage1_alt": launches}
+    for path, step, state in (("stage1_alt", step_alt, alt),
+                              ("stage1_stock", step_stock, stock)):
+        state, seconds[path], _ = timed_steps(step.train_step, state, 5, draw)
+        prof = profile_step(lambda: step.train_step(state, *draw()), path, seconds[path])
+        dgrad[path] = sum(ms for k, ms in prof["by_kernel"].items() if "dgrad" in k)
+        print(f"[{path}] 5 steps: {seconds[path]:.4f} s per step (host clock, warm); "
+              f"cuDNN dgrad kernels {dgrad[path]:.4f} ms of device time per step",
+              flush=True)
+    print(f"[alt] dgrad_engine ms per stage-I step: alt_backward {dgrad['stage1_alt']:.4f}, "
+          f"stock {dgrad['stage1_stock']:.4f}", flush=True)
+
+    # with pallas_backward on too the kernel takes every weight grad
+    cfg_both = with_flags(cfg, pallas_bn=True, pallas_backward=True, alt_backward=True)
+    (_, launches, _, _), calls = rewrites(lambda: record_step(
+        lambda: make_vgan_stage1_step(cfg_both).train_step(new_state(cfg_both, dev),
+                                                           *draw()), record=False))
+    counts = {n: sum(c for _, c in v.values()) for n, v in calls.items()}
+    print(f"[stage1_alt_pallas] launches per step {launches}; rewrite calls {counts}",
+          flush=True)
+    check(launches["tap_matmul"] == ALT_DW_LAUNCHES and counts["conv2d_dw_patches"] == 0,
+          f"alt + pallas_backward: {launches}, rewrites {counts}")
+    launches_by_path["stage1_alt_pallas"] = launches
+    return launches_by_path, seconds, dgrad
+
+
+# launches per res64 step with both kernel flags on, counted on the CPU
+# (tests/test_torch_wae*.py): stage I, one encoder (3 BN, 3 dW) and one
+# decoder backward (3 BN, 4 dW); stage II, the frozen decoder back to mu
+# (3 BN, no dW); stage III, the decoder back to its weights (3 BN, 4 dW);
+# WAE/Dual-GAN, the stage-I VAE/GAN step's, the penalty folded into its one
+# encoder backward
+WAE_LAUNCHES = {
+    "wae_stage1": {"bn_bwd_reduce": 6, "bn_bwd_apply": 6, "tap_matmul": 7},
+    "wae_stage2": {"bn_bwd_reduce": 3, "bn_bwd_apply": 3, "tap_matmul": 0},
+    "wae_stage3": {"bn_bwd_reduce": 3, "bn_bwd_apply": 3, "tap_matmul": 4},
+    "wae_vgan": {"bn_bwd_reduce": 17, "bn_bwd_apply": 17, "tap_matmul": 15}}
+WAE_FUSED_DW_LAUNCHES = 11  # WAE/Dual-GAN, fused decoder batch: 3 + 4 + 4
+# BatchNorm ticks per step: the encoder's (one forward, the rest replayed)
+# and the decoder's
+WAE_TICKS = {"wae_stage1": (2, 1), "wae_stage2": (2, 2), "wae_stage3": (2, 1),
+             "wae_vgan": (3, 3)}
+
+
+def wae_phase(dev, cfg):
+    """Phase 10: the WAE train paths at res64, batch 64, both kernel flags
+    on: stage I, the cognitive stages II and III, and WAE/Dual-GAN
+    ('vae-gan'), each with the checks of phase 7; then WAE/Dual-GAN with
+    the fused decoder batch against the unfused step. Returns ({path:
+    launches per step}, {path: seconds per step})."""
+    import torch
+
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups, random_groups
+    from fmri_tpu_torch.data.synthetic import synthetic_pairs
+    from fmri_tpu_torch.train import state as st
+    from fmri_tpu_torch.train.steps_wae import (
+        make_wae_cognitive_step, make_wae_stage1_step, make_wae_vgan_step,
+    )
+
+    t, c = cfg.train, cfg.model
+    b = t.batch_size
+    data = synthetic_pairs(b, c.image_size, c.num_voxels, seed=0)
+    fmri = torch.from_numpy(data["fmri"]).to(dev)
+    image = torch.from_numpy(2.0 * data["image"] - 1.0).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def noise(scale=1.0):
+        return scale * torch.randn((b, c.latent_dim), generator=gen, device=dev)
+
+    paths = {  # (kind, module, state, step factory, draw, frozen prefixes)
+        "wae_stage1": ("wae-gan", st.WaeGan, st.make_wae_state,
+                       lambda c_: make_wae_stage1_step(c_),
+                       lambda: (image, noise(t.wae_sigma)), ()),
+        "wae_stage2": ("wae-gan-cognitive", st.WaeGanCognitiveTrain,
+                       lambda n, c_: st.make_wae_cognitive_state(n, c_, 2),
+                       lambda c_: make_wae_cognitive_step(c_, 2),
+                       lambda: (fmri, image), ("decoder.", "teacher_encoder.")),
+        "wae_stage3": ("wae-gan-cognitive", st.WaeGanCognitiveTrain,
+                       lambda n, c_: st.make_wae_cognitive_state(n, c_, 3),
+                       lambda c_: make_wae_cognitive_step(c_, 3),
+                       lambda: (fmri, image), ("encoder.", "teacher_encoder.")),
+        "wae_vgan": ("wae-vgan", st.WaeDualGan, st.make_wae_dual_gan_state,
+                     lambda c_: make_wae_vgan_step(c_),
+                     lambda: (image, noise(), noise(), noise(t.wae_sigma), t.margin,
+                              t.equilibrium, t.lambda_mse), ()),
+    }
+    cfg_on = with_flags(cfg, pallas_bn=True, pallas_backward=True)
+    launches_by_path, seconds = {}, {}
+    for path, (kind, module, make, factory, draw, frozen) in paths.items():
+        weights = from_jax_groups(random_groups(cfg, seed=0, kind=kind), cfg, kind)
+
+        def new_state(cfg_, device, module=module, make=make, weights=weights):
+            nets = module(cfg_)
+            nets.load_state_dict(weights, strict=True)
+            return warm_moments(make(nets.to(device), cfg_))
+
+        step_on = factory(cfg_on).train_step
+        args = draw()
+
+        # the main path: one step with both flags on, every call recorded
+        on = new_state(cfg_on, dev)
+        (on, m_on), launches, calls, cold = record_step(lambda: step_on(on, *args))
+        print(f"[{path}] {c.image_size} px step, batch {b}, both kernel flags on: first "
+              f"step {cold:.3f} s; launches per step {launches}; metrics "
+              f"{ {k: round(float(v), 6) for k, v in m_on.items()} }", flush=True)
+        check(launches == WAE_LAUNCHES[path],
+              f"{path}: launches per step {launches}, want {WAE_LAUNCHES[path]}")
+        launches_by_path[path] = launches
+        sd = on.nets.state_dict()
+        for k, v in sd.items():
+            if k.startswith(frozen) and "running" not in k and "num_batches" not in k:
+                check(torch.equal(v.cpu(), weights[k]), f"{path}: frozen {k} moved")
+        enc_ticks, dec_ticks = WAE_TICKS[path]
+        got_ticks = {p: {int(v) for k, v in sd.items()
+                         if k.startswith(p) and k.endswith("num_batches_tracked")}
+                     for p in ("encoder.", "decoder.")}
+        check(got_ticks == {"encoder.": {enc_ticks}, "decoder.": {dec_ticks}},
+              f"{path}: BatchNorm ticks {got_ticks}, want {WAE_TICKS[path]}")
+        print(f"[{path}] frozen groups {frozen or 'none'} bitwise unchanged; BatchNorm "
+              f"ticks per step: encoder {enc_ticks}, decoder {dec_ticks}", flush=True)
+
+        # 1. against the library backward (both flags off) on the card, and
+        # 2. card against the CPU at batch 8; each tensor above its own
+        #    rounding noise (the reference's step on the reversed batch)
+        off_step = factory(cfg).train_step
+        off, m_off = off_step(new_state(cfg, dev), *args)
+        rev, _ = off_step(new_state(cfg, dev), *map(reversed_batch, args))
+        check_tensors(f"{path} kernels vs library backward on the card", on, m_on, off,
+                      m_off, weights, STEP_TOL, tensor_gaps(rev, off, weights))
+        small = [a[:8] if torch.is_tensor(a) else a for a in args]
+        card, m_card = step_on(new_state(cfg_on, dev), *small)
+        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in small]
+        cpu, m_cpu = step_on(new_state(cfg_on, "cpu"), *cpu_args)
+        rev, _ = step_on(new_state(cfg_on, "cpu"), *map(reversed_batch, cpu_args))
+        check_tensors(f"{path} card vs CPU at batch 8", card, m_card, cpu, m_cpu, weights,
+                      CPU_TOL, tensor_gaps(rev, cpu, weights))
+
+        # 3. five timed steps and a profiled one
+        n_steps = 5
+        (on, seconds[path], _), counted, _, _ = record_step(
+            lambda: timed_steps(step_on, on, n_steps, draw), record=False)
+        print(f"[{path}] {n_steps} steps: {seconds[path]:.4f} s per step, "
+              f"{b / seconds[path]:.1f} examples/s (host clock, warm)", flush=True)
+        for n, count in counted.items():
+            check(count == n_steps * launches[n],
+                  f"{path} {n}: {count} launches over {n_steps} steps, {launches[n]} per step")
+        profile_step(lambda: step_on(on, *draw()), path, seconds[path])
+
+        # 4. every kernel call of the step against its plain version
+        hold_against_plain(calls, path, timed=False)
+
+    # WAE/Dual-GAN with the fused decoder batch: pallas_bn off (vsplit forbids
+    # it), the weight-grad kernel on; held against the unfused step
+    kind = "wae-vgan"
+    weights = from_jax_groups(random_groups(cfg, seed=0, kind=kind), cfg, kind)
+
+    def dual_state(cfg_):
+        nets = st.WaeDualGan(cfg_)
+        nets.load_state_dict(weights, strict=True)
+        return warm_moments(st.make_wae_dual_gan_state(nets.to(dev), cfg_))
+
+    cfg_fused = with_flags(cfg, pallas_backward=True, fused_decoder_batch=True)
+    cfg_seq = with_flags(cfg, pallas_backward=True)
+    draw = paths["wae_vgan"][4]
+    args = draw()
+    fused_step = make_wae_vgan_step(cfg_fused).train_step
+    (fused, m_fused), launches, calls, _ = record_step(
+        lambda: fused_step(dual_state(cfg_fused), *args))
+    print(f"[wae_vgan_fused] launches per step {launches}", flush=True)
+    check(launches == {"bn_bwd_reduce": 0, "bn_bwd_apply": 0,
+                       "tap_matmul": WAE_FUSED_DW_LAUNCHES},
+          f"wae_vgan_fused: launches per step {launches}")
+    launches_by_path["wae_vgan_fused"] = launches
+    seq, m_seq = make_wae_vgan_step(cfg_seq).train_step(dual_state(cfg_seq), *args)
+    check_step("wae_vgan fused vs unfused decoder batch on the card", fused, m_fused, seq,
+               m_seq, weights, STEP_TOL)
+    hold_against_plain(calls, "wae_vgan_fused", timed=False)
+    (fused, seconds["wae_vgan_fused"], _), _, _, _ = record_step(
+        lambda: timed_steps(fused_step, fused, 5, draw), record=False)
+    print(f"[wae_vgan_fused] 5 steps: {seconds['wae_vgan_fused']:.4f} s per step "
+          f"(host clock, warm)", flush=True)
+    profile_step(lambda: fused_step(fused, *draw()), "wae_vgan_fused",
+                 seconds["wae_vgan_fused"])
+    return launches_by_path, seconds
+
+
+def wae_inference_phase(dev, cfg, batches, data):
+    """Phase 4c: the WAE inference path (``--family wae --stage 3``: fMRI ->
+    image through the mean latent), the third entry point to the SSIM
+    kernel, over the phase-4 batches with ``sample=True`` (the WAE eval
+    ignores it). Its SSIM launches counted alone (exactly 4), each call
+    held against the plain version; its metrics against the plain SSIM; 8
+    pairs against the CPU. Returns (SSIM launches, the largest |kernel -
+    plain| of the SSIM mean)."""
+    import torch
+
+    from fmri_tpu_torch.checkpoints.convert import (
+        UNUSED_PREFIXES, from_jax_groups, random_groups,
+    )
+    from fmri_tpu_torch.data.transforms import denormalize
+    from fmri_tpu_torch.eval.evaluate import (
+        objective_scores, quality_metrics, reconstruct_dataset,
+    )
+    from fmri_tpu_torch.eval.steps import WaeCognitive
+    from fmri_tpu_torch.ops import ssim as ssim_ops
+    from fmri_tpu_torch.ops.ssim import ssim_plain, ssim_plane_sums
+
+    n, bs = len(data["fmri"]), len(batches[0]["fmri"])
+    wae_sd = {k: v for k, v in from_jax_groups(
+        random_groups(cfg, seed=0, kind="wae-gan-cognitive"), cfg,
+        "wae-gan-cognitive").items() if not k.startswith(UNUSED_PREFIXES)}
+    wae = WaeCognitive(cfg.model)
+    wae.load_state_dict(wae_sd, strict=True)
+    wae.to(dev)
+    calls = {}
+    recorder = Recorder(ssim_ops, "ssim_plane_sums", calls)
+    ssim_plane_sums.launches = 0
+    rw, tw = reconstruct_dataset(wae, batches, mean=cfg.data.mean, std=cfg.data.std,
+                                 sample=True)
+    mw = quality_metrics(rw, tw)
+    sw = objective_scores(rw, tw, tops=(2, 5, 10))
+    launches = ssim_plane_sums.launches
+    recorder.restore()
+    recorded = sum(count for _, count in calls.values())
+    check(recorded == launches == SSIM_LAUNCHES_PER_RUN,
+          f"ssim on the WAE inference path: {launches} launches and {recorded} "
+          f"recorded calls, want {SSIM_LAUNCHES_PER_RUN}")
+    max_err = 0.0
+    for (a, b, *rest), count in calls.values():
+        err, img_err, _ = hold_ssim_call(a, b, rest)
+        max_err = max(max_err, err)
+        print(f"[inference] WAE: ssim {list(a.shape)} x{count} |kernel - plain| "
+              f"{err:.3g}, per image from float64 {img_err:.3g}", flush=True)
+    size = cfg.model.image_size
+    check(tuple(rw.shape) == (n, size, size, 3) and bool(torch.isfinite(rw).all()),
+          f"WAE recons {tuple(rw.shape)}, finite {bool(torch.isfinite(rw).all())}")
+    errw = abs(mw["ssim"] - quality_metrics(rw, tw, ssim_fn=ssim_plain)["ssim"])
+    check(errw <= TOL, f"WAE quality ssim differs from plain by {errw}")
+    cpu_wae = WaeCognitive(cfg.model)
+    cpu_wae.load_state_dict(wae_sd, strict=True)
+    small = torch.from_numpy(data["fmri"][:8])
+    err = float((wae.reconstruct(small.to(dev)).cpu() - cpu_wae.reconstruct(small)).abs().max())
+    check(err <= 1e-4, f"WAE card vs CPU reconstruction differ by {err}")
+    mean_latent = denormalize(wae.reconstruct(torch.from_numpy(data["fmri"][:bs]).to(dev)),
+                              cfg.data.mean, cfg.data.std)
+    gap = float((rw[:bs] - mean_latent).abs().max())
+    check(gap <= TOL, f"the WAE eval sampled ({gap} from the mean latent's images)")
+    print(f"[inference] WAE stage III (fMRI -> image, mean latent; sample ignored) over "
+          f"the same {n} pairs: metrics {mw}; objective {sw}; ssim launches {launches}; "
+          f"|kernel - plain| {errw:.3g}; |card - cpu| {err:.3g}", flush=True)
+    return launches, max(max_err, errw)
+
+
 def main() -> None:
     import torch
 
@@ -973,6 +1410,10 @@ def main() -> None:
           f"objective {s1}; ssim launches {launches['ssim_stage1']}; |kernel - plain| "
           f"{err1:.3g}; |card - cpu| {err:.3g}", flush=True)
 
+    # 4c. the WAE inference path
+    launches["ssim_wae"], err = wae_inference_phase(dev, cfg, batches, data)
+    max_err = max(max_err, err)
+
     # 5. serving
     served = ServingModel(cfg, model, max_batch=64, output="uint8", device=dev)
     served.warmup()
@@ -1008,6 +1449,14 @@ def main() -> None:
     launches_by_path, seconds = cognitive_phase(dev, cfg)
     launches_by_path = {"stage1": stage1_launches, **launches_by_path}
     seconds = {"stage1": stage1_seconds, **seconds}
+
+    # 9. the stage-I step with alt_backward; 10. the WAE train paths
+    alt_launches, alt_seconds, dgrad = alt_phase(dev, cfg)
+    wae_launches, wae_seconds = wae_phase(dev, cfg)
+    launches_by_path.update(alt_launches)
+    launches_by_path.update(wae_launches)
+    seconds.update(alt_seconds)
+    seconds.update(wae_seconds)
     for entry in train_kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in launches_by_path.items()}
@@ -1052,7 +1501,8 @@ def main() -> None:
         "replaces": "fmri_tpu/ops/pallas_ssim.py:79",
         "launches": launches["ssim"],
         "launches_by_path": {"inference": launches["ssim"],
-                             "inference_stage1": launches["ssim_stage1"]},
+                             "inference_stage1": launches["ssim_stage1"],
+                             "inference_wae": launches["ssim_wae"]},
         "max_abs_err": max_err,
         "ms": ssim_tot["ms"],
         "device_ms": ssim_tot["device_ms"],
@@ -1065,8 +1515,10 @@ def main() -> None:
         "shapes": ssim_tot["shapes"],
     }] + train_kernels
     print(f"[train] seconds per step at batch {cfg.train.batch_size}, both kernel flags "
-          f"on (stage3_fused: pallas_backward only), host clock, warm: "
+          f"on (stage3_fused, wae_vgan_fused: pallas_backward only; stage1_alt: "
+          f"alt_backward only; stage1_stock: no flag), host clock, warm: "
           f"{json.dumps(seconds)}", flush=True)
+    print(f"[alt] cuDNN dgrad device ms per stage-I step: {json.dumps(dgrad)}", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,15 +18,26 @@ reference-layout ``.pth``, or seeded random trees.
     it strictly with the teacher. This is the JAX package's kind of the
     same name;
   - ``"vae-gan-cognitive-eval"``: ``encoder`` (cognitive) and ``decoder``,
-    the inference module ``eval/steps.py::VaeGanCognitive``.
+    the inference module ``eval/steps.py::VaeGanCognitive``;
+  - ``"wae-gan"``: ``encoder`` (visual), ``decoder`` and ``latent_disc``
+    under the reference's ``discriminator.`` prefix: ``train/state.py::
+    WaeGan``, the JAX package's kind of the same name;
+  - ``"wae-gan-cognitive"``: ``encoder`` (cognitive), ``decoder``,
+    ``latent_disc`` (``discriminator.``), and the optional
+    ``teacher_encoder`` (``teacher_encoder.``, a key the reference does not
+    save): ``WaeGanCognitiveTrain``; without the teacher, the JAX package's
+    kind of the same name;
+  - ``"wae-vgan"``: ``encoder`` (visual), ``decoder``, ``discriminator``
+    (image) and ``latent_disc`` (``latent_disc.``): ``WaeDualGan``. The JAX
+    package has no such kind; the names are the port's.
 
   It is the port's own copy of the inverse converters of
   ``fmri_tpu/checkpoints/torch_import.py:200-384`` and gives the same
   arrays as that module's ``export_state_dict``. The 180-degree deconv-tap
   rotation happens here (``_inv_deconv``), never in the op.
 * :func:`moments_from_jax` maps optimizer moments (trees shaped like the
-  params of the groups given) through the same permutations, into the
-  port's per-parameter layout.
+  params of the groups given, or Adam states of such trees) through the
+  same permutations, into the port's per-parameter layout.
 * :func:`load_pth` reads a reference-layout ``.pth`` for inference,
   :func:`load_train_pth` for training.
 * :func:`random_groups` makes seeded numpy trees in the JAX layout, for runs
@@ -41,9 +52,10 @@ import numpy as np
 import torch
 
 from fmri_tpu_torch.configs.presets import Config
+from fmri_tpu_torch.train.optim import AdamState
 
-# prefixes of a VaeGanCognitive .pth that inference does not use
-UNUSED_PREFIXES = ("discriminator.", "teacher_net.")
+# prefixes of a train module's .pth that inference does not use
+UNUSED_PREFIXES = ("discriminator.", "teacher_net.", "teacher_encoder.", "latent_disc.")
 
 
 def _f32(v) -> np.ndarray:
@@ -167,22 +179,42 @@ def _image_discriminator(group: Mapping, cfg: Config, prefix: str) -> Dict:
     return out
 
 
-# {kind: {group: converter}}: the required groups; each group's keys carry
-# the prefix "<group>."
+def _latent_discriminator(group: Mapping, cfg: Config, prefix: str) -> Dict:
+    p = group["params"]
+    out: Dict[str, np.ndarray] = {}
+    for j, idx in enumerate((0, 2, 4, 6, 8)):
+        out[f"{prefix}main.{idx}.weight"] = _inv_lin(p[f"Dense_{j}"]["kernel"])
+        out[f"{prefix}main.{idx}.bias"] = _f32(p[f"Dense_{j}"]["bias"])
+    return out
+
+
+_VISUAL = (_visual_encoder, "encoder.")
+_COGNITIVE = (_cognitive_encoder, "encoder.")
+_DECODER = (_decoder, "decoder.")
+_IMAGE_D = (_image_discriminator, "discriminator.")
+# {kind: {group: (converter, prefix)}}: the required groups
 KINDS = {
-    "vae-gan": {"encoder": _visual_encoder, "decoder": _decoder,
-                "discriminator": _image_discriminator},
-    "vae-gan-cognitive": {"encoder": _cognitive_encoder, "decoder": _decoder,
-                          "discriminator": _image_discriminator},
-    "vae-gan-cognitive-eval": {"encoder": _cognitive_encoder, "decoder": _decoder},
+    "vae-gan": {"encoder": _VISUAL, "decoder": _DECODER, "discriminator": _IMAGE_D},
+    "vae-gan-cognitive": {"encoder": _COGNITIVE, "decoder": _DECODER,
+                          "discriminator": _IMAGE_D},
+    "vae-gan-cognitive-eval": {"encoder": _COGNITIVE, "decoder": _DECODER},
+    # the reference's WaeGan / WaeGanCognitive keep the latent D under
+    # "discriminator." (torch_import.py:339-350)
+    "wae-gan": {"encoder": _VISUAL, "decoder": _DECODER,
+                "latent_disc": (_latent_discriminator, "discriminator.")},
+    "wae-gan-cognitive": {"encoder": _COGNITIVE, "decoder": _DECODER,
+                          "latent_disc": (_latent_discriminator, "discriminator.")},
+    "wae-vgan": {"encoder": _VISUAL, "decoder": _DECODER, "discriminator": _IMAGE_D,
+                 "latent_disc": (_latent_discriminator, "latent_disc.")},
 }
 # {kind: {group: (converter, prefix, shared prefixes)}}: the optional groups.
 # The stage-I teacher of "vae-gan-cognitive" (torch_import.py:372-383) brings
 # its visual encoder and teacher_net.* copies of the shared decoder and
-# discriminator.
+# discriminator; the WAE teacher is a module of its own.
 OPTIONAL = {
     "vae-gan-cognitive": {"teacher_encoder": (
         _visual_encoder, "teacher_net.encoder.", ("decoder.", "discriminator."))},
+    "wae-gan-cognitive": {"teacher_encoder": (_visual_encoder, "teacher_encoder.", ())},
 }
 
 
@@ -205,48 +237,59 @@ def from_jax_groups(groups: Mapping[str, Mapping], cfg: Config,
     group (:data:`OPTIONAL`) adds its keys where given; others are ignored.
     A group without ``batch_stats`` gives parameters only."""
     sd: Dict[str, np.ndarray] = {}
-    for group, fn in _kind(kind).items():
+    for group, (fn, prefix) in _kind(kind).items():
         if group not in groups:
             raise KeyError(f"kind {kind!r} needs group {group!r}; got {sorted(groups)}")
-        sd.update(fn(groups[group], cfg, f"{group}."))
+        sd.update(fn(groups[group], cfg, prefix))
     for group, (fn, prefix, shared) in OPTIONAL.get(kind, {}).items():
         if group in groups:
             sd.update(fn(groups[group], cfg, prefix))
-            owner = prefix[:prefix.index(".") + 1]  # "teacher_net."
-            sd.update({owner + k: v for k, v in list(sd.items()) if k.startswith(shared)})
+            if shared:
+                owner = prefix[:prefix.index(".") + 1]  # "teacher_net."
+                sd.update({owner + k: v for k, v in list(sd.items())
+                           if k.startswith(shared)})
     return _tensors(sd)
 
 
 def moments_from_jax(trees: Mapping[str, Any], cfg: Config,
-                     kind: str = "vae-gan") -> Dict[str, Dict[str, torch.Tensor]]:
-    """Optimizer moments shaped like the JAX params of the groups given (e.g.
-    RMSprop's ``sq_avg`` of the trained groups) -> ``{group: {parameter
-    name: tensor}}`` in the port's layout, by the same permutations as the
-    weights."""
-    fns = dict(_kind(kind))
+                     kind: str = "vae-gan") -> Dict[str, Any]:
+    """Optimizer moments of the groups given -> the port's layout, by the
+    same permutations as the weights: a tree shaped like a group's JAX
+    params (RMSprop's ``sq_avg``), or an RMSprop state holding one, gives
+    ``{parameter name: tensor}``; an Adam state (``mu``, ``nu``, ``count``,
+    as the JAX ``AdamState``) gives an
+    :class:`~fmri_tpu_torch.train.optim.AdamState`."""
+    fns = {g: spec[0] for g, spec in _kind(kind).items()}
     fns.update({g: spec[0] for g, spec in OPTIONAL.get(kind, {}).items()})
-    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    out: Dict[str, Any] = {}
     for group, tree in trees.items():
         if group not in fns:
             raise KeyError(f"kind {kind!r} has no group {group!r}")
-        sd = fns[group]({"params": tree}, cfg, "")
-        out[group] = _tensors(sd)
+
+        def convert(t):
+            return _tensors(fns[group]({"params": t}, cfg, ""))
+
+        if hasattr(tree, "mu") and hasattr(tree, "nu"):
+            out[group] = AdamState(convert(tree.mu), convert(tree.nu), torch.tensor(
+                int(np.asarray(tree.count)), dtype=torch.int32))
+        else:
+            out[group] = convert(getattr(tree, "sq_avg", tree))
     return out
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:
     """The ``encoder.*``/``decoder.*`` tensors of a reference-layout
-    ``VaeGan`` or ``VaeGanCognitive`` ``.pth``, for inference (a plain state
-    dict; ``weights_only=True`` unpickles nothing else).
-    ``discriminator.*`` and ``teacher_net.*`` are dropped; any other key is
-    kept so a strict load reports it."""
+    ``.pth`` of any kind above, for inference (a plain state dict;
+    ``weights_only=True`` unpickles nothing else). The prefixes in
+    ``UNUSED_PREFIXES`` (the discriminators and teachers) are dropped; any
+    other key is kept so a strict load reports it."""
     return {k: v for k, v in load_train_pth(path).items()
             if not k.startswith(UNUSED_PREFIXES)}
 
 
 def load_train_pth(path: str) -> Dict[str, torch.Tensor]:
-    """Every tensor of a reference-layout ``.pth``, ``discriminator.*`` and
-    ``teacher_net.*`` included, for a train module's strict load."""
+    """Every tensor of a reference-layout ``.pth``, the discriminators and
+    teachers included, for a train module's strict load."""
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -334,26 +377,38 @@ def _random_image_discriminator(rng, c) -> Dict[str, Any]:
     return {"params": p, "batch_stats": s}
 
 
+def _random_latent_discriminator(rng, c) -> Dict[str, Any]:
+    p, width = {}, c.latent_dim
+    for j in range(5):
+        out = 1 if j == 4 else c.wae_disc_hidden
+        p[f"Dense_{j}"] = {"kernel": _uniform(rng, (width, out), width),
+                           "bias": _uniform(rng, (out,), width)}
+        width = out
+    return {"params": p, "batch_stats": {}}
+
+
 def random_groups(cfg: Config, seed: int = 0, kind: str = "vae-gan-cognitive-eval"
                   ) -> Dict[str, Dict[str, Any]]:
     """Seeded numpy groups of ``kind`` in the JAX package's layout and
-    naming, with non-trivial BatchNorm statistics: ``encoder`` (visual),
-    ``decoder`` and ``discriminator`` for ``"vae-gan"``; ``encoder``
-    (cognitive) and ``decoder`` for ``"vae-gan-cognitive-eval"``, then
-    ``discriminator`` and ``teacher_encoder`` (visual) for
-    ``"vae-gan-cognitive"`` (its first two groups are the eval kind's of
-    the same seed)."""
+    naming, with non-trivial BatchNorm statistics, drawn in this order:
+    ``encoder`` (visual for ``"vae-gan"``, ``"wae-gan"`` and
+    ``"wae-vgan"``, else cognitive), ``decoder``, then ``discriminator``
+    (image) for ``"vae-gan"``, ``"vae-gan-cognitive"`` and ``"wae-vgan"``,
+    then ``latent_disc`` for the WAE kinds, then ``teacher_encoder``
+    (visual) for the two cognitive train kinds. So the groups two kinds
+    share come out equal for one seed (the first two of
+    ``"vae-gan-cognitive"`` are the eval kind's)."""
     _kind(kind)
     c = cfg.model
     rng = np.random.default_rng(seed)
-    if kind == "vae-gan":
-        encoder = _random_visual_encoder(rng, c)
-        decoder = _random_decoder(rng, c)
-        return {"encoder": encoder, "decoder": decoder,
-                "discriminator": _random_image_discriminator(rng, c)}
-    encoder = _random_cognitive_encoder(rng, c)
-    groups = {"encoder": encoder, "decoder": _random_decoder(rng, c)}
-    if kind == "vae-gan-cognitive":
+    visual = kind in ("vae-gan", "wae-gan", "wae-vgan")
+    groups = {"encoder": (_random_visual_encoder if visual
+                          else _random_cognitive_encoder)(rng, c),
+              "decoder": _random_decoder(rng, c)}
+    if kind in ("vae-gan", "vae-gan-cognitive", "wae-vgan"):
         groups["discriminator"] = _random_image_discriminator(rng, c)
+    if kind.startswith("wae"):
+        groups["latent_disc"] = _random_latent_discriminator(rng, c)
+    if kind in ("vae-gan-cognitive", "wae-gan-cognitive"):
         groups["teacher_encoder"] = _random_visual_encoder(rng, c)
     return groups

@@ -7,10 +7,10 @@ every preset, as in the JAX package):
   * ``pallas_bn`` (``models/norm.py``) and ``pallas_backward``
     (``ops/conv.py``) route the train steps' BatchNorm backward and conv
     weight grads through the port's CUDA kernels;
-  * ``fused_decoder_batch`` (``train/steps_vgan.py``) decodes a step's
-    latent batches in one pass with ``vsplit`` BatchNorm;
-  * ``alt_backward`` is not ported: every net and step factory raises on it
-    (``models/nets.py::refuse_alt_backward``).
+  * ``fused_decoder_batch`` (``train/steps_vgan.py``, ``train/steps_wae.py``)
+    decodes a step's latent batches in one pass with ``vsplit`` BatchNorm;
+  * ``alt_backward`` (``ops/conv.py``) routes the conv backward through the
+    rewrites of ``ops/conv_alt.py`` where they apply.
 
 Presets:
   * ``res64``  — image_size=64,  latent_dim=128

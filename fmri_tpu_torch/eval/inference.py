@@ -1,20 +1,25 @@
-"""Inference / evaluation CLI for the VAE/GAN: image -> image through the
-stage-I ``VaeGan`` (``--stage 1``) or fMRI -> image through the cognitive
-model (``--stage 2|3``); PCC/SSIM/MSE against the images, 2/5/10-way
-objective assessment with CSV and bar chart, optional PNG dump.
+"""Inference / evaluation CLI for the VAE/GAN and WAE families: image ->
+image through a stage-I model (``--stage 1``, and ``--family wae-vgan``,
+which ignores ``--stage`` as the JAX CLI does) or fMRI -> image through a
+cognitive model (``--stage 2|3``); PCC/SSIM/MSE against the images,
+2/5/10-way objective assessment with CSV and bar chart, optional PNG dump.
 
     python -m fmri_tpu_torch.eval.inference --family vgan --stage 3 \\
         --preset res64 --ckpt model.pth --dataset synthetic -o out
 
 Weights come from a reference-layout ``.pth``, as written by
-``python -m fmri_tpu.checkpoints.torch_import --export --kind vae-gan``
-(stage 1) or ``--kind vae-gan-cognitive`` (stages 2 and 3). Data is
-``--dataset synthetic`` or a packed directory (``--input``; stage 1 reads
-its images). Runs on ``cuda`` unless ``--device cpu``.
+``python -m fmri_tpu.checkpoints.torch_import --export --kind K`` with K
+``vae-gan`` (``vgan`` stage 1, or ``wae-vgan``), ``vae-gan-cognitive``
+(``vgan`` stages 2 and 3), ``wae-gan`` (``wae`` stage 1) or
+``wae-gan-cognitive`` (``wae`` stages 2 and 3), or by the port's
+``from_jax_groups``. ``--family wae`` always decodes mu: ``--sample``
+has no effect there, as the JAX WAE eval takes no sample. Data is
+``--dataset synthetic`` or a packed directory (``--input``; the image ->
+image runs read its images). Runs on ``cuda`` unless ``--device cpu``.
 
 Not in this port yet: the Inception Score (the summary has no ``is_*``
-keys), the WAE families (ROADMAP slice 4), the raw BOLD5000/COCO/MNIST
-loaders. Counterpart of ``fmri_tpu/eval/inference.py:40-154``.
+keys), the raw BOLD5000/COCO/MNIST loaders. Counterpart of
+``fmri_tpu/eval/inference.py:40-154``.
 """
 
 from __future__ import annotations
@@ -33,8 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stage", type=int, choices=[1, 2, 3], default=3)
     p.add_argument("--preset", default="res64")
     p.add_argument("--ckpt", required=True,
-                   help="reference-layout VaeGan (stage 1) or VaeGanCognitive "
-                        ".pth state dict")
+                   help="reference-layout .pth state dict of the family and stage")
     p.add_argument("--dataset", default="synthetic",
                    choices=["coco", "bold", "mnist69", "synthetic"])
     p.add_argument("--input", "-i", default=None, help="packed pair directory")
@@ -64,14 +68,20 @@ def _holdout(arrays, k):
     return {key: v[:k] for key, v in arrays.items()}
 
 
+def image_only(args) -> bool:
+    """Image -> image: stage 1 of either family, and WAE/Dual-GAN."""
+    return args.family == "wae-vgan" or args.stage == 1
+
+
 def load_valid(args, cfg):
-    """The validation {'fmri', 'image'} arrays (stage 1: {'image'}), split as
-    the reference CLI splits them (``fmri_tpu/train/run.py:_load_pairs``,
-    ``_load_images``): the first max(n // 10, batch) examples."""
+    """The validation {'fmri', 'image'} arrays (image -> image: {'image'}),
+    split as the reference CLI splits them
+    (``fmri_tpu/train/run.py:_load_pairs``, ``_load_images``): the first
+    max(n // 10, batch) examples."""
     from fmri_tpu_torch.data.packed import is_packed_dir, open_packed
 
     bs = cfg.train.batch_size
-    keys = ("image",) if args.stage == 1 else ("fmri", "image")
+    keys = ("image",) if image_only(args) else ("fmri", "image")
     if args.input and is_packed_dir(args.input):
         arrays = open_packed(args.valid_input or args.input)
         missing = set(keys) - set(arrays)
@@ -93,9 +103,6 @@ def load_valid(args, cfg):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.family != "vgan":
-        raise SystemExit(f"--family {args.family} is not ported yet (ROADMAP "
-                         "slice 4); this port serves --family vgan")
 
     from fmri_tpu_torch.checkpoints.convert import load_pth
     from fmri_tpu_torch.configs.presets import get_config, override_num_voxels
@@ -104,7 +111,9 @@ def main(argv=None) -> int:
         objective_scores, quality_metrics, reconstruct_dataset,
         save_objective_bar_chart, save_objective_csv, save_reconstructions,
     )
-    from fmri_tpu_torch.eval.steps import VaeGanCognitive, VaeGanVisual
+    from fmri_tpu_torch.eval.steps import (
+        VaeGanCognitive, VaeGanVisual, WaeCognitive, WaeVisual,
+    )
 
     device = resolve_device(args.device)
     cfg = get_config(args.preset)
@@ -115,7 +124,11 @@ def main(argv=None) -> int:
         cfg = override_num_voxels(cfg, args.num_voxels)
 
     valid = load_valid(args, cfg)
-    model = (VaeGanVisual if args.stage == 1 else VaeGanCognitive)(cfg.model)
+    if args.family == "wae":
+        model_cls = WaeVisual if args.stage == 1 else WaeCognitive
+    else:
+        model_cls = VaeGanVisual if image_only(args) else VaeGanCognitive
+    model = model_cls(cfg.model)
     model.load_state_dict(load_pth(args.ckpt), strict=True)
     model.to(device)
 

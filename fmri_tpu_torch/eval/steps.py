@@ -1,11 +1,15 @@
-"""The VAE/GAN eval modules: an encoder and the decoder, reconstruction and
-decoding from the prior.
+"""The VAE/GAN and WAE eval modules: an encoder and the decoder,
+reconstruction and decoding from the prior.
 
 * :class:`VaeGanCognitive`: fMRI -> image, the counterpart of
   ``make_vgan_cognitive_step``'s ``eval_step``
   (``fmri_tpu/train/steps_vgan.py:591-604``);
 * :class:`VaeGanVisual`: image -> image, the stage-I ``eval_step``
-  (``steps_vgan.py:273-286``).
+  (``steps_vgan.py:273-286``), and WAE/Dual-GAN's
+  (``fmri_tpu/train/steps_wae.py:575-584``);
+* :class:`WaeVisual`, :class:`WaeCognitive`: the WAE ``eval_step`` of stage
+  I and of stages II/III (``steps_wae.py:149-157, 301-309``), which always
+  decode mu: they take no sample.
 
 ``generate`` is ``generate_step`` (``steps_vgan.py:54-63``). Noise comes
 from the caller (its own ``torch.Generator``), so tests can inject the same
@@ -28,6 +32,8 @@ class _EvalVaeGan(nn.Module):
     reference state dict. Kept in eval mode: BatchNorm uses running
     statistics, so padded rows cannot perturb real ones."""
 
+    samples = True  # reparameterise when reconstruct() is given eps
+
     def __init__(self, cfg: ModelConfig, encoder: nn.Module):
         super().__init__()
         self.cfg = cfg
@@ -39,9 +45,10 @@ class _EvalVaeGan(nn.Module):
     def reconstruct(self, x: torch.Tensor,
                     eps: torch.Tensor | None = None) -> torch.Tensor:
         """The encoder's input -> [B, H, W, 3] in [-1, 1]. z = mu, or
-        mu + eps * exp(logvar / 2) when ``eps`` is given."""
+        mu + eps * exp(logvar / 2) when ``eps`` is given and the model
+        samples."""
         mu, logvar = self.encoder(x)
-        z = mu if eps is None else reparameterize(mu, logvar, eps)
+        z = mu if eps is None or not self.samples else reparameterize(mu, logvar, eps)
         return self.decoder(z)
 
     @torch.no_grad()
@@ -66,3 +73,17 @@ class VaeGanVisual(_EvalVaeGan):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__(cfg, VisualEncoder(cfg))
+
+
+class WaeCognitive(VaeGanCognitive):
+    """fMRI voxels [B, V] -> image through the mean latent: the inference
+    part of the reference's ``WaeGanCognitive`` (``vae_gan.py:532-578``)."""
+
+    samples = False
+
+
+class WaeVisual(VaeGanVisual):
+    """Normalized NHWC images -> image through the mean latent: the
+    inference part of the reference's ``WaeGan`` (``vae_gan.py:435-496``)."""
+
+    samples = False

@@ -1,9 +1,10 @@
-"""Loss algebra of the VAE/GAN family.
+"""Loss algebra of the VAE/GAN and WAE families.
 
-The port's copy of ``fmri_tpu/losses/gan_losses.py:17-113``: the per-example
+The port's copy of ``fmri_tpu/losses/gan_losses.py:17-154``: the per-example
 terms of ``VaeGan.loss`` (reference ``models/vae_gan.py:302-320``), their
-per-mode combination (``train_vgan_stage1.py:359-387``) and the equilibrium
-gate (``:396-404``) as device booleans, so a gated update needs no host sync.
+per-mode combination (``train_vgan_stage1.py:359-387``), the equilibrium
+gate (``:396-404``) as device booleans, so a gated update needs no host
+sync, and the WAE latent-discriminator, reconstruction and penalty losses.
 """
 
 from __future__ import annotations
@@ -92,3 +93,41 @@ def equilibrium_gate(terms: VaeGanTerms, equilibrium, margin,
     train_dec = ~dec_high & init_dec
     both_off = ~train_dis & ~train_dec
     return train_dec | both_off, train_dis | both_off
+
+
+# --------------------------- WAE family ---------------------------
+
+
+def wae_disc_losses(d_real: torch.Tensor, d_fake: torch.Tensor, lam: float = 10.0):
+    """The latent discriminator's two terms (``train_wae_stage1.py:281-282``):
+    ``L_fake = -lam * sum(log(d_fake + eps))``, ``L_real = -lam *
+    sum(log(1 - d_real + eps))``. Stage I scores prior draws as fake and
+    encoder latents as real; stages II/III score cognitive latents as fake
+    and teacher latents as real (``train_wae_stage2.py:292-307``)."""
+    loss_fake = -lam * torch.sum(torch.log(d_fake + LOG_EPS))
+    loss_real = -lam * torch.sum(torch.log(1.0 - d_real + LOG_EPS))
+    return loss_fake, loss_real
+
+
+def wae_recon_sum(x_recon: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Stage-I recon loss ``sum(0.5 * (x_recon - x)^2)``
+    (``train_wae_stage1.py:301``)."""
+    return torch.sum(0.5 * (x_recon - x) ** 2)
+
+
+def wae_recon_mean(x_recon: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Stage-II/III recon loss, ``nn.MSELoss`` with mean reduction
+    (``train_wae_stage2.py:320-321``)."""
+    return torch.mean((x_recon - x) ** 2)
+
+
+def wae_penalty_sum(d_real: torch.Tensor, lam: float = 10.0) -> torch.Tensor:
+    """Stage-I adversarial penalty ``-lam * sum(log(d_real + eps))``
+    (``train_wae_stage1.py:303``)."""
+    return -lam * torch.sum(torch.log(d_real + LOG_EPS))
+
+
+def wae_penalty_mean(d_real: torch.Tensor, lam: float = 10.0) -> torch.Tensor:
+    """Stage-II penalty ``-lam * mean(log(d_real + eps))``
+    (``train_wae_stage2.py:322``)."""
+    return -lam * torch.mean(torch.log(d_real + LOG_EPS))

@@ -1,14 +1,15 @@
-"""The VAE/GAN networks: ``VisualEncoder`` (image -> mu, logvar),
+"""The VAE/GAN and WAE networks: ``VisualEncoder`` (image -> mu, logvar),
 ``CognitiveEncoder`` (fMRI voxels -> mu, logvar), ``Decoder`` (latent ->
-image) and ``ImageDiscriminator`` (image -> feature tap, score), in train
-and eval mode.
+image), ``ImageDiscriminator`` (image -> feature tap, score) and
+``LatentDiscriminator`` (latent -> score), in train and eval mode.
 
 Counterparts of ``fmri_tpu/models/nets.py`` (``EncoderBlock`` :58,
 ``DecoderBlock`` :95, ``VisualEncoder`` :130, ``CognitiveEncoder`` :153,
-``Decoder`` :177, ``ImageDiscriminator`` :219, ``reparameterize`` :424). The
-attribute names are the reference's torch ones (``conv.{i}.conv/.bn``,
-``fc.0/.1``, ``l_mu``, ``l_var``, ``fc1.0/.1``, ``conv.3.0``, ``conv.0.0``,
-``fc.3``), so its state dicts load with ``strict=True``.
+``Decoder`` :177, ``ImageDiscriminator`` :219, ``LatentDiscriminator`` :263,
+``reparameterize`` :424). The attribute names are the reference's torch
+ones (``conv.{i}.conv/.bn``, ``fc.0/.1``, ``l_mu``, ``l_var``, ``fc1.0/.1``,
+``conv.3.0``, ``conv.0.0``, ``fc.3``, ``main.{0,2,4,6,8}``), so its state
+dicts load with ``strict=True``.
 
 BatchNorm: eps 1e-5 and momentum 0.9 as the new batch's weight (torch's
 convention; the JAX package writes the same EMA as flax momentum 0.1,
@@ -20,9 +21,10 @@ behind the flag, as in the JAX package. ``Decoder.forward(z, vsplit=k)``
 decodes k back-to-back latent batches in one pass with per-sub-batch
 BatchNorm statistics (the fused decoder batch). The 5x5 convs and deconvs
 take their weight grad from ``ops/dw.py`` when ``ModelConfig.pallas_backward``
-is set. ``ModelConfig.alt_backward`` (the JAX package's XLA rewrites of the
-conv backward, ``fmri_tpu/ops/conv_alt.py``) is not ported: every net
-refuses it.
+is set. ``ModelConfig.alt_backward`` routes the convs that take it in the
+JAX package (every ``EncoderBlock``, the discriminator's layer 0 and the
+decoder's out conv) through the rewrites of ``ops/conv_alt.py`` where they
+apply (``ops/conv.py``).
 
 Modules compute in NCHW. Images cross their boundary in NHWC, the public
 layout: ``VisualEncoder`` and ``ImageDiscriminator`` take NHWC and
@@ -43,14 +45,6 @@ def _cd(cfg: ModelConfig) -> str | None:
     return None if cfg.compute_dtype in (None, "float32") else cfg.compute_dtype
 
 
-def refuse_alt_backward(cfg: ModelConfig) -> None:
-    """Raise on ``alt_backward``, which nothing in the port implements yet."""
-    if cfg.alt_backward:
-        raise NotImplementedError(
-            "ModelConfig.alt_backward (fmri_tpu/ops/conv_alt.py) is not ported "
-            "yet: ROADMAP queue 1 item 2")
-
-
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).contiguous()
 
@@ -63,14 +57,14 @@ class EncoderBlock(nn.Module):
         super().__init__()
         self.stride, self.padding = cfg.stride, cfg.padding
         self.compute_dtype = _cd(cfg)
-        self.pallas_backward = cfg.pallas_backward
+        self.pallas_backward, self.alt_backward = cfg.pallas_backward, cfg.alt_backward
         self.conv = nn.Conv2d(cin, cout, cfg.kernel_size, cfg.stride, cfg.padding,
                               bias=False)
         self.bn = BatchNorm2d(cout, pallas=cfg.pallas_bn)
 
     def forward(self, x: torch.Tensor, tap: bool = False):
         pre_bn = conv2d(x, self.conv.weight, self.stride, self.padding,
-                        self.compute_dtype, self.pallas_backward)
+                        self.compute_dtype, self.pallas_backward, self.alt_backward)
         y = torch.relu(self.bn(pre_bn))
         return (y, pre_bn) if tap else y
 
@@ -103,7 +97,6 @@ class VisualEncoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        refuse_alt_backward(cfg)
         self.compute_dtype = _cd(cfg)
         chans = (3, *cfg.encoder_channels)
         self.conv = nn.Sequential(*[EncoderBlock(chans[i], chans[i + 1], cfg)
@@ -132,7 +125,6 @@ class CognitiveEncoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        refuse_alt_backward(cfg)
         self.compute_dtype = _cd(cfg)
         self.fc1 = nn.Sequential(
             nn.Linear(cfg.num_voxels, cfg.cog_hidden, bias=False),
@@ -156,9 +148,8 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        refuse_alt_backward(cfg)
         self.compute_dtype = _cd(cfg)
-        self.pallas_backward = cfg.pallas_backward
+        self.pallas_backward, self.alt_backward = cfg.pallas_backward, cfg.alt_backward
         self.size0, self.fc_input = cfg.encoder_channels[-1], cfg.fc_input
         flat = self.fc_input * self.fc_input * self.size0
         self.fc = nn.Sequential(nn.Linear(cfg.latent_dim, flat, bias=False),
@@ -182,7 +173,8 @@ class Decoder(nn.Module):
         for blk in self.conv[:3]:
             x = blk(x, vsplit)
         out = self.conv[3][0]
-        x = conv2d(x, out.weight, 1, 2, cd, self.pallas_backward) + out.bias.view(1, -1, 1, 1)
+        x = conv2d(x, out.weight, 1, 2, cd, self.pallas_backward,
+                   self.alt_backward) + out.bias.view(1, -1, 1, 1)
         return torch.tanh(x).permute(0, 2, 3, 1).contiguous()
 
 
@@ -195,9 +187,8 @@ class ImageDiscriminator(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        refuse_alt_backward(cfg)
         self.compute_dtype = _cd(cfg)
-        self.pallas_backward = cfg.pallas_backward
+        self.pallas_backward, self.alt_backward = cfg.pallas_backward, cfg.alt_backward
         self.stride_gan, self.recon_level = cfg.stride_gan, cfg.recon_level
         ch = cfg.discrim_channels
         layers = [nn.Sequential(nn.Conv2d(3, ch[0], 5, cfg.stride_gan, 2), nn.ReLU())]
@@ -213,7 +204,7 @@ class ImageDiscriminator(nn.Module):
         cd = self.compute_dtype
         first = self.conv[0][0]
         x = conv2d(_nchw(x), first.weight, self.stride_gan, 2, cd,
-                   self.pallas_backward)
+                   self.pallas_backward, self.alt_backward)
         x = torch.relu(x + first.bias.view(1, -1, 1, 1))
         features = None
         for i in range(1, len(self.conv)):
@@ -226,6 +217,47 @@ class ImageDiscriminator(nn.Module):
         x = torch.relu(self.fc[1](x))
         x = linear(x, self.fc[3].weight, self.fc[3].bias, cd)
         return features, torch.sigmoid(x)
+
+
+class LatentDiscriminator(nn.Module):
+    """Latent [B, latent] -> score [B, 1]: 4 x [Linear(``wae_disc_hidden``)
+    + ReLU], Linear(1), sigmoid (reference ``WaeDiscriminator``,
+    ``vae_gan.py:499-529``), as the ``nn.Sequential`` ``main``, so the
+    reference keys ``main.{0,2,4,6,8}.*`` load strictly. Bf16 operands with
+    the compute dtype, as the JAX module's ``Dense(dtype=...)``."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.compute_dtype = _cd(cfg)
+        h, layers = cfg.wae_disc_hidden, []
+        for i in range(4):
+            layers += [nn.Linear(cfg.latent_dim if i == 0 else h, h), nn.ReLU()]
+        self.main = nn.Sequential(*layers, nn.Linear(h, 1), nn.Sigmoid())
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        x = z
+        for i in range(0, 10, 2):
+            x = linear(x, self.main[i].weight, self.main[i].bias, self.compute_dtype)
+            x = torch.relu(x) if i < 8 else torch.sigmoid(x)
+        return x
+
+    @torch.no_grad()
+    def init_weights(self, scheme: str) -> "LatentDiscriminator":
+        """``"normal"``: weights N(0, 0.01), the ctor init
+        (``vae_gan.py:522-525``); ``"uniform"``: U(-a, a), a =
+        1/sqrt(3 * fan_in), the ``WaeGan`` re-init (``vae_gan.py:452-464``).
+        Biases 0 either way, as the JAX module draws them."""
+        if scheme not in ("normal", "uniform"):
+            raise ValueError(f"init scheme must be 'normal' or 'uniform', got {scheme!r}")
+        for m in self.main:
+            if isinstance(m, nn.Linear):
+                if scheme == "normal":
+                    m.weight.normal_(0.0, 0.01)
+                else:
+                    a = (3.0 * m.weight.shape[1]) ** -0.5
+                    m.weight.uniform_(-a, a)
+                m.bias.zero_()
+        return self
 
 
 def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Train state of the VAE/GAN family: the named groups, their RMSprop
-moments and the step count.
+"""Train state of the VAE/GAN and WAE families: the named groups, their
+optimizer moments (RMSprop or Adam) and the step count.
 
 Counterpart of ``fmri_tpu/train/state.py:29-90``. The JAX state is one
 pytree of groups; here each group is a submodule (parameters and BatchNorm
@@ -13,11 +13,21 @@ running statistics) of
   ``decoder.*``, ``discriminator.*`` and ``teacher_net.*``, the stage-I
   teacher whose decoder and discriminator are the same module objects
   (``train_vgan_stage2.py:229-232``), so torch lists them under both
-  prefixes.
+  prefixes;
+* :class:`WaeGan`, WAE stage I: the reference's ``WaeGan``
+  (``vae_gan.py:435-496``), ``encoder.*`` (visual), ``decoder.*`` and the
+  latent discriminator (group ``latent_disc``) under the reference's
+  ``discriminator.*``;
+* :class:`WaeGanCognitiveTrain`, WAE stages II and III: the reference's
+  ``WaeGanCognitive`` (``vae_gan.py:532-578``; ``encoder.*`` cognitive,
+  ``decoder.*``, ``discriminator.*`` the latent discriminator) and the
+  frozen stage-I encoder, ``teacher_encoder.*``;
+* :class:`WaeDualGan`, WAE/Dual-GAN: the stage-I triplet's keys and the
+  latent discriminator under ``latent_disc.*``.
 
-Either loads a reference state dict with ``strict=True``. Frozen groups
-are groups without an optimizer. The train step updates the modules and
-moments in place.
+Each loads a reference state dict with ``strict=True`` (the WAE
+cognitive module with the teacher added). Frozen groups are groups without
+an optimizer. The train step updates the modules and moments in place.
 """
 
 from __future__ import annotations
@@ -30,16 +40,30 @@ from torch import nn
 
 from fmri_tpu_torch.configs.presets import Config
 from fmri_tpu_torch.models.nets import (
-    CognitiveEncoder, Decoder, ImageDiscriminator, VisualEncoder,
+    CognitiveEncoder, Decoder, ImageDiscriminator, LatentDiscriminator, VisualEncoder,
 )
-from fmri_tpu_torch.train.optim import Moments, RmsProp
+from fmri_tpu_torch.train.optim import Adam, AdamState, Moments, RmsProp
 
 GROUPS = ("encoder", "decoder", "discriminator")
 # the groups each cognitive stage trains (fmri_tpu/train/stages.py:87,106)
 COGNITIVE_TRAINED = {2: ("encoder", "discriminator"), 3: ("decoder", "discriminator")}
+WAE_GROUPS = ("encoder", "decoder", "latent_disc")
+WAE_DUAL_GROUPS = GROUPS + ("latent_disc",)
+# the groups each WAE cognitive stage trains (fmri_tpu/train/stages.py:146,180)
+WAE_COGNITIVE_TRAINED = {2: ("encoder", "latent_disc"), 3: ("decoder", "latent_disc")}
 
 
-class VaeGan(nn.Module):
+class _Groups(nn.Module):
+    """``group(name)``: the named parameters of one group, the submodule
+    ``ALIASES`` names for it (by default its own attribute)."""
+
+    ALIASES: Dict[str, str] = {}
+
+    def group(self, name: str) -> Dict[str, nn.Parameter]:
+        return dict(getattr(self, self.ALIASES.get(name, name)).named_parameters())
+
+
+class VaeGan(_Groups):
     """The stage-I triplet: ``encoder`` (VisualEncoder), ``decoder``,
     ``discriminator`` (ImageDiscriminator)."""
 
@@ -48,10 +72,6 @@ class VaeGan(nn.Module):
         self.encoder = VisualEncoder(cfg.model)
         self.decoder = Decoder(cfg.model)
         self.discriminator = ImageDiscriminator(cfg.model)
-
-    def group(self, name: str) -> Dict[str, nn.Parameter]:
-        """The named parameters of one group."""
-        return dict(getattr(self, name).named_parameters())
 
 
 class VaeGanCognitiveTrain(nn.Module):
@@ -75,11 +95,54 @@ class VaeGanCognitiveTrain(nn.Module):
         return dict(module.named_parameters())
 
 
+class WaeGan(_Groups):
+    """WAE stage I: ``encoder`` (VisualEncoder), ``decoder`` and
+    ``discriminator``, the LatentDiscriminator of group ``latent_disc``."""
+
+    ALIASES = {"latent_disc": "discriminator"}
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.encoder = VisualEncoder(cfg.model)
+        self.decoder = Decoder(cfg.model)
+        self.discriminator = LatentDiscriminator(cfg.model)
+
+
+class WaeGanCognitiveTrain(_Groups):
+    """WAE stages II and III: ``encoder`` (CognitiveEncoder), ``decoder``,
+    ``discriminator`` (the LatentDiscriminator, group ``latent_disc``) and
+    ``teacher_encoder``, the frozen stage-I VisualEncoder."""
+
+    ALIASES = {"latent_disc": "discriminator"}
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.encoder = CognitiveEncoder(cfg.model)
+        self.decoder = Decoder(cfg.model)
+        self.discriminator = LatentDiscriminator(cfg.model)
+        self.teacher_encoder = VisualEncoder(cfg.model)
+
+
+class WaeDualGan(_Groups):
+    """WAE/Dual-GAN: the stage-I triplet ``encoder``, ``decoder``,
+    ``discriminator`` (ImageDiscriminator) and ``latent_disc``."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.encoder = VisualEncoder(cfg.model)
+        self.decoder = Decoder(cfg.model)
+        self.discriminator = ImageDiscriminator(cfg.model)
+        self.latent_disc = LatentDiscriminator(cfg.model)
+
+
+OptState = Dict[str, Moments | AdamState]
+
+
 @dataclasses.dataclass
 class TrainState:
-    nets: nn.Module                # VaeGan or VaeGanCognitiveTrain
-    opt_state: Dict[str, Moments]  # {group: {parameter name: sq_avg}}
-    step: torch.Tensor             # int64 scalar on the device: applied steps
+    nets: nn.Module       # VaeGan, VaeGanCognitiveTrain, WaeGan, ...
+    opt_state: OptState   # {group: {parameter name: sq_avg}, or AdamState}
+    step: torch.Tensor    # int64 scalar on the device: applied steps
 
 
 @torch.no_grad()
@@ -125,20 +188,64 @@ def init_cognitive(cfg: Config, stage1: VaeGan | None = None,
     return nets
 
 
-def make_state(nets: VaeGan | VaeGanCognitiveTrain, optimizers: Mapping[str, object],
-               moments: Mapping[str, Moments] | None = None) -> TrainState:
+def init_wae(cfg: Config, seed: int = 0) -> WaeGan:
+    """A fresh WAE stage-I model on the CPU from ``seed``: the reference init,
+    the latent discriminator's the ``WaeGan`` re-init ("uniform",
+    ``fmri_tpu/train/stages.py:123``)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        nets = init_parameters(WaeGan(cfg))
+        nets.discriminator.init_weights("uniform")
+    return nets
+
+
+def init_wae_cognitive(cfg: Config, stage1: WaeGan | None = None,
+                       seed: int = 0) -> WaeGanCognitiveTrain:
+    """A WAE stage-II model on the CPU: a fresh CognitiveEncoder and latent
+    discriminator ("normal", the ctor init) from ``seed``; the decoder and
+    the teacher encoder copied from the stage-I ``stage1`` when given
+    (``fmri_tpu/train/stages.py:145-150``), else drawn from ``seed`` too."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        nets = init_parameters(WaeGanCognitiveTrain(cfg))
+        nets.discriminator.init_weights("normal")
+    if stage1 is not None:
+        nets.decoder.load_state_dict(stage1.decoder.state_dict(), strict=True)
+        nets.teacher_encoder.load_state_dict(stage1.encoder.state_dict(), strict=True)
+    return nets
+
+
+def init_wae_dual_gan(cfg: Config, seed: int = 0) -> WaeDualGan:
+    """A fresh WAE/Dual-GAN model on the CPU from ``seed``; the latent
+    discriminator takes the "uniform" init (``fmri_tpu/train/stages.py:197``)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        nets = init_parameters(WaeDualGan(cfg))
+        nets.latent_disc.init_weights("uniform")
+    return nets
+
+
+def _moments_on(moments, params, device):
+    if isinstance(moments, AdamState):
+        return AdamState(_moments_on(moments.mu, params, device),
+                         _moments_on(moments.nu, params, device),
+                         moments.count.to(device, torch.int32).clone())
+    return {k: moments[k].to(device).clone() for k in params}
+
+
+def make_state(nets: nn.Module, optimizers: Mapping[str, object],
+               moments: Mapping[str, Moments | AdamState] | None = None) -> TrainState:
     """A TrainState over ``nets`` with one optimizer per trained group
     (``{"encoder": RmsProp(), ...}``). ``moments`` gives starting moments
-    (e.g. from :func:`fmri_tpu_torch.checkpoints.convert.moments_from_jax`);
-    otherwise each optimizer's ``init``."""
+    (e.g. from :func:`fmri_tpu_torch.checkpoints.convert.moments_from_jax`:
+    ``sq_avg`` per parameter, or an ``AdamState``); otherwise each
+    optimizer's ``init``."""
     device = next(nets.parameters()).device
     opt_state = {}
     for name, opt in optimizers.items():
         params = nets.group(name)
-        if moments is None:
-            opt_state[name] = opt.init(params)
-        else:
-            opt_state[name] = {k: moments[name][k].to(device).clone() for k in params}
+        opt_state[name] = (opt.init(params) if moments is None
+                           else _moments_on(moments[name], params, device))
     return TrainState(nets, opt_state, torch.zeros((), dtype=torch.int64, device=device))
 
 
@@ -149,3 +256,29 @@ def make_cognitive_state(nets: VaeGanCognitiveTrain, cfg: Config, stage: int,
     t = cfg.train
     opt = RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=1.0)
     return make_state(nets, {g: opt for g in COGNITIVE_TRAINED[stage]}, moments)
+
+
+def make_wae_state(nets: WaeGan, cfg: Config,
+                   moments: Mapping[str, AdamState] | None = None) -> TrainState:
+    """WAE stage I: Adam(``adam_b1``, ``adam_b2``) for every group
+    (``fmri_tpu/train/stages.py:124-125``)."""
+    opt = Adam(b1=cfg.train.adam_b1, b2=cfg.train.adam_b2)
+    return make_state(nets, {g: opt for g in WAE_GROUPS}, moments)
+
+
+def make_wae_cognitive_state(nets: WaeGanCognitiveTrain, cfg: Config, stage: int,
+                             moments: Mapping[str, AdamState] | None = None
+                             ) -> TrainState:
+    """WAE stage 2 or 3: Adam(0.5, 0.999) for the groups the stage trains
+    (:data:`WAE_COGNITIVE_TRAINED`), the others frozen."""
+    opt = Adam(b1=0.5, b2=0.999)
+    return make_state(nets, {g: opt for g in WAE_COGNITIVE_TRAINED[stage]}, moments)
+
+
+def make_wae_dual_gan_state(nets: WaeDualGan, cfg: Config,
+                            moments: Mapping[str, Moments] | None = None) -> TrainState:
+    """WAE/Dual-GAN: RMSprop for all four groups
+    (``fmri_tpu/train/stages.py:198-199``)."""
+    t = cfg.train
+    opt = RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=t.grad_clip)
+    return make_state(nets, {g: opt for g in WAE_DUAL_GROUPS}, moments)

@@ -60,7 +60,7 @@ from fmri_tpu_torch.configs.presets import Config
 from fmri_tpu_torch.losses.gan_losses import (
     LOG_EPS, combine_mode, equilibrium_gate, vaegan_terms,
 )
-from fmri_tpu_torch.models.nets import refuse_alt_backward, reparameterize
+from fmri_tpu_torch.models.nets import reparameterize
 from fmri_tpu_torch.train.common import gate_float
 from fmri_tpu_torch.train.optim import RmsProp
 from fmri_tpu_torch.train.state import COGNITIVE_TRAINED, GROUPS, TrainState
@@ -82,8 +82,7 @@ def _scalar(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
-def _check(cfg: Config, mode: str, backward: str) -> None:
-    refuse_alt_backward(cfg.model)
+def _check(mode: str, backward: str) -> None:
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     if backward not in ("spliced", "naive"):
@@ -119,12 +118,14 @@ def _named(nets, name: str, grads) -> Dict[str, torch.Tensor]:
     return dict(zip(nets.group(name), grads))
 
 
-def _encoder_grads(nets, z, mu, lv, gz, k_a: float):
+def _encoder_grads(nets, z, mu, lv, gz, k_a: float, gmu=None):
     """The encoder's gradient: gz at z and the KL term A = sum kld, dA/dmu =
-    mu, dA/dlogvar = (exp(logvar) - 1) / 2, scaled by ``k_a``."""
+    mu, dA/dlogvar = (exp(logvar) - 1) / 2, scaled by ``k_a``; ``gmu``, an
+    extra cotangent at mu, joins the same backward."""
+    cot_mu = k_a * mu.detach() if gmu is None else k_a * mu.detach() + gmu
     return _named(nets, "encoder", torch.autograd.grad(
         [z, mu, lv], list(nets.group("encoder").values()),
-        [gz, k_a * mu.detach(), k_a * 0.5 * (torch.exp(lv.detach()) - 1.0)]))
+        [gz, cot_mu, k_a * 0.5 * (torch.exp(lv.detach()) - 1.0)]))
 
 
 def _apply_updates(opt, state: TrainState, grads, lr, gates) -> None:
@@ -168,17 +169,17 @@ def _default_lr(cfg: Config, lr_schedule: Callable | None) -> Callable:
     return lambda step: _scalar(cfg.train.learning_rate, step.device)
 
 
-def make_vgan_stage1_step(cfg: Config, mode: str = "vae-gan",
-                          lr_schedule: Callable | None = None,
-                          backward: str = "spliced") -> StepFns:
-    """``StepFns(train_step, eval_step, generate_step)`` of the stage-I step.
-    ``lr_schedule(step) -> lr`` defaults to the constant
-    ``cfg.train.learning_rate``."""
-    _check(cfg, mode, backward)
+def stage1_grads(cfg: Config, mode: str, backward: str) -> Callable:
+    """The stage-I forward and backward: ``grads(nets, x, eps, z_p,
+    lambda_mse, mu_cot=None) -> (grads, terms, heads)``, with ``grads``
+    ``{group: {parameter name: gradient}}`` for the groups ``mode`` trains.
+    ``mu_cot(mu)``, where given, is called once on the detached mu after the
+    forward and returns an extra cotangent at mu for the encoder's
+    gradient (the WAE/Dual-GAN penalty): the spliced backward folds it into
+    its one encoder backward, the naive one pulls it back on its own."""
+    _check(mode, backward)
     t = cfg.train
     fused = cfg.model.fused_decoder_batch
-    opt = RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=t.grad_clip)
-    lr_schedule = _default_lr(cfg, lr_schedule)
     uses_b = mode in ("vae-gan", "beta-vae")  # feature matching in enc/dec loss
     trained = GROUPS[1:] if mode == "dcgan" else GROUPS  # dcgan: encoder frozen
 
@@ -193,22 +194,30 @@ def make_vgan_stage1_step(cfg: Config, mode: str = "vae-gan",
             mu, lv = nets.encoder(x)
             return mu, lv, reparameterize(mu, lv, eps)
 
-    def grads_naive(nets, x, eps, z_p, lambda_mse):
+    def grads_naive(nets, x, eps, z_p, lambda_mse, mu_cot=None):
         mu, lv, z = encode(nets, x, eps)
         x_tilde, x_p = _decode(nets.decoder, [z, z_p], fused)
         feats, score = nets.discriminator(torch.cat([x, x_tilde, x_p]))
         terms, h = heads(x, x_tilde, feats, score, mu, lv, lambda_mse)
+        gmu = mu_cot(mu.detach()) if mu_cot is not None else None
         grads = {}
         for i, name in enumerate(trained):
             params = list(nets.group(name).values())
             grads[name] = _named(nets, name, torch.autograd.grad(
-                getattr(h, name), params, retain_graph=i < len(trained) - 1))
+                getattr(h, name), params,
+                retain_graph=i < len(trained) - 1 or gmu is not None))
+        if gmu is not None and "encoder" in grads:
+            params = list(nets.group("encoder").values())
+            for k, g in zip(grads["encoder"], torch.autograd.grad(
+                    mu, params, gmu, materialize_grads=True)):
+                grads["encoder"][k] = grads["encoder"][k] + g
         return grads, terms, h
 
-    def grads_spliced(nets, x, eps, z_p, lambda_mse):
+    def grads_spliced(nets, x, eps, z_p, lambda_mse, mu_cot=None):
         b = x.shape[0]
         dis_p = list(nets.group("discriminator").values())
         mu, lv, z = encode(nets, x, eps)
+        gmu = mu_cot(mu.detach()) if mu_cot is not None else None
         z_in = z.detach().requires_grad_()
         x_tilde, x_p = _decode(nets.decoder, [z_in, z_p], fused)
         xt_in = x_tilde.detach().requires_grad_()
@@ -247,10 +256,22 @@ def make_vgan_stage1_step(cfg: Config, mode: str = "vae-gan",
         if mode != "dcgan":
             gz, = torch.autograd.grad(x_tilde, z_in, cot_enc_img)
             k_a = t.beta / b if mode == "beta-vae" else 1.0
-            grads["encoder"] = _encoder_grads(nets, z, mu, lv, gz, k_a)
+            grads["encoder"] = _encoder_grads(nets, z, mu, lv, gz, k_a, gmu)
         return grads, terms, h
 
-    grads_fn = grads_spliced if backward == "spliced" else grads_naive
+    return grads_spliced if backward == "spliced" else grads_naive
+
+
+def make_vgan_stage1_step(cfg: Config, mode: str = "vae-gan",
+                          lr_schedule: Callable | None = None,
+                          backward: str = "spliced") -> StepFns:
+    """``StepFns(train_step, eval_step, generate_step)`` of the stage-I step.
+    ``lr_schedule(step) -> lr`` defaults to the constant
+    ``cfg.train.learning_rate``."""
+    grads_fn = stage1_grads(cfg, mode, backward)
+    t = cfg.train
+    opt = RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=t.grad_clip)
+    lr_schedule = _default_lr(cfg, lr_schedule)
 
     def train_step(state: TrainState, x: torch.Tensor, eps: torch.Tensor,
                    z_p: torch.Tensor, margin, equilibrium, lambda_mse):
@@ -286,7 +307,7 @@ def make_vgan_cognitive_step(cfg: Config, stage: int, mode: str = "vae-gan",
     (``fmri_tpu/train/stages.py:86,105``)."""
     if stage not in (2, 3):
         raise ValueError(f"stage must be 2 or 3, got {stage!r}")
-    _check(cfg, mode, backward)
+    _check(mode, backward)
     t = cfg.train
     fused = cfg.model.fused_decoder_batch
     opt = RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=1.0)

@@ -1,9 +1,9 @@
 """The port on the card (``cuda`` marker; each test skips without one): the
 SSIM, BatchNorm-backward and weight-grad kernels against their plain
 versions, the wrappers' checks, the inference, serving and stage-I train
-paths on the card against the same paths on the CPU, and the stage-II/III
-train steps with the kernels against the library backward, with their
-launches per step.
+paths on the card against the same paths on the CPU, the stage-II/III and
+WAE train steps with the kernels against the library backward, with their
+launches per step, and ``alt_backward``'s rewrites against cuDNN's grads.
 
 Imports only torch, numpy and the port, so it runs where the JAX package's
 dependencies are not installed:
@@ -407,3 +407,171 @@ def test_res64_cognitive_step_launches(cuda_device, stage, fused):
     torch.cuda.synchronize()
     got = tuple(a - b for a, b in zip(_launches(), before))
     assert got == ((0, 0, 8) if fused else COGNITIVE_LAUNCHES[stage])
+
+
+# ------------------------------------------------ alt_backward's rewrites
+
+# (batch, in channels, spatial, out channels) of the k5/p2/s2 convs whose dx
+# the phases take: res64's encoder and discriminator blocks, res100's even
+# encoder layers
+ALT_DX = [(8, 64, 32, 128), (8, 128, 16, 256), (8, 32, 64, 128), (8, 256, 16, 256),
+          (8, 3, 100, 64), (8, 64, 50, 128)]
+
+
+def _library_grad(dy, x, w, stride, which):
+    """``convolution_backward``'s input (0) or weight (1) grad, padding 2,
+    in the operands' dtype."""
+    return torch.ops.aten.convolution_backward(
+        dy, x, w, None, [stride] * 2, [2, 2], [1, 1], False, [0, 0], 1,
+        [which == 0, which == 1, False])[which]
+
+
+@pytest.mark.parametrize("b,ci,h,co", ALT_DX)
+def test_dx_phases_match_the_library(cuda_device, b, ci, h, co):
+    """The phase input grad against cuDNN's (``convolution_backward``) on
+    the same operands in float64: 1e-5 relative to the largest value; and
+    within the same bound of cuDNN's fp32 input grad (TF32 off)."""
+    from fmri_tpu_torch.ops import conv_alt
+
+    g = torch.Generator(device=cuda_device).manual_seed(h + ci)
+    w = 0.05 * torch.randn((co, ci, 5, 5), generator=g, device=cuda_device)
+    dy = torch.randn((b, co, h // 2, h // 2), generator=g, device=cuda_device)
+    x = torch.zeros((b, ci, h, h), device=cuda_device)
+    got = conv_alt.conv2d_dx_phases(dy, w, (h, h))
+    for ref in (_library_grad(dy.double(), x.double(), w.double(), 2, 0),
+                _library_grad(dy, x, w, 2, 0)):
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("h", [64, 100])
+def test_dw_patches_match_the_library_in_float64(cuda_device, h):
+    """The decoder's 64 -> 3 out conv at res64 and res100: the patches
+    weight grad against cuDNN's in float64, 1e-5 relative to the largest
+    value. (cuDNN's own fp32 weight grad of this conv, TF32 off, sits
+    0.3-1.6% of the largest value from float64 on an H100; it is not a
+    reference here.)"""
+    from fmri_tpu_torch.ops import conv_alt
+
+    g = torch.Generator(device=cuda_device).manual_seed(h)
+    x = torch.rand((8, 64, h, h), generator=g, device=cuda_device)
+    dy = 0.01 * torch.randn((8, 3, h, h), generator=g, device=cuda_device)
+    ref = _library_grad(dy.double(), x.double(),
+                        torch.zeros((3, 64, 5, 5), device=cuda_device).double(), 1, 1)
+    got = conv_alt.conv2d_dw_patches(x, dy, 2, 5)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_alt_backward_odd_layer_falls_back(cuda_device, monkeypatch):
+    """res100's 25 px layer cannot split into phases: the phases never run
+    there and the routed conv's grads are the stock ones (1e-5 relative:
+    cuDNN's input grad of this shape is not bitwise the same twice); the
+    50 px layer before it takes them (1e-5 relative)."""
+    from fmri_tpu_torch.ops import conv, conv_alt
+
+    calls = []
+    orig = conv_alt.conv2d_dx_phases
+    monkeypatch.setattr(conv_alt, "conv2d_dx_phases",
+                        lambda *a: calls.append(a[0].shape) or orig(*a))
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for h, ci, co in ((25, 128, 256), (50, 64, 128)):
+        x = torch.randn((4, ci, h, h), generator=g, device=cuda_device, requires_grad=True)
+        w = (0.05 * torch.randn((co, ci, 5, 5), generator=g, device=cuda_device)
+             ).requires_grad_()
+        grads = [torch.autograd.grad(conv.conv2d(x, w, 2, 2, alt_backward=alt).square().sum(),
+                                     [x, w]) for alt in (True, False)]
+        for got, ref in zip(*grads):
+            assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert [s[-1] for s in calls] == [25]  # dy of the 50 px layer only
+
+
+# ------------------------------------------------ the WAE steps
+
+# launches per step with both kernel flags on (tests/test_torch_wae*.py)
+WAE_LAUNCHES = {"wae_stage1": (6, 6, 7), "wae_stage2": (3, 3, 0), "wae_stage3": (3, 3, 4),
+                "wae_vgan": (17, 17, 15)}
+
+
+def _wae_run(cfg, path, device, b, flags, fused=False):
+    """One step of a WAE path from seeded weights, warmed moments and seeded
+    inputs: (state, metrics, launches, start weights)."""
+    import dataclasses
+
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups
+    from fmri_tpu_torch.train import state as st
+    from fmri_tpu_torch.train.optim import AdamState
+    from fmri_tpu_torch.train.steps_wae import (
+        make_wae_cognitive_step, make_wae_stage1_step, make_wae_vgan_step,
+    )
+
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, pallas_bn=flags and not fused, pallas_backward=flags,
+        fused_decoder_batch=fused))
+    kind, module, make, step = {
+        "wae_stage1": ("wae-gan", st.WaeGan, st.make_wae_state, make_wae_stage1_step(cfg)),
+        "wae_stage2": ("wae-gan-cognitive", st.WaeGanCognitiveTrain,
+                       lambda n, c: st.make_wae_cognitive_state(n, c, 2),
+                       make_wae_cognitive_step(cfg, 2)),
+        "wae_stage3": ("wae-gan-cognitive", st.WaeGanCognitiveTrain,
+                       lambda n, c: st.make_wae_cognitive_state(n, c, 3),
+                       make_wae_cognitive_step(cfg, 3)),
+        "wae_vgan": ("wae-vgan", st.WaeDualGan, st.make_wae_dual_gan_state,
+                     make_wae_vgan_step(cfg))}[path]
+    weights = from_jax_groups(random_groups(cfg, 0, kind), cfg, kind)
+    nets = module(cfg)
+    nets.load_state_dict(weights, strict=True)
+    state = make(nets.to(device), cfg)
+    for m in state.opt_state.values():
+        for v in (m.nu if isinstance(m, AdamState) else m).values():
+            v.fill_(1.0)
+    fmri, image, *noise = _cognitive_inputs(cfg, b, device)
+    args = {"wae_stage1": (image, 0.5 * noise[0]), "wae_stage2": (fmri, image),
+            "wae_stage3": (fmri, image),
+            "wae_vgan": (image, noise[0], noise[1], 0.5 * noise[2], 0.35, 0.68, 1e-6)}[path]
+    before = _launches()
+    state, m = step.train_step(state, *args)
+    torch.cuda.synchronize()
+    return state, m, tuple(a - b for a, b in zip(_launches(), before)), weights
+
+
+@pytest.mark.parametrize("path", sorted(WAE_LAUNCHES))
+def test_wae_step_kernels_match_the_library_on_the_card(cuda_device, path):
+    """Each WAE step at tiny with both kernel flags on against the same step
+    with both off, on the card, from the same state and inputs: losses
+    within 1e-5 relative; parameters, moments and BN running statistics
+    within 1e-3 relative in L2 per tensor (parameters: of how far the
+    flags-off step moved them); the kernels launched as counted on the CPU."""
+    from fmri_tpu_torch.train.optim import AdamState
+
+    cfg = get_config("tiny")
+    on, m_on, n_on, weights = _wae_run(cfg, path, cuda_device, 8, True)
+    off, m_off, n_off, _ = _wae_run(cfg, path, cuda_device, 8, False)
+    assert n_on == WAE_LAUNCHES[path] and n_off == (0, 0, 0)
+    for k in m_off:
+        assert float(m_on[k]) == pytest.approx(float(m_off[k]), rel=1e-5, abs=1e-7), k
+    sd_on = on.nets.state_dict()
+    for k, ref in off.nets.state_dict().items():
+        got, ref = sd_on[k].cpu(), ref.cpu()
+        if k.endswith("num_batches_tracked"):
+            assert torch.equal(got, ref)
+            continue
+        scale = ref if "running" in k else ref - weights[k]
+        assert float((got - ref).norm()) <= 1e-3 * max(float(scale.norm()), 1e-12), k
+    for g, moments in off.opt_state.items():
+        pairs = ([(on.opt_state[g].mu, moments.mu), (on.opt_state[g].nu, moments.nu)]
+                 if isinstance(moments, AdamState) else [(on.opt_state[g], moments)])
+        for got_m, ref_m in pairs:
+            for k, ref in ref_m.items():
+                got = got_m[k].cpu()
+                assert float((got - ref.cpu()).norm()) <= 1e-3 * max(
+                    float(ref.norm()), 1e-12), (g, k)
+
+
+@pytest.mark.parametrize("path", sorted(WAE_LAUNCHES) + ["wae_vgan_fused"])
+def test_res64_wae_step_launches(cuda_device, path):
+    """One res64 WAE step at batch 8 launches each kernel as counted on the
+    CPU; WAE/Dual-GAN with the fused decoder batch (``pallas_bn`` off)
+    launches ``tap_matmul`` 11 times."""
+    fused = path == "wae_vgan_fused"
+    _, _, got, _ = _wae_run(get_config("res64"), "wae_vgan" if fused else path,
+                            cuda_device, 8, True, fused)
+    assert got == ((0, 0, 11) if fused else WAE_LAUNCHES[path])

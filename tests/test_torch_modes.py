@@ -1,7 +1,7 @@
 """The port's stage-I modes ``'vae'``, ``'beta-vae'`` and ``'dcgan'``, the
 fused decoder batch and its ``vsplit`` BatchNorm, the ``alt_backward``
-refusal and the ``--stage 1`` inference CLI, against the JAX package on
-the CPU at ``tiny``.
+routing of every net and step factory and the ``--stage 1`` inference CLI,
+against the JAX package on the CPU at ``tiny``.
 
 Weights, data and the injected eps / z_p are made as in
 ``tests/test_torch_train.py``, whose helpers these tests share. Tolerances:
@@ -41,6 +41,7 @@ from fmri_tpu_torch.eval import inference
 from fmri_tpu_torch.eval.steps import VaeGanCognitive, VaeGanVisual
 from fmri_tpu_torch.models import nets
 from fmri_tpu_torch.models.norm import BatchNorm1d, BatchNorm2d
+from fmri_tpu_torch.ops import conv_alt
 from fmri_tpu_torch.train.state import GROUPS, VaeGan, VaeGanCognitiveTrain
 from fmri_tpu_torch.train.steps_vgan import (
     make_vgan_cognitive_step, make_vgan_stage1_step,
@@ -200,10 +201,44 @@ def test_vsplit_with_pallas_bn_raises():
     lambda c: make_vgan_cognitive_step(c, 2)],
     ids=["visual", "cognitive", "decoder", "discriminator", "vaegan",
          "cognitive-train", "eval", "stage1-step", "cognitive-step"])
-def test_alt_backward_raises(build):
+def test_alt_backward_builds_and_routes(monkeypatch, build):
+    """Every net and step factory builds with ``alt_backward`` (nothing
+    refuses it any more). A net's train-mode pullback to its weights takes
+    the rewrites where the JAX package's would (``fmri_tpu/models/nets.py:83,
+    215,241``): dx by phases in the stride-2 ``EncoderBlock`` convs, dW by
+    patches in the decoder's out conv and the discriminator's 8-channel
+    layer 0 at tiny; the cognitive encoder has no conv. A pullback that
+    needs no dx (the encoder's first conv, on the image) runs none."""
+    calls = {"phases": 0, "patches": 0}
+    for key, name in (("phases", "conv2d_dx_phases"), ("patches", "conv2d_dw_patches")):
+        def call(*args, _orig=getattr(conv_alt, name), _key=key):
+            calls[_key] += 1
+            return _orig(*args)
+
+        monkeypatch.setattr(conv_alt, name, call)
     cfg = _with(_configs("tiny"), alt_backward=True)[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
-        build(cfg)
+    built = build(cfg)
+    if not isinstance(built, torch.nn.Module):
+        assert callable(built.train_step)
+        return
+    parts = ([built] if not hasattr(built, "decoder")
+             else [built.encoder, built.decoder])
+    want = {"phases": 0, "patches": 0}
+    for net in parts:
+        net.train()
+        if isinstance(net, nets.CognitiveEncoder):
+            out = net(torch.ones((4, cfg.model.num_voxels)))[0]
+        elif isinstance(net, nets.Decoder):
+            out = net(torch.ones((4, cfg.model.latent_dim)))
+            want["patches"] += 1
+        else:
+            out = net(torch.ones((4, 16, 16, 3)))[1]  # logvar, or the score
+            disc = isinstance(net, nets.ImageDiscriminator)
+            # the encoder's first conv reads the image: no dx to pull back
+            want["phases"] += 3 if disc else 2
+            want["patches"] += disc
+        torch.autograd.grad(out.sum(), list(net.parameters()), allow_unused=True)
+    assert calls == want
 
 
 def test_inference_cli_stage1(tmp_path, capsys):
@@ -239,8 +274,15 @@ def test_inference_cli_stage1(tmp_path, capsys):
         x = torch.from_numpy(2.0 * images - 1.0)
         np.testing.assert_allclose(model.reconstruct(x).numpy() * 0.5 + 0.5, ref_r,
                                    atol=1e-5)
-    for family in ("wae", "wae-vgan"):
-        with pytest.raises(SystemExit, match="ROADMAP slice 4"):
-            inference.main(["--family", family, "--ckpt", pth, "-o", out, "--device", "cpu"])
+    # the WAE/Dual-GAN family reads the same triplet's encoder and decoder
+    # (its --stage is ignored); without --sample, the same reconstructions
+    out2 = str(tmp_path / "wae_vgan")
+    assert inference.main(["--family", "wae-vgan", "--preset", "tiny", "--ckpt", pth,
+                           "--synthetic-n", "40", "--batch-size", "8", "-o", out2,
+                           "--device", "cpu"]) == 0
+    capsys.readouterr()
+    with open(os.path.join(out2, "summary.json")) as f:
+        assert {k: v for k, v in json.load(f).items() if k != "checkpoint"} == {
+            k: v for k, v in summary.items() if k != "checkpoint"}
     assert sorted(GROUPS) == sorted({k.split(".")[0] for k in convert.load_train_pth(pth)})
     _port_nets(groups, cfg)  # the train module takes the same weights strictly
