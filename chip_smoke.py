@@ -100,7 +100,29 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      noise (``check_tensors``: the reference on the reversed batch); 5
      timed and one profiled step; every kernel call against its plain
      version; then WAE/Dual-GAN with the fused decoder batch (``tap_matmul``
-     11 per step) against the unfused step.
+     11 per step) against the unfused step;
+  11. trainer: the training driver at res64, batch 64, on 640 synthetic
+     examples (576 train: 9 steps per epoch; 64 validation), both kernel
+     flags on, each path 3 epochs of ``Trainer.fit`` (0 warms up, 1 is
+     profiled: ``torch.profiler`` -> ``utils/profile_report.py``, 2 is
+     clean): (a) ``vgan_stage1``: launches per epoch exactly 9 x 17/17/15
+     and 2 SSIM (the validation pass and the train-batch metrics), the
+     checkpoint restored bitwise, the same step over epoch 0's batches
+     staged beforehand, ``results.csv`` and the grids, checkpoint write
+     seconds (sync, async); then, with cuDNN's deterministic algorithms, a
+     recorded run (every kernel call against its plain version), its epoch
+     0 against a hand loop of the same step over the same batches and
+     draws, and the run resumed after epoch 0 against its epoch 1 (both
+     ``STEP_TOL``); (b) ``vgan_stage2`` from (a)'s
+     checkpoint dir and ``vgan_stage3`` from stage II's (9 x 8/8/4 and
+     9 x 11/11/12, frozen groups bitwise); (c) ``wae_stage1`` (9 x 6/6/7);
+     (d) ``python -m fmri_tpu_torch.train.run`` (res64 preset: kernel
+     flags off, 2 SSIM launches) and the inference CLI on its checkpoint
+     dir (exactly 4 SSIM launches, each held against plain). Each path
+     prints its seconds per step through the trainer beside the bare
+     step's, epoch wall seconds, images per second and the profiled
+     epoch's device busy share. In the ``kernels`` line the ``trainer_*``
+     paths count one epoch's launches.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -1238,6 +1260,415 @@ def wae_inference_phase(dev, cfg, batches, data):
     return launches, max(max_err, errw)
 
 
+# launches per res64 step on the trainer paths, both kernel flags on: the
+# bare steps' (phases 6, 7 and 10); each epoch runs TRAINER_STEPS steps and
+# two SSIM launches (the validation pass and the train-batch metrics)
+TRAINER_LAUNCHES = {
+    "trainer_stage1": {"bn_bwd_reduce": 17, "bn_bwd_apply": 17,
+                       "tap_matmul": DW_LAUNCHES_PER_STEP},
+    "trainer_stage2": COGNITIVE_LAUNCHES[2], "trainer_stage3": COGNITIVE_LAUNCHES[3],
+    "trainer_wae1": WAE_LAUNCHES["wae_stage1"]}
+TRAINER_EXAMPLES, TRAINER_VALID = 640, 64  # 576 train examples: 9 steps of 64
+TRAINER_STEPS = (TRAINER_EXAMPLES - TRAINER_VALID) // 64
+# epochs of each timed trainer path: 0 warms up, 1 is profiled, 2 is clean
+TRAINER_EPOCHS = 3
+SSIM_LAUNCHES_PER_EPOCH = 2
+
+
+class EpochClock:
+    """Wraps a trainer's steps to time each epoch's train loop on the host
+    clock: the first ``train_step`` of an epoch synchronizes and starts the
+    clock, the first ``eval_step`` after it synchronizes and stops it (the
+    evaluation follows the loop). ``loops`` holds (seconds, steps)."""
+
+    def __init__(self, steps):
+        from fmri_tpu_torch.train.steps_vgan import StepFns
+
+        self.inner, self.t0, self.n, self.loops = steps, None, 0, []
+        self.steps = StepFns(self.train_step, self.eval_step, steps.generate_step)
+
+    def train_step(self, *args):
+        import torch
+
+        if self.t0 is None:
+            torch.cuda.synchronize()
+            self.t0, self.n = time.perf_counter(), 0
+        self.n += 1
+        return self.inner.train_step(*args)
+
+    def eval_step(self, *args):
+        import torch
+
+        if self.t0 is not None:
+            torch.cuda.synchronize()
+            self.loops.append((time.perf_counter() - self.t0, self.n))
+            self.t0 = None
+        return self.inner.eval_step(*args)
+
+
+def set_launches(value: int = 0) -> dict:
+    """Every kernel's launch count, read, then set to ``value``."""
+    from fmri_tpu_torch.ops import bn, dw
+    from fmri_tpu_torch.ops import ssim as ssim_ops
+
+    fns = {"bn_bwd_reduce": bn.bn_bwd_reduce, "bn_bwd_apply": bn.bn_bwd_apply,
+           "tap_matmul": dw.tap_matmul, "ssim": ssim_ops.ssim_plane_sums}
+    out = {name: fn.launches for name, fn in fns.items()}
+    for fn in fns.values():
+        fn.launches = value
+    return out
+
+
+def fit_path(path, cfg, built, data, run_dir, n_epochs, bare_s, *, record=True,
+             profile=True, checkpoints=True, snapshot_epoch0=False):
+    """One trainer path: ``Trainer.fit`` of ``built`` (a builder's result)
+    over ``data`` (train, valid) for ``n_epochs``, with ``profile`` the
+    second epoch traced (``--profile``), with ``record`` every BN/dW/SSIM
+    call recorded and held against its plain version afterwards. Checks
+    each epoch's launches (``TRAINER_LAUNCHES[path]`` times the steps, 2
+    SSIM). Prints the seconds per step of each epoch's train loop through
+    the trainer beside the bare step's (``bare_s``), the epochs' wall
+    seconds and images per second, and the profiled epoch's device busy
+    share. Returns (final state, launches in the first epoch, {numbers},
+    {"state", "row"} of epoch 0 where ``snapshot_epoch0``); without
+    ``checkpoints`` the run writes none."""
+    import copy
+    import os
+
+    import torch
+
+    from fmri_tpu_torch.ops import bn, dw
+    from fmri_tpu_torch.ops import ssim as ssim_ops
+    from fmri_tpu_torch.train.trainer import Trainer
+    from fmri_tpu_torch.utils import profile_report
+
+    state, steps, kw = built
+    clock = EpochClock(steps)
+    os.makedirs(run_dir, exist_ok=True)
+    trainer = Trainer(cfg, clock.steps, run_dir, profile=profile, tensorboard=False,
+                      debug=not checkpoints, **kw)
+    calls = {n: {} for n in ("bn_bwd_reduce", "bn_bwd_apply", "conv2d_dw",
+                             "conv2d_transpose_dw", "ssim_plane_sums")}
+    recorders = [Recorder(mod, n, calls[n]) for mod, n in (
+        (bn, "bn_bwd_reduce"), (bn, "bn_bwd_apply"), (dw, "conv2d_dw"),
+        (dw, "conv2d_transpose_dw"), (ssim_ops, "ssim_plane_sums"))] if record else []
+    per_epoch, walls, snapshot = [], [], {}
+    mark = [time.perf_counter()]
+
+    def at_epoch_end(epoch, st, row):
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - mark[0])
+        per_epoch.append(set_launches(0))
+        if epoch == 0 and snapshot_epoch0:
+            snapshot["state"], snapshot["row"] = copy.deepcopy(st), dict(row)
+        mark[0] = time.perf_counter()
+
+    set_launches(0)
+    try:
+        state = trainer.fit(state, *data, n_epochs=n_epochs, eval_batches=1, grid_every=1,
+                            epoch_callback=at_epoch_end)
+    finally:
+        for r in recorders:
+            r.restore()
+    want = {k: TRAINER_STEPS * v for k, v in TRAINER_LAUNCHES[path].items()}
+    want["ssim"] = SSIM_LAUNCHES_PER_EPOCH
+    for epoch, got in enumerate(per_epoch):
+        check(got == want, f"{path} epoch {epoch}: launches {got}, want {want}")
+    if record:
+        hold_against_plain(calls, path, timed=False)
+        for (a, b, *rest), _ in calls["ssim_plane_sums"].values():
+            hold_ssim_call(a, b, rest)
+    n_img = TRAINER_STEPS * cfg.train.batch_size
+    numbers = {"s_per_step": [s / n for s, n in clock.loops], "bare_s_per_step": bare_s,
+               "epoch_wall_s": walls,
+               "train_images_per_s": [n_img / s for s, _ in clock.loops]}
+    print(f"[{path}] {n_epochs} epochs of {TRAINER_STEPS} steps at batch "
+          f"{cfg.train.batch_size}{' (recorded)' if record else ''}: launches per epoch "
+          f"{per_epoch[0]} (want {want}); s per step through the Trainer "
+          f"{['%.4f' % s for s in numbers['s_per_step']]}"
+          f"{' (epoch 1 profiled)' if profile else ''} vs the bare step {bare_s:.4f}; "
+          f"epoch wall s {['%.3f' % w for w in walls]} (evaluation, grids and checkpoints "
+          f"included); train images/s {['%.1f' % r for r in numbers['train_images_per_s']]}",
+          flush=True)
+    if profile:
+        prof = profile_report.summarize(os.path.join(run_dir, "profile", "trace.json"))
+        check(prof["kernels"] > 0 and prof["idle_share"] is not None,
+              f"{path}: the profiled epoch traced no device kernel")
+        numbers.update(profiled_busy_share=1 - prof["idle_share"],
+                       profiled_busy_ms=prof["busy_ms"], profiled_window_ms=prof["window_ms"])
+        print(f"[{path}] profiled epoch (torch.profiler -> utils/profile_report.py): "
+              + profile_report.format_report(prof, top=6).replace("\n", " | "), flush=True)
+    return state, per_epoch[0], numbers, snapshot
+
+
+def bare_loop(steps, state, batches, n_steps=TRAINER_STEPS):
+    """Seconds per step of ``n_steps`` calls of the adapter's
+    ``train_step`` over ``batches`` [(batch, noise, gate)] already on the
+    device and augmented: the trainer's loop without the trainer."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch, noise, gate in batches[:n_steps]:
+        state, _ = steps.train_step(state, batch, noise, *gate)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n_steps
+
+
+def checkpoint_seconds(path, state, work) -> dict:
+    """Seconds to write ``state`` as a checkpoint under ``work``: sync, and
+    through the async writer (the caller's part, the host copy; and until
+    written). Prints and returns them; the files are removed."""
+    import os
+    import shutil
+
+    import torch
+
+    from fmri_tpu_torch.checkpoints import store
+
+    ckpt_dir = os.path.join(work, "ckpt_timing")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store.save_checkpoint(ckpt_dir, 0, state)
+    sync_s = time.perf_counter() - t0
+    writer = store.AsyncCheckpointWriter()
+    t0 = time.perf_counter()
+    writer.save(ckpt_dir, 1, state)
+    caller_s = time.perf_counter() - t0
+    writer.wait()
+    total_s = time.perf_counter() - t0
+    mib = os.path.getsize(os.path.join(ckpt_dir, "ckpt_00001", "state.pt")) / 2**20
+    shutil.rmtree(ckpt_dir)
+    print(f"[{path}] checkpoint of {mib:.1f} MiB: sync write {sync_s:.3f} s; async: "
+          f"{caller_s:.3f} s on the caller (the host copy), {total_s:.3f} s until written",
+          flush=True)
+    return {"ckpt_mib": mib, "ckpt_sync_s": sync_s, "ckpt_async_caller_s": caller_s,
+            "ckpt_async_total_s": total_s}
+
+
+def state_gaps(name, a, b, start, tol) -> None:
+    """``tensor_gaps`` of train state ``a`` from ``b``, the worst per kind
+    within ``tol``; says whether the two are bitwise equal."""
+    import torch
+
+    worst = {"param": 0.0, "stats": 0.0, "sq": 0.0}
+    for kind, gap in tensor_gaps(a, b, start).values():
+        worst[kind] = max(worst[kind], gap)
+    sa, sb = a.nets.state_dict(), b.nets.state_dict()
+    same = all(torch.equal(sa[k], sb[k]) for k in sb) and torch.equal(a.step, b.step)
+    print(f"[trainer] {name}: worst {worst} (bounds {tol}); bitwise equal: {same}",
+          flush=True)
+    check(all(worst[k] <= tol[k] for k in worst), f"{name}: {worst} outside {tol}")
+
+
+def trainer_phase(dev, cfg, preset, bare_seconds):
+    """Phase 11: the training driver, both kernel flags on. (a)
+    ``vgan_stage1`` through ``Trainer.fit``, then its exactness checks; (b)
+    ``vgan_stage2`` from (a)'s checkpoint dir, then ``vgan_stage3`` from
+    stage II's; (c) ``wae_stage1``; (d) the train and inference CLIs as
+    users call them. Returns ({path: launches in one epoch}, {path:
+    numbers})."""
+    import csv
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from fmri_tpu_torch.checkpoints import store
+    from fmri_tpu_torch.data.pipeline import Batches, to_device
+    from fmri_tpu_torch.data.synthetic import synthetic_images, synthetic_pairs
+    from fmri_tpu_torch.data.transforms import train_augment
+    from fmri_tpu_torch.eval import inference
+    from fmri_tpu_torch.ops import ssim as ssim_ops
+    from fmri_tpu_torch.train import run
+    from fmri_tpu_torch.train.stages import BUILDERS
+    from fmri_tpu_torch.train.trainer import Draws, DrawSpec, GameSchedules, Trainer
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_runs")
+    shutil.rmtree(work, ignore_errors=True)
+    t = cfg.train
+    # the kernels on, checkpoints only at epoch 0 and the final epoch
+    cfg = dataclasses.replace(with_flags(cfg, pallas_bn=True, pallas_backward=True),
+                              train=dataclasses.replace(t, ckpt_every=100, batch_size=64))
+    t, size = cfg.train, cfg.model.image_size
+    imgs = synthetic_images(TRAINER_EXAMPLES, size, seed=0)[0]
+    images = (imgs[TRAINER_VALID:], imgs[:TRAINER_VALID])
+    pairs = synthetic_pairs(TRAINER_EXAMPLES, size, cfg.model.num_voxels, seed=0)
+    pairs = ({k: v[TRAINER_VALID:] for k, v in pairs.items()},
+             {k: v[:TRAINER_VALID] for k, v in pairs.items()})
+    spe = TRAINER_STEPS
+    launches, numbers = {}, {}
+    try:
+        # (a) stage I: the timed and profiled epochs, the checkpoint restored,
+        # the bare step over epoch 0's batches
+        run_a = os.path.join(work, "stage1")
+        build = lambda: BUILDERS["vgan_stage1"](cfg, steps_per_epoch=spe, seed=t.seed,  # noqa: E731
+                                                device=dev)
+        start = {k: v.cpu().clone() for k, v in build()[0].nets.state_dict().items()}
+        final, launches["trainer_stage1"], numbers["trainer_stage1"], snap = fit_path(
+            "trainer_stage1", cfg, build(), images, run_a, TRAINER_EPOCHS,
+            bare_seconds["stage1"], record=False, snapshot_epoch0=True)
+        restored, meta = store.restore_checkpoint(os.path.join(run_a, "checkpoints"),
+                                                  build()[0])
+        sa, sb = restored.nets.state_dict(), final.nets.state_dict()
+        check(meta["epoch"] == TRAINER_EPOCHS - 1
+              and all(torch.equal(sa[k], sb[k]) for k in sb)
+              and torch.equal(restored.step, final.step)
+              and all(torch.equal(restored.opt_state[g][k], final.opt_state[g][k])
+                      for g in final.opt_state for k in final.opt_state[g]),
+              "trainer_stage1: the restored checkpoint differs from the live state")
+
+        def epoch0_batches(kw):
+            """Epoch 0's batches as the trainer draws them: order, draws,
+            augmentation and game scalars, staged on the device."""
+            batches = Batches(images[0], t.batch_size, shuffle=True, seed=t.seed)
+            draws = Draws(t.seed)
+            spec = DrawSpec(t.batch_size, cfg.model.latent_dim, kw["augment"]["flip"],
+                            kw["augment"]["max_shift"], kw["noise"], dev)
+            gate = GameSchedules(cfg).args(dev)
+            out = []
+            for i, batch in enumerate(batches):
+                flip, shifts, noise = draws.train(0, i, spec)
+                out.append((train_augment(to_device(batch, dev), flip, shifts,
+                                          cfg.data.mean, cfg.data.std), noise, gate))
+            return out
+
+        state, steps, kw = build()
+        staged = epoch0_batches(kw)
+        bare_loop(steps, state, staged)  # warm
+        loop_s = bare_loop(steps, state, staged)
+        numbers["trainer_stage1"]["bare_loop_s_per_step"] = loop_s
+        print(f"[trainer_stage1] the same step over epoch 0's batches staged on the "
+              f"device beforehand: {loop_s:.4f} s per step (the Trainer's clean epoch: "
+              f"{numbers['trainer_stage1']['s_per_step'][-1]:.4f})", flush=True)
+
+        # exactness, with cuDNN's deterministic algorithms (its default dgrad
+        # may sum in any order, and from zero moments the equilibrium gate
+        # and RMSprop's first updates turn rounding into different runs):
+        # epoch 0 through the Trainer (every kernel call recorded) against a
+        # hand loop of the step over the same batches and draws, and the run
+        # resumed after epoch 0 against the uninterrupted epoch 1
+        torch.backends.cudnn.deterministic = True
+        try:
+            run_d = os.path.join(work, "stage1_deterministic")
+            final_d, _, _, snap_d = fit_path(
+                "trainer_stage1", cfg, build(), images, run_d, 2, bare_seconds["stage1"],
+                profile=False, snapshot_epoch0=True)
+            hand, steps, kw = build()
+            for batch, noise, gate in epoch0_batches(kw):
+                hand, _ = steps.train_step(hand, batch, noise, *gate)
+            state_gaps("trainer_stage1 epoch 0 vs a hand loop of the step", snap_d["state"],
+                       hand, start, STEP_TOL)
+            resumed, meta = store.restore_checkpoint(os.path.join(run_d, "checkpoints"),
+                                                     build()[0], epoch=0)
+            run_b = os.path.join(work, "stage1_resumed")
+            os.makedirs(run_b)
+            resumed = Trainer(cfg, build()[1], run_b, tensorboard=False, **kw).fit(
+                resumed, *images, start_epoch=meta["epoch"] + 1, n_epochs=2, grid_every=1)
+            state_gaps("trainer_stage1 resumed after epoch 0 vs the uninterrupted epoch 1",
+                       resumed, final_d, start, STEP_TOL)
+        finally:
+            torch.backends.cudnn.deterministic = False
+
+        with open(os.path.join(run_a, "results.csv")) as f:
+            reader = csv.DictReader(f)
+            columns, rows = reader.fieldnames, list(reader)
+        eval_cols = [f"{p}_{m}" for p in ("valid", "train") for m in ("MSE", "PCC", "SSIM")]
+        want_cols = ["epoch"] + sorted(k for k in snap["row"]
+                                       if k != "epoch" and k not in eval_cols) + eval_cols
+        check(len(rows) == TRAINER_EPOCHS and columns == want_cols,
+              f"trainer_stage1 results.csv: {len(rows)} rows, columns {columns}")
+        check(all(float(v) == float(v) for r in rows for v in r.values()),
+              "trainer_stage1 results.csv holds a NaN")
+        for name in ("epoch_0000.png", "epoch_0000_original.png",
+                     "epoch_0000_generated.png", "epoch_0002.png"):
+            check(os.path.getsize(os.path.join(run_a, "images", "valid", name)) > 0,
+                  f"trainer_stage1: no grid {name}")
+
+        numbers["trainer_stage1"].update(checkpoint_seconds("trainer_stage1", final, work))
+        print("[trainer_stage1] resume, restore, hand loop, results.csv and grids checked",
+              flush=True)
+
+        # (b) the handoff: stage II from (a)'s checkpoints, stage III from II's
+        prev = os.path.join(run_a, "checkpoints")
+        frozen = {"trainer_stage2": ("decoder.", "teacher_net.encoder."),
+                  "trainer_stage3": ("encoder.", "teacher_net.encoder.")}
+        for stage, path in ((2, "trainer_stage2"), (3, "trainer_stage3")):
+            key = "stage1_ckpt" if stage == 2 else "stage2_ckpt"
+            built = BUILDERS[f"vgan_stage{stage}"](cfg, **{key: prev}, steps_per_epoch=spe,
+                                                   seed=t.seed, device=dev)
+            before = {k: v.clone() for k, v in built[0].nets.state_dict().items()}
+            run_dir = os.path.join(work, path)
+            state, launches[path], numbers[path], _ = fit_path(
+                path, cfg, built, pairs, run_dir, TRAINER_EPOCHS,
+                bare_seconds[f"stage{stage}"],
+                checkpoints=stage == 2)
+            sd = state.nets.state_dict()
+            moved = [k for k, v in sd.items() if k.startswith(frozen[path])
+                     and "running" not in k and "num_batches" not in k
+                     and not torch.equal(v, before[k])]
+            check(not moved, f"{path}: frozen tensors moved: {moved[:3]}")
+            print(f"[{path}] frozen groups {frozen[path]} bitwise unchanged", flush=True)
+            numbers[path].update(checkpoint_seconds(path, state, work))
+            prev = os.path.join(run_dir, "checkpoints")
+
+        # (c) WAE stage I
+        state, launches["trainer_wae1"], numbers["trainer_wae1"], _ = fit_path(
+            "trainer_wae1", cfg, BUILDERS["wae_stage1"](cfg, steps_per_epoch=spe,
+                                                        seed=t.seed, device=dev),
+            images, os.path.join(work, "wae1"), TRAINER_EPOCHS, bare_seconds["wae_stage1"],
+            checkpoints=False)
+        numbers["trainer_wae1"].update(checkpoint_seconds("trainer_wae1", state, work))
+
+        # (d) the CLIs as users call them, on the default device (the card)
+        set_launches(0)
+        t0 = time.perf_counter()
+        check(run.main(["--family", "vgan", "--stage", "1", "--preset", preset,
+                        "--dataset", "synthetic", "--synthetic-n", str(TRAINER_EXAMPLES),
+                        "--epochs", "1", "-o", os.path.join(work, "cli")]) == 0,
+              "the train CLI failed")
+        cli_s = time.perf_counter() - t0
+        cli_launches = set_launches(0)
+        # the presets keep both kernel flags off, as the JAX package's do
+        check(cli_launches == {"bn_bwd_reduce": 0, "bn_bwd_apply": 0, "tap_matmul": 0,
+                               "ssim": SSIM_LAUNCHES_PER_EPOCH},
+              f"train CLI: {cli_launches}, want {SSIM_LAUNCHES_PER_EPOCH} SSIM launches only")
+        cli_run, = (os.path.join(work, "cli", "vgan_stage1", d)
+                    for d in os.listdir(os.path.join(work, "cli", "vgan_stage1")))
+        calls = {}
+        recorder = Recorder(ssim_ops, "ssim_plane_sums", calls)
+        try:
+            check(inference.main(["--family", "vgan", "--stage", "1", "--preset", preset,
+                                  "--dataset", "synthetic", "--synthetic-n",
+                                  str(TRAINER_EXAMPLES), "--ckpt",
+                                  os.path.join(cli_run, "checkpoints"),
+                                  "-o", os.path.join(work, "inference")]) == 0,
+                  "the inference CLI failed on the trained run")
+        finally:
+            recorder.restore()
+        inf_launches = set_launches(0)
+        check(inf_launches["ssim"] == SSIM_LAUNCHES_PER_RUN,
+              f"inference from the trained run: {inf_launches['ssim']} SSIM launches, "
+              f"want {SSIM_LAUNCHES_PER_RUN}")
+        for (a, b, *rest), _ in calls.values():
+            hold_ssim_call(a, b, rest)
+        with open(os.path.join(work, "inference", "summary.json")) as f:
+            summary = json.load(f)
+        check(summary["checkpoint_epoch"] == 0 and summary["num_images"] == TRAINER_VALID
+              and 0.0 < summary["ssim"] <= 1.0,
+              f"inference from the trained run: {summary}")
+        launches["train_cli"] = cli_launches
+        launches["inference_trained_run"] = inf_launches
+        print(f"[trainer_cli] python -m fmri_tpu_torch.train.run --preset {preset}, 1 epoch: "
+              f"{cli_s:.2f} s wall (imports excluded), launches {cli_launches}; inference "
+              f"from its checkpoint dir: launches {inf_launches}, ssim {summary['ssim']:.4f}",
+              flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, numbers
+
+
 def main() -> None:
     import torch
 
@@ -1457,9 +1888,15 @@ def main() -> None:
     launches_by_path.update(wae_launches)
     seconds.update(alt_seconds)
     seconds.update(wae_seconds)
+
+    # 11. the training driver: whole epochs through the Trainer, the CLIs
+    trainer_launches, trainer_numbers = trainer_phase(dev, cfg, "res64", seconds)
     for entry in train_kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in launches_by_path.items()}
+        entry["launches_by_path"].update(
+            {path: counts[entry["name"]] for path, counts in trainer_launches.items()
+             if path.startswith("trainer_")})
 
     # 8. kernels line; ssim at every shape the inference run gave it, each
     #    held against the plain version, times summed over the run's launches
@@ -1502,7 +1939,11 @@ def main() -> None:
         "launches": launches["ssim"],
         "launches_by_path": {"inference": launches["ssim"],
                              "inference_stage1": launches["ssim_stage1"],
-                             "inference_wae": launches["ssim_wae"]},
+                             "inference_wae": launches["ssim_wae"],
+                             "trainer_validation": trainer_launches["trainer_stage1"]["ssim"],
+                             "train_cli": trainer_launches["train_cli"]["ssim"],
+                             "inference_trained_run":
+                                 trainer_launches["inference_trained_run"]["ssim"]},
         "max_abs_err": max_err,
         "ms": ssim_tot["ms"],
         "device_ms": ssim_tot["device_ms"],
@@ -1519,6 +1960,8 @@ def main() -> None:
           f"alt_backward only; stage1_stock: no flag), host clock, warm: "
           f"{json.dumps(seconds)}", flush=True)
     print(f"[alt] cuDNN dgrad device ms per stage-I step: {json.dumps(dgrad)}", flush=True)
+    print(f"[trainer] per path (host clock; epoch 1 profiled): "
+          f"{json.dumps(trainer_numbers)}", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,15 @@ with the reference's torch weight layouts, so reference ``.pth`` state dicts
 load with ``strict=True``. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"`` (see :func:`fmri_tpu_torch.device.resolve_device`).
 
-Ported so far: the cognitive VAE/GAN fMRI->image inference and serving path
-(``eval/``), with a hand-written CUDA SSIM kernel (``ops/csrc/ssim.cu``); and
-the stage-I Dual-VAE/GAN train step (``train/``), whose BatchNorm backward
-and conv/deconv weight grads run through hand-written CUDA kernels
-(``ops/csrc/bn.cu``, ``ops/csrc/dw.cu``) when ``pallas_bn`` and
-``pallas_backward`` are set.
+Ported so far: inference and serving (``eval/``), with a hand-written CUDA
+SSIM kernel (``ops/csrc/ssim.cu``); the train steps of the VAE/GAN and WAE
+families (``train/steps_*.py``), whose BatchNorm backward and conv/deconv
+weight grads run through hand-written CUDA kernels (``ops/csrc/bn.cu``,
+``ops/csrc/dw.cu``) when ``pallas_bn`` and ``pallas_backward`` are set; and
+the training driver: ``train/trainer.py``, the stage builders
+(``train/stages.py``), the checkpoint store (``checkpoints/store.py``), the
+input pipeline (``data/pipeline.py``), run artifacts (``utils/``) and the
+``python -m fmri_tpu_torch.train.run`` CLI.
 """
 
 __version__ = "0.1.0"

@@ -95,8 +95,14 @@ def save_objective_csv(scores: Dict[str, list], path: str) -> None:
 
 
 def save_objective_bar_chart(scores: Dict[str, list], path: str) -> None:
-    """Bar chart with chance-level lines (``inference_gan.py:288-306``)."""
-    import matplotlib
+    """Bar chart with chance-level lines (``inference_gan.py:288-306``),
+    where matplotlib imports; otherwise a line on stdout says so (the CSV
+    holds the same scores)."""
+    try:
+        import matplotlib
+    except ImportError:
+        print(f"matplotlib is not installed: no {path} (objective.csv has the scores)")
+        return
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt

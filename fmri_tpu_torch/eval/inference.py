@@ -7,7 +7,10 @@ cognitive model (``--stage 2|3``); PCC/SSIM/MSE against the images,
     python -m fmri_tpu_torch.eval.inference --family vgan --stage 3 \\
         --preset res64 --ckpt model.pth --dataset synthetic -o out
 
-Weights come from a reference-layout ``.pth``, as written by
+Weights come from a port training run's checkpoint dir (``--ckpt
+<run>/checkpoints``, the latest checkpoint unless ``--load-epoch``; its
+``encoder`` and ``decoder`` groups), or from a reference-layout ``.pth``, as
+written by
 ``python -m fmri_tpu.checkpoints.torch_import --export --kind K`` with K
 ``vae-gan`` (``vgan`` stage 1, or ``wae-vgan``), ``vae-gan-cognitive``
 (``vgan`` stages 2 and 3), ``wae-gan`` (``wae`` stage 1) or
@@ -38,7 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stage", type=int, choices=[1, 2, 3], default=3)
     p.add_argument("--preset", default="res64")
     p.add_argument("--ckpt", required=True,
-                   help="reference-layout .pth state dict of the family and stage")
+                   help="a port training run's checkpoint dir, or a reference-layout "
+                        ".pth state dict of the family and stage")
+    p.add_argument("--load-epoch", type=int, default=None,
+                   help="epoch to load from a checkpoint dir (default latest)")
     p.add_argument("--dataset", default="synthetic",
                    choices=["coco", "bold", "mnist69", "synthetic"])
     p.add_argument("--input", "-i", default=None, help="packed pair directory")
@@ -101,10 +107,23 @@ def load_valid(args, cfg):
     return _holdout({k: data[k] for k in keys}, max(n // 10, bs))
 
 
+def load_weights(args):
+    """(the eval module's ``encoder.*``/``decoder.*`` state dict, summary
+    entries naming the checkpoint): from a port checkpoint dir
+    (``checkpoints/store.py::load_eval_state``) or a ``.pth``."""
+    from fmri_tpu_torch.checkpoints.convert import load_pth
+    from fmri_tpu_torch.checkpoints.store import load_eval_state
+
+    if not os.path.isdir(args.ckpt):
+        return load_pth(args.ckpt), {"checkpoint": args.ckpt}
+    groups, meta = load_eval_state(args.ckpt, epoch=args.load_epoch)
+    sd = {f"{g}.{k}": v for g in ("encoder", "decoder") for k, v in groups[g].items()}
+    return sd, {"checkpoint": args.ckpt, "checkpoint_epoch": meta["epoch"]}
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    from fmri_tpu_torch.checkpoints.convert import load_pth
     from fmri_tpu_torch.configs.presets import get_config, override_num_voxels
     from fmri_tpu_torch.device import resolve_device
     from fmri_tpu_torch.eval.evaluate import (
@@ -128,8 +147,9 @@ def main(argv=None) -> int:
         model_cls = WaeVisual if args.stage == 1 else WaeCognitive
     else:
         model_cls = VaeGanVisual if image_only(args) else VaeGanCognitive
+    weights, source = load_weights(args)
     model = model_cls(cfg.model)
-    model.load_state_dict(load_pth(args.ckpt), strict=True)
+    model.load_state_dict(weights, strict=True)
     model.to(device)
 
     n, bs = len(valid["image"]), cfg.train.batch_size
@@ -140,8 +160,7 @@ def main(argv=None) -> int:
         sample=args.sample, seed=args.seed, max_batches=args.max_batches)
 
     os.makedirs(args.output, exist_ok=True)
-    summary = {"checkpoint": args.ckpt, "device": str(device),
-               "num_images": int(len(recons))}
+    summary = {**source, "device": str(device), "num_images": int(len(recons))}
     if not args.no_evaluate:
         summary.update(quality_metrics(recons, targets))
         scores = objective_scores(recons, targets, seed=args.seed)

@@ -54,18 +54,29 @@ WAE_COGNITIVE_TRAINED = {2: ("encoder", "latent_disc"), 3: ("decoder", "latent_d
 
 
 class _Groups(nn.Module):
-    """``group(name)``: the named parameters of one group, the submodule
-    ``ALIASES`` names for it (by default its own attribute)."""
+    """A train module of named groups: ``PREFIXES`` maps each group to the
+    state-dict prefix of its submodule (by default the group's own name);
+    ``module(name)`` is that submodule and ``group(name)`` its named
+    parameters. The checkpoint store saves and grafts groups by these
+    names."""
 
-    ALIASES: Dict[str, str] = {}
+    PREFIXES: Dict[str, str] = {}
+
+    def module(self, name: str) -> nn.Module:
+        if name not in self.PREFIXES:
+            raise KeyError(f"{type(self).__name__} has no group {name!r}; "
+                           f"its groups: {sorted(self.PREFIXES)}")
+        return self.get_submodule(self.PREFIXES[name][:-1])
 
     def group(self, name: str) -> Dict[str, nn.Parameter]:
-        return dict(getattr(self, self.ALIASES.get(name, name)).named_parameters())
+        return dict(self.module(name).named_parameters())
 
 
 class VaeGan(_Groups):
     """The stage-I triplet: ``encoder`` (VisualEncoder), ``decoder``,
     ``discriminator`` (ImageDiscriminator)."""
+
+    PREFIXES = {g: g + "." for g in GROUPS}
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -74,11 +85,13 @@ class VaeGan(_Groups):
         self.discriminator = ImageDiscriminator(cfg.model)
 
 
-class VaeGanCognitiveTrain(nn.Module):
+class VaeGanCognitiveTrain(_Groups):
     """The stage-II/III model: ``encoder`` (CognitiveEncoder), ``decoder``,
     ``discriminator`` and ``teacher_net``: a stage-I :class:`VaeGan` whose
     ``decoder`` and ``discriminator`` are this module's own. Group
     ``"teacher_encoder"`` is ``teacher_net.encoder``, the JAX group name."""
+
+    PREFIXES = {**VaeGan.PREFIXES, "teacher_encoder": "teacher_net.encoder."}
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -89,17 +102,13 @@ class VaeGanCognitiveTrain(nn.Module):
         self.teacher_net.decoder = self.decoder
         self.teacher_net.discriminator = self.discriminator
 
-    def group(self, name: str) -> Dict[str, nn.Parameter]:
-        """The named parameters of one group."""
-        module = self.teacher_net.encoder if name == "teacher_encoder" else getattr(self, name)
-        return dict(module.named_parameters())
-
 
 class WaeGan(_Groups):
     """WAE stage I: ``encoder`` (VisualEncoder), ``decoder`` and
     ``discriminator``, the LatentDiscriminator of group ``latent_disc``."""
 
-    ALIASES = {"latent_disc": "discriminator"}
+    PREFIXES = {"encoder": "encoder.", "decoder": "decoder.",
+                "latent_disc": "discriminator."}
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -113,7 +122,7 @@ class WaeGanCognitiveTrain(_Groups):
     ``discriminator`` (the LatentDiscriminator, group ``latent_disc``) and
     ``teacher_encoder``, the frozen stage-I VisualEncoder."""
 
-    ALIASES = {"latent_disc": "discriminator"}
+    PREFIXES = {**WaeGan.PREFIXES, "teacher_encoder": "teacher_encoder."}
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -126,6 +135,8 @@ class WaeGanCognitiveTrain(_Groups):
 class WaeDualGan(_Groups):
     """WAE/Dual-GAN: the stage-I triplet ``encoder``, ``decoder``,
     ``discriminator`` (ImageDiscriminator) and ``latent_disc``."""
+
+    PREFIXES = {g: g + "." for g in WAE_DUAL_GROUPS}
 
     def __init__(self, cfg: Config):
         super().__init__()

@@ -575,3 +575,123 @@ def test_res64_wae_step_launches(cuda_device, path):
     _, _, got, _ = _wae_run(get_config("res64"), "wae_vgan" if fused else path,
                             cuda_device, 8, True, fused)
     assert got == ((0, 0, 11) if fused else WAE_LAUNCHES[path])
+
+
+class _HostDraws:
+    """The trainer's default draws taken on the CPU and moved to the
+    device, so a run on the card and one on the CPU draw the same numbers
+    (the card's generators are another algorithm)."""
+
+    def __init__(self, seed):
+        from fmri_tpu_torch.train.trainer import Draws
+
+        self.draws = Draws(seed)
+
+    def train(self, epoch, index, spec):
+        flip, shifts, noise = self.draws.train(epoch, index,
+                                               spec._replace(device=torch.device("cpu")))
+        put = (lambda t: None if t is None else t.to(spec.device))  # noqa: E731
+        return put(flip), put(shifts), {k: put(v) for k, v in noise.items()}
+
+    def eval(self, epoch, stream, device):
+        draws = self.draws.eval(epoch, stream, torch.device("cpu"))
+
+        class Moved:
+            def eps(self, n, latent):
+                return draws.eps(n, latent).to(device)
+
+            def z_p(self, n, latent):
+                return draws.z_p(n, latent).to(device)
+
+        return Moved()
+
+
+def test_trainer_epoch_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """One ``tiny`` stage-I epoch through the ``Trainer`` with both kernel
+    flags on, on the card and on the CPU, from the same weights and draws:
+    the same ``results.csv`` columns, losses within 1e-5 relative and
+    metrics within 1e-4; parameters within 1e-3 of how far the CPU epoch
+    moved them (L2 per tensor); the kernels launched on the card only, two
+    SSIM launches (the valid and train-metric passes)."""
+    import csv
+    import dataclasses
+
+    from fmri_tpu_torch.data.synthetic import synthetic_images
+    from fmri_tpu_torch.train import stages
+    from fmri_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("tiny")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, pallas_bn=True, pallas_backward=True))
+    imgs, _ = synthetic_images(40, 16, seed=0)
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        state, steps, kw = stages.vgan_stage1(cfg, steps_per_epoch=4, seed=8, device=dev)
+        start = {k: v.detach().cpu().clone() for k, v in state.nets.state_dict().items()}
+        run_dir = tmp_path / dev.type
+        run_dir.mkdir()
+        before = (port_bn.bn_bwd_reduce.launches, port_dw.tap_matmul.launches,
+                  port.ssim_plane_sums.launches)
+        state = Trainer(cfg, steps, str(run_dir), draws=_HostDraws(8), tensorboard=False,
+                        **kw).fit(state, imgs[8:], imgs[:8], n_epochs=1)
+        after = (port_bn.bn_bwd_reduce.launches, port_dw.tap_matmul.launches,
+                 port.ssim_plane_sums.launches)
+        with open(run_dir / "results.csv") as f:
+            runs[dev.type] = (state, list(csv.DictReader(f))[0], start,
+                              [a - b for a, b in zip(after, before)])
+    card, row_card, start, n_card = runs["cuda"]
+    cpu, row_cpu, _, n_cpu = runs["cpu"]
+    assert n_card[0] > 0 and n_card[1] == 4 * 15 and n_card[2] == 2 and n_cpu == [0, 0, 0]
+    assert list(row_card) == list(row_cpu)
+    for k in row_cpu:
+        g, w = float(row_card[k]), float(row_cpu[k])
+        tol = 1e-4 if k.startswith(("valid_", "train_P", "train_S", "train_M")) else 1e-5 * abs(w)
+        assert abs(g - w) <= max(tol, 1e-7), (k, g, w)
+    sd_cpu = cpu.nets.state_dict()
+    for k, v in card.nets.state_dict().items():
+        if v.is_floating_point() and "running" not in k:
+            ref = sd_cpu[k]
+            assert float((v.cpu() - ref).norm()) <= 1e-3 * float((ref - start[k]).norm()), k
+
+
+def test_store_round_trip_of_a_state_on_the_card(cuda_device, tmp_path):
+    """A CUDA train state saved (host copies) and restored onto the card,
+    bit for bit."""
+    from fmri_tpu_torch.checkpoints import store
+    from fmri_tpu_torch.train.state import init_wae, make_wae_state
+
+    cfg = get_config("tiny")
+    live = make_wae_state(init_wae(cfg, 0).to(cuda_device), cfg)
+    with torch.no_grad():
+        for m in (live.opt_state["encoder"].mu, live.opt_state["decoder"].nu):
+            for v in m.values():
+                v.uniform_()
+    live.step.fill_(5)
+    writer = store.AsyncCheckpointWriter()
+    writer.save(str(tmp_path), 0, live)
+    writer.wait()
+    fresh = make_wae_state(init_wae(cfg, 1).to(cuda_device), cfg)
+    restored, meta = store.restore_checkpoint(str(tmp_path), fresh)
+    assert meta["epoch"] == 0 and restored.step.device.type == "cuda"
+    for k, v in live.nets.state_dict().items():
+        got = restored.nets.state_dict()[k]
+        assert got.device.type == "cuda" and torch.equal(got, v), k
+    for g in live.opt_state:
+        for a, b in ((live.opt_state[g].mu, restored.opt_state[g].mu),
+                     (live.opt_state[g].nu, restored.opt_state[g].nu)):
+            for k in a:
+                assert torch.equal(a[k], b[k]), (g, k)
+
+
+def test_device_iterator_delivers_pinned_batches_in_order(cuda_device):
+    from fmri_tpu_torch.data.pipeline import Batches, device_iterator
+
+    data = {"fmri": np.arange(64 * 5, dtype=np.float32).reshape(64, 5),
+            "image": np.random.default_rng(0).uniform(size=(64, 8, 8, 3)).astype(np.float32)}
+    got = list(device_iterator(iter(Batches(data, 8, shuffle=True, seed=2)), cuda_device))
+    want = list(Batches(data, 8, shuffle=True, seed=2))
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        assert g["fmri"].device.type == "cuda"
+        np.testing.assert_array_equal(g["fmri"].cpu().numpy(), w["fmri"])
+        np.testing.assert_array_equal(g["image"].cpu().numpy(), w["image"])
