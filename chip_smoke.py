@@ -28,11 +28,11 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      path (``--family wae --stage 3``: ``WaeCognitive``, the mean latent,
      ``sample=True`` ignored) over the same 1,024 pairs with the same
      checks and its own 4 SSIM launches;
-  5. serving: ``ServingModel`` (max_batch 64, uint8 output) answers requests
-     of 1, 5, 64 and 130 rows and ``generate(4)``; a request reconstructed
-     alone equals it reconstructed inside a padded batch (float output
-     within 1e-5; uint8 within 1 LSB, as cuDNN may pick another algorithm
-     per batch size);
+  5. serving: ``ServingModel`` (max_batch 64, uint8 output; on the card it
+     replays one CUDA graph per bucket) answers requests of 1, 5, 64 and
+     130 rows and ``generate(4)``; a request reconstructed alone equals it
+     reconstructed inside a padded batch (float output within 1e-5; uint8
+     within 1 LSB, as cuDNN may pick another algorithm per batch size);
   6. train: the stage-I VAE/GAN step at res64 (full published widths,
      batch 64, fp32) with ``pallas_bn`` and ``pallas_backward`` on, so the
      BatchNorm backward and the conv/deconv weight grads run through the
@@ -122,7 +122,34 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      prints its seconds per step through the trainer beside the bare
      step's, epoch wall seconds, images per second and the profiled
      epoch's device busy share. In the ``kernels`` line the ``trainer_*``
-     paths count one epoch's launches.
+     paths count one epoch's launches;
+  12. serve: serving from phase 11's res64 checkpoint dirs, max_batch 64
+     (``serve_phase``). (a) ``vgan_stage3`` with float and with uint8
+     output: warmup captures 14 CUDA graphs (7 buckets x reconstruct and
+     generate), captured with cuDNN's deterministic algorithms; every
+     bucket's graph against the same server with eager programs under
+     those algorithms (float 1e-6, uint8 1 LSB), both timed per bucket
+     beside eager programs with cuDNN's defaults (50 warm calls, each
+     ending in the host pull); the same 64 rows twice, the graph's bitwise
+     (the defaults' gap printed); requests of 1, 5, 64 and 130
+     rows, each row alone vs in the batch (1e-5, 1 LSB); ``generate(4)``
+     against the decoder on the same generator draws (1e-6); (b)
+     ``vgan_stage1`` and ``wae_stage1`` serve 1 and 64 images in [0, 1],
+     each against the eager preprocess, reconstruct, denormalize and clip
+     (1e-5); (c) a ``vgan_stage2`` server reloads ``vgan_stage3``: no graph
+     captured again, outputs bitwise a fresh stage-III server's; a stage-I
+     dir refused with the outputs bitwise kept; (d) ``BatchingServer``: 512
+     one-row requests from 32 threads (max_wait_ms 5), each within 1 LSB of
+     ``reconstruct``; requests/s, batches, occupancy and latency
+     percentiles; (e) ``python -m fmri_tpu_torch.eval.serve`` as users
+     start it (no ``--device``: the card) through the port's
+     ``ServeClient`` (pool 8): ping, 256 rows within 1 LSB of (d)'s,
+     ``generate(4)``, ``generate(8 x 64 + 1)`` refused, reload of the
+     stage-II dir, stats; a second server with ``--max-queue 6`` takes a
+     burst of 8 clients x 4 requests, each reply an image or ``"shed":
+     true``, the server's shed count equal to the replies'; both stopped
+     with SIGINT, exit code 0. No BN, dW or SSIM kernel may launch over the
+     phase (``serve: 0`` in each kernel's ``launches_by_path``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -1461,12 +1488,15 @@ def state_gaps(name, a, b, start, tol) -> None:
     check(all(worst[k] <= tol[k] for k in worst), f"{name}: {worst} outside {tol}")
 
 
-def trainer_phase(dev, cfg, preset, bare_seconds):
+def trainer_phase(dev, cfg, preset, bare_seconds, then=None):
     """Phase 11: the training driver, both kernel flags on. (a)
     ``vgan_stage1`` through ``Trainer.fit``, then its exactness checks; (b)
     ``vgan_stage2`` from (a)'s checkpoint dir, then ``vgan_stage3`` from
     stage II's; (c) ``wae_stage1``; (d) the train and inference CLIs as
-    users call them. Returns ({path: launches in one epoch}, {path:
+    users call them. Then, before the run dirs are deleted, ``then(dirs,
+    work)`` with the checkpoint dirs of (a), (b) and (c) (the final states
+    of ``vgan_stage3`` and ``wae_stage1``, which train without checkpoints,
+    are written for it). Returns ({path: launches in one epoch}, {path:
     numbers})."""
     import csv
     import dataclasses
@@ -1612,6 +1642,7 @@ def trainer_phase(dev, cfg, preset, bare_seconds):
             print(f"[{path}] frozen groups {frozen[path]} bitwise unchanged", flush=True)
             numbers[path].update(checkpoint_seconds(path, state, work))
             prev = os.path.join(run_dir, "checkpoints")
+        stage3_state = state
 
         # (c) WAE stage I
         state, launches["trainer_wae1"], numbers["trainer_wae1"], _ = fit_path(
@@ -1620,6 +1651,7 @@ def trainer_phase(dev, cfg, preset, bare_seconds):
             images, os.path.join(work, "wae1"), TRAINER_EPOCHS, bare_seconds["wae_stage1"],
             checkpoints=False)
         numbers["trainer_wae1"].update(checkpoint_seconds("trainer_wae1", state, work))
+        wae1_state = state
 
         # (d) the CLIs as users call them, on the default device (the card)
         set_launches(0)
@@ -1664,8 +1696,374 @@ def trainer_phase(dev, cfg, preset, bare_seconds):
               f"{cli_s:.2f} s wall (imports excluded), launches {cli_launches}; inference "
               f"from its checkpoint dir: launches {inf_launches}, ssim {summary['ssim']:.4f}",
               flush=True)
+        if then is not None:
+            dirs = {"vgan_stage1": os.path.join(run_a, "checkpoints"),
+                    "vgan_stage2": os.path.join(work, "trainer_stage2", "checkpoints"),
+                    "vgan_stage3": os.path.join(work, "trainer_stage3", "checkpoints"),
+                    "wae_stage1": os.path.join(work, "wae1", "checkpoints")}
+            store.save_checkpoint(dirs["vgan_stage3"], TRAINER_EPOCHS - 1, stage3_state)
+            store.save_checkpoint(dirs["wae_stage1"], TRAINER_EPOCHS - 1, wae1_state)
+            then(dirs, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return launches, numbers
+
+
+SERVE_MAX_BATCH = 64
+SERVE_SIZES = (1, 5, 64, 130)
+SERVE_TIMED_CALLS = 50
+# in-process BatchingServer load: one-row requests from threads, each with
+# one request in flight; the socket load: rows through ServeClient's pool
+SERVE_REQUESTS, SERVE_THREADS, SOCKET_ROWS, SOCKET_POOL = 512, 32, 256, 8
+
+
+def _spawn_server(args, cwd):
+    """Start ``python -m fmri_tpu_torch.eval.serve`` with ``args``; returns
+    (process, its stdout lines as a queue, filled by a reader thread)."""
+    import queue
+    import threading
+
+    proc = subprocess.Popen([sys.executable, "-m", "fmri_tpu_torch.eval.serve", *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=cwd)
+    lines = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line.rstrip("\n"))
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    return proc, lines
+
+
+def _wait_serving(name, lines, timeout=240.0):
+    """The server's lines up to its ``serving ...`` line."""
+    import queue
+
+    seen, deadline = [], time.monotonic() + timeout
+    while True:
+        try:
+            line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+        except queue.Empty:
+            fail(f"{name} did not start serving within {timeout} s: {seen}")
+        if line is None:
+            fail(f"{name} exited before serving: {seen}")
+        seen.append(line)
+        if line.startswith("serving "):
+            return seen
+
+
+def _socket_burst(path, clients, per_client, row):
+    """``clients`` connections at once, each sending ``per_client`` one-row
+    requests in turn over the raw NDJSON protocol; returns every reply."""
+    import socket
+    import threading
+
+    replies, lock = [], threading.Lock()
+
+    def client(k):
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as c:
+            c.connect(path)
+            r, w = c.makefile("rb"), c.makefile("wb")
+            for i in range(per_client):
+                w.write((json.dumps({"id": 100 * k + i, "fmri": row}) + "\n").encode())
+                w.flush()
+                resp = json.loads(r.readline())
+                with lock:
+                    replies.append(resp)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    return replies
+
+
+def _percentiles(ms):
+    import numpy as np
+
+    return {f"p{q}": float(np.percentile(ms, q)) for q in (50, 95, 99)}
+
+
+def serve_phase(dev, dirs, work, preset="res64", cli_args=()):
+    """Phase 12: serving at ``preset`` from phase 11's checkpoint dirs
+    (``dirs``: ``vgan_stage1``, ``vgan_stage2``, ``vgan_stage3``,
+    ``wae_stage1``), the CLI's sockets in ``work``. (a) the CUDA graphs of a stage-III server, float and
+    uint8 output, against the same server run eagerly, and timed beside it;
+    (b) image serving of stage-I VAE/GAN and WAE; (c) ``reload``; (d) the
+    in-process ``BatchingServer``; (e) the CLI as users start it, through
+    the client, and a burst past ``--max-queue``. ``cli_args`` go to the
+    CLI (none on the card). No train kernel may launch. Returns (launches,
+    numbers)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from fmri_tpu_torch.configs import get_config
+    from fmri_tpu_torch.data.synthetic import synthetic_pairs
+    from fmri_tpu_torch.data.transforms import denormalize, eval_preprocess
+    from fmri_tpu_torch.eval.client import ServeClient, ServeError
+    from fmri_tpu_torch.eval.serve import (
+        BatchingServer, ServingModel, batch_buckets, deterministic_cudnn,
+    )
+
+    cfg = get_config(preset)
+    mean, std = cfg.data.mean, cfg.data.std
+    pairs = synthetic_pairs(SERVE_REQUESTS, cfg.data.image_size, cfg.model.num_voxels,
+                            seed=1)
+    fmri, images = pairs["fmri"], pairs["image"]
+    graphs_per_model = 2 * len(batch_buckets(SERVE_MAX_BATCH)) if dev.type == "cuda" else 0
+    numbers = {}
+    set_launches(0)
+
+    def load(path, family, stage, **kw):
+        return ServingModel.from_checkpoint(dirs[path], family, stage, preset,
+                                            max_batch=SERVE_MAX_BATCH, device=dev, **kw)
+
+    def gap(a, b):
+        return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+
+    def eager(m):
+        """``m`` running its programs eagerly, with the cuDNN algorithms its
+        graphs would capture."""
+        def call(kind, b):
+            with deterministic_cudnn():
+                return m._program(kind, b)
+
+        m._call = call
+        return m
+
+    # (a) one graph per (bucket, reconstruct | generate), against the same
+    # server with eager programs and timed beside it, and beside eager
+    # programs with cuDNN's default algorithms: 50 warm calls per bucket,
+    # each ending in the host pull
+    stage3 = {}
+    per_bucket = {}
+    for output, bound in (("float", 1e-6), ("uint8", 1)):
+        served = load("vgan_stage3", "vgan", 3, output=output)
+        eager_served = eager(load("vgan_stage3", "vgan", 3, output=output))
+        default = load("vgan_stage3", "vgan", 3, output=output)
+        default._call = default._program
+        t0 = time.perf_counter()
+        served.warmup()
+        warm_s = time.perf_counter() - t0
+        check(served.graphs == graphs_per_model,
+              f"[serve] {output}: {served.graphs} graphs, want {graphs_per_model}")
+        worst = 0.0
+        for b in served.buckets:
+            x = fmri[:b]
+            worst = max(worst, gap(served.reconstruct(x), eager_served.reconstruct(x)))
+            worst = max(worst, gap(served.generate(b), eager_served.generate(b)))
+            times = {}
+            for name, m in (("graph", served), ("eager", eager_served),
+                            ("eager_default", default)):
+                m.reconstruct(x)
+                t0 = time.perf_counter()
+                for _ in range(SERVE_TIMED_CALLS):
+                    m.reconstruct(x)
+                times[name] = 1e3 * (time.perf_counter() - t0) / SERVE_TIMED_CALLS
+            per_bucket.setdefault(output, {})[b] = times
+        check(worst <= bound, f"[serve] {output}: graph vs eager {worst} > {bound}")
+        check(served.graphs == graphs_per_model, f"[serve] {output}: captured again")
+        # the same 64 rows twice: the graphs give the same bits, cuDNN's
+        # default algorithms need not (printed, not checked)
+        x = fmri[:SERVE_MAX_BATCH]
+        repeat = {"graph": gap(served.reconstruct(x), served.reconstruct(x)),
+                  "eager_default": gap(default.reconstruct(x), default.reconstruct(x))}
+        check(repeat["graph"] == 0, f"[serve] {output}: a graph replay changed its bits")
+        numbers[f"repeat_gap_{output}"] = repeat
+        for size in SERVE_SIZES:
+            x = fmri[:size]
+            out = served.reconstruct(x)
+            check(out.shape == (size, cfg.data.image_size, cfg.data.image_size, 3)
+                  and out.dtype.name == ("uint8" if output == "uint8" else "float32"),
+                  f"[serve] request of {size}: {out.shape} {out.dtype}")
+            alone = max(gap(out[i], served.reconstruct(x[i])) for i in range(size))
+            check(alone <= (1e-5 if output == "float" else 1),
+                  f"[serve] {output}: a row alone vs inside {size} rows: {alone}")
+        stage3[output] = served
+        print(f"[serve] vgan stage 3, {output}: warmup {served.graphs} graphs in "
+              f"{warm_s:.2f} s; graph vs eager per bucket, reconstruct and generate: "
+              f"largest gap {worst:.3g} (bound {bound}); the same 64 rows twice: graph "
+              f"{repeat['graph']:.3g}, eager with cuDNN's defaults "
+              f"{repeat['eager_default']:.3g}; requests of {list(SERVE_SIZES)} "
+              f"rows alone vs batched ok; ms per call (graph, eager; eager with "
+              f"cuDNN's default algorithms): "
+              + ", ".join(f"{b}: {t['graph']:.3f} / {t['eager']:.3f}; "
+                          f"{t['eager_default']:.3f}"
+                          for b, t in per_bucket[output].items()), flush=True)
+        numbers[f"warmup_s_{output}"] = warm_s
+    numbers["ms_per_call"] = per_bucket
+
+    fresh = load("vgan_stage3", "vgan", 3)
+    out = fresh.generate(4)
+    g = torch.Generator(device=dev).manual_seed(0x5EED)
+    z = torch.randn((4, cfg.model.latent_dim), generator=g, device=dev)
+    with deterministic_cudnn():
+        want = denormalize(fresh.model.generate(z), mean, std).clamp(0, 1).cpu().numpy()
+    err = gap(out, want)
+    check(err <= 1e-6, f"[serve] generate(4) vs the decoder on the same draws: {err}")
+
+    # (b) image -> image: stage-I VAE/GAN and WAE
+    for path, family in (("vgan_stage1", "vgan"), ("wae_stage1", "wae")):
+        m = load(path, family, 1)
+        m.warmup()
+        for n in (1, 64):
+            x = images[:n]
+            xt = torch.from_numpy(x).to(dev)
+            want = denormalize(m.model.reconstruct(eval_preprocess(xt, mean, std)),
+                               mean, std).clamp(0, 1).cpu().numpy()
+            err = gap(m.reconstruct(x), want)
+            check(err <= 1e-5, f"[serve] {path}: {n} images vs eager: {err}")
+        print(f"[serve] {path} ({family} stage 1, image -> image): requests of 1 and 64 "
+              f"images equal the eager reconstruct, preprocess and clip (1e-5)", flush=True)
+
+    # (c) reload: a stage-II server takes stage III's weights in place
+    x = fmri[:130]
+    m = load("vgan_stage2", "vgan", 2)
+    m.warmup()
+    before = m.reconstruct(x)
+    t0 = time.perf_counter()
+    info = m.reload(dirs["vgan_stage3"])
+    reload_s = time.perf_counter() - t0
+    after = m.reconstruct(x)
+    check(m.graphs == graphs_per_model, f"[serve] reload re-captured: {m.graphs} graphs")
+    check(np.array_equal(after, stage3["float"].reconstruct(x)),
+          "[serve] after reload the outputs differ from a fresh stage-III server")
+    check(gap(after, before) > 0, "[serve] reload did not move the outputs")
+    try:
+        m.reload(dirs["vgan_stage1"])
+        fail("[serve] reload of a stage-I dir into a stage-II server was accepted")
+    except ValueError as e:
+        refused = str(e)
+    check(np.array_equal(m.reconstruct(x), after), "[serve] a refused reload moved outputs")
+    numbers["reload_s"] = reload_s
+    print(f"[serve] reload {info} in {reload_s:.3f} s: outputs equal a fresh stage-III "
+          f"server bitwise, {m.graphs} graphs (none captured again); stage-I dir refused: "
+          f"{refused[:100]}...", flush=True)
+
+    # (d) the in-process BatchingServer: one-row requests, 32 threads
+    u8 = stage3["uint8"]
+    want = u8.reconstruct(fmri)
+    batcher = BatchingServer(u8, max_wait_ms=5.0)
+    got = [None] * SERVE_REQUESTS
+
+    def client(k):
+        for i in range(k, SERVE_REQUESTS, SERVE_THREADS):
+            got[i] = batcher.submit(fmri[i]).result(timeout=60)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    wall = time.perf_counter() - t0
+    st = batcher.stats()
+    batcher.close()
+    check(all(r is not None for r in got), "[serve] BatchingServer: a request unanswered")
+    err = gap(np.stack(got), want)
+    check(err <= 1 and st["requests"] == SERVE_REQUESTS and st["shed"] == 0,
+          f"[serve] BatchingServer: {err} LSB from reconstruct; stats {st}")
+    numbers["in_process"] = {"requests_per_s": SERVE_REQUESTS / wall,
+                             "batches": st["batches"], "occupancy": st["occupancy"],
+                             **{k: st["latency_ms"][k] for k in ("p50", "p95", "p99")}}
+    print(f"[serve] BatchingServer, {SERVE_REQUESTS} one-row requests from {SERVE_THREADS} "
+          f"threads, max_wait_ms 5: {SERVE_REQUESTS / wall:.1f} requests/s, "
+          f"{st['batches']} batches, occupancy {st['occupancy']:.3f}, latency ms "
+          f"{json.dumps(st['latency_ms'])}; within {err:.0f} LSB of reconstruct", flush=True)
+
+    # (e) the CLI as users start it, two servers at once: the second with a
+    # queue of 6 for the burst
+    root = os.path.dirname(os.path.abspath(__file__))
+    sock_dir = (work if len(os.path.join(work, "s0.sock")) <= 100  # a socket path's limit
+                else tempfile.mkdtemp(prefix="fmri-serve-"))
+    paths = [os.path.join(sock_dir, f"s{i}.sock") for i in (0, 1)]
+    base = ["--family", "vgan", "--stage", "3", "--preset", preset,
+            "--ckpt", dirs["vgan_stage3"], *cli_args]
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        for path, extra in zip(paths, ([], ["--max-queue", "6"])):
+            procs.append(_spawn_server(base + ["--unix-socket", path] + extra, root))
+        for i, (_, lines) in enumerate(procs):
+            seen = _wait_serving(f"serve CLI {i}", lines)
+            print(f"[serve] CLI {i}: " + " | ".join(seen), flush=True)
+        start_s = time.perf_counter() - t0
+        with ServeClient(unix_path=paths[0], pool=SOCKET_POOL) as c:
+            check(c.ping(), "[serve] CLI ping")
+            lat, rpc = [], c._rpc
+
+            def timed(i, obj):
+                t = time.perf_counter()
+                out = rpc(i, obj)
+                lat.append(1e3 * (time.perf_counter() - t))
+                return out
+
+            c._rpc = timed
+            t0 = time.perf_counter()
+            imgs = c.reconstruct(fmri[:SOCKET_ROWS])
+            wall = time.perf_counter() - t0
+            c._rpc = rpc
+            err = gap(imgs, np.stack(got[:SOCKET_ROWS]))
+            check(imgs.shape == want[:SOCKET_ROWS].shape and err <= 1,
+                  f"[serve] CLI images {imgs.shape}, {err} LSB from in-process")
+            check(c.generate(4).shape == (4, *want.shape[1:]), "[serve] CLI generate(4)")
+            try:
+                c.generate(8 * SERVE_MAX_BATCH + 1)
+                fail("[serve] CLI accepted generate past its cap")
+            except ServeError as e:
+                check("cap" in str(e), f"[serve] CLI generate cap: {e}")
+            info = c.reload(dirs["vgan_stage2"])
+            check(info["reloaded"] == dirs["vgan_stage2"], f"[serve] CLI reload {info}")
+            cli_stats = c.stats()
+        numbers["socket"] = {"requests_per_s": SOCKET_ROWS / wall, **_percentiles(lat),
+                             "server_latency_ms": cli_stats["latency_ms"],
+                             "start_s": start_s}
+        print(f"[serve] CLI through ServeClient (pool {SOCKET_POOL}): {SOCKET_ROWS} rows "
+              f"in {wall:.3f} s, {SOCKET_ROWS / wall:.1f} requests/s, round trip ms "
+              f"{json.dumps(_percentiles(lat))}; within {err:.0f} LSB of in-process; "
+              f"generate cap refused; reload {info}; stats {json.dumps(cli_stats)}",
+              flush=True)
+
+        replies = _socket_burst(paths[1], 8, 4, fmri[0].tolist())
+        shape = [cfg.data.image_size, cfg.data.image_size, 3]
+        shed = sum(1 for r in replies if r.get("shed") is True)
+        ok = sum(1 for r in replies if r.get("shape") == shape and "data" in r)
+        with ServeClient(unix_path=paths[1], pool=1) as c:
+            burst = c.stats()
+        check(len(replies) == 32 and ok + shed == 32,
+              f"[serve] burst: {len(replies)} replies, {ok} images, {shed} shed")
+        check(burst["shed"] == shed and burst["queue_depth"] <= burst["max_queue"] == 6,
+              f"[serve] burst stats {burst} vs {shed} shed")
+        numbers["burst"] = {"images": ok, "shed": shed}
+        print(f"[serve] burst of 8 clients x 4 requests at --max-queue 6: {ok} images, "
+              f"{shed} shed (timing-dependent, not checked)", flush=True)
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+        codes = []
+        for proc, _ in procs:
+            try:
+                codes.append(proc.wait(timeout=60))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                codes.append(proc.wait())
+        if sock_dir != work:
+            shutil.rmtree(sock_dir, ignore_errors=True)
+    check(codes == [0, 0], f"[serve] CLI exit codes after SIGINT: {codes}")
+
+    launches = set_launches(0)
+    check(not any(launches.values()), f"[serve] train or SSIM kernels launched: {launches}")
+    print(f"[serve] kernel launches over the phase: {launches}", flush=True)
     return launches, numbers
 
 
@@ -1889,14 +2287,20 @@ def main() -> None:
     seconds.update(alt_seconds)
     seconds.update(wae_seconds)
 
-    # 11. the training driver: whole epochs through the Trainer, the CLIs
-    trainer_launches, trainer_numbers = trainer_phase(dev, cfg, "res64", seconds)
+    # 11. the training driver: whole epochs through the Trainer, the CLIs;
+    # 12. serving from its checkpoint dirs, before they are deleted
+    served = {}
+    trainer_launches, trainer_numbers = trainer_phase(
+        dev, cfg, "res64", seconds,
+        then=lambda dirs, work: served.update(zip(("launches", "numbers"),
+                                                  serve_phase(dev, dirs, work))))
     for entry in train_kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in launches_by_path.items()}
         entry["launches_by_path"].update(
             {path: counts[entry["name"]] for path, counts in trainer_launches.items()
              if path.startswith("trainer_")})
+        entry["launches_by_path"]["serve"] = served["launches"][entry["name"]]
 
     # 8. kernels line; ssim at every shape the inference run gave it, each
     #    held against the plain version, times summed over the run's launches
@@ -1943,7 +2347,8 @@ def main() -> None:
                              "trainer_validation": trainer_launches["trainer_stage1"]["ssim"],
                              "train_cli": trainer_launches["train_cli"]["ssim"],
                              "inference_trained_run":
-                                 trainer_launches["inference_trained_run"]["ssim"]},
+                                 trainer_launches["inference_trained_run"]["ssim"],
+                             "serve": served["launches"]["ssim"]},
         "max_abs_err": max_err,
         "ms": ssim_tot["ms"],
         "device_ms": ssim_tot["device_ms"],
@@ -1962,6 +2367,7 @@ def main() -> None:
     print(f"[alt] cuDNN dgrad device ms per stage-I step: {json.dumps(dgrad)}", flush=True)
     print(f"[trainer] per path (host clock; epoch 1 profiled): "
           f"{json.dumps(trainer_numbers)}", flush=True)
+    print(f"[serve] numbers (host clock): {json.dumps(served['numbers'])}", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

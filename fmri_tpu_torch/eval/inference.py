@@ -76,7 +76,9 @@ def _holdout(arrays, k):
 
 def image_only(args) -> bool:
     """Image -> image: stage 1 of either family, and WAE/Dual-GAN."""
-    return args.family == "wae-vgan" or args.stage == 1
+    from fmri_tpu_torch.eval.steps import eval_module
+
+    return eval_module(args.family, args.stage)[1] == "image"
 
 
 def load_valid(args, cfg):
@@ -107,18 +109,19 @@ def load_valid(args, cfg):
     return _holdout({k: data[k] for k in keys}, max(n // 10, bs))
 
 
-def load_weights(args):
+def load_weights(ckpt: str, epoch=None):
     """(the eval module's ``encoder.*``/``decoder.*`` state dict, summary
     entries naming the checkpoint): from a port checkpoint dir
-    (``checkpoints/store.py::load_eval_state``) or a ``.pth``."""
+    (``checkpoints/store.py::load_eval_state``; ``epoch``, default the
+    latest) or a ``.pth``."""
     from fmri_tpu_torch.checkpoints.convert import load_pth
     from fmri_tpu_torch.checkpoints.store import load_eval_state
 
-    if not os.path.isdir(args.ckpt):
-        return load_pth(args.ckpt), {"checkpoint": args.ckpt}
-    groups, meta = load_eval_state(args.ckpt, epoch=args.load_epoch)
+    if not os.path.isdir(ckpt):
+        return load_pth(ckpt), {"checkpoint": ckpt}
+    groups, meta = load_eval_state(ckpt, epoch=epoch)
     sd = {f"{g}.{k}": v for g in ("encoder", "decoder") for k, v in groups[g].items()}
-    return sd, {"checkpoint": args.ckpt, "checkpoint_epoch": meta["epoch"]}
+    return sd, {"checkpoint": ckpt, "checkpoint_epoch": meta["epoch"]}
 
 
 def main(argv=None) -> int:
@@ -130,9 +133,7 @@ def main(argv=None) -> int:
         objective_scores, quality_metrics, reconstruct_dataset,
         save_objective_bar_chart, save_objective_csv, save_reconstructions,
     )
-    from fmri_tpu_torch.eval.steps import (
-        VaeGanCognitive, VaeGanVisual, WaeCognitive, WaeVisual,
-    )
+    from fmri_tpu_torch.eval.steps import eval_module
 
     device = resolve_device(args.device)
     cfg = get_config(args.preset)
@@ -143,12 +144,8 @@ def main(argv=None) -> int:
         cfg = override_num_voxels(cfg, args.num_voxels)
 
     valid = load_valid(args, cfg)
-    if args.family == "wae":
-        model_cls = WaeVisual if args.stage == 1 else WaeCognitive
-    else:
-        model_cls = VaeGanVisual if image_only(args) else VaeGanCognitive
-    weights, source = load_weights(args)
-    model = model_cls(cfg.model)
+    weights, source = load_weights(args.ckpt, args.load_epoch)
+    model = eval_module(args.family, args.stage)[0](cfg.model)
     model.load_state_dict(weights, strict=True)
     model.to(device)
 

@@ -11,7 +11,8 @@ reconstruction and decoding from the prior.
   I and of stages II/III (``steps_wae.py:149-157, 301-309``), which always
   decode mu: they take no sample.
 
-``generate`` is ``generate_step`` (``steps_vgan.py:54-63``). Noise comes
+``generate`` is ``generate_step`` (``steps_vgan.py:54-63``).
+:func:`eval_module` picks the module of a family and stage. Noise comes
 from the caller (its own ``torch.Generator``), so tests can inject the same
 draws into both packages.
 """
@@ -87,3 +88,20 @@ class WaeVisual(VaeGanVisual):
     inference part of the reference's ``WaeGan`` (``vae_gan.py:435-496``)."""
 
     samples = False
+
+
+def eval_module(family: str, stage: int) -> "tuple[type[_EvalVaeGan], str]":
+    """(eval module class, data kind) of a family and stage, mapped as the
+    JAX package's ``make_step_fns`` maps them
+    (``fmri_tpu/eval/inference.py:73-89``): ``wae-vgan`` at any stage and
+    stage I of ``vgan`` and ``wae`` take images (``"image"``), stages II
+    and III fMRI (``"pair"``)."""
+    if family == "wae-vgan" or (family == "vgan" and stage == 1):
+        cls = VaeGanVisual
+    elif family == "vgan":
+        cls = VaeGanCognitive
+    elif family == "wae":
+        cls = WaeVisual if stage == 1 else WaeCognitive
+    else:
+        raise ValueError(f"unknown family {family!r}; one of vgan, wae, wae-vgan")
+    return cls, "image" if issubclass(cls, VaeGanVisual) else "pair"

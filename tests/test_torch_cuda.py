@@ -1,7 +1,9 @@
 """The port on the card (``cuda`` marker; each test skips without one): the
 SSIM, BatchNorm-backward and weight-grad kernels against their plain
 versions, the wrappers' checks, the inference, serving and stage-I train
-paths on the card against the same paths on the CPU, the stage-II/III and
+paths on the card against the same paths on the CPU, serving's CUDA graphs
+against its eager programs (with ``reload`` under them, and a failed
+capture raising), the stage-II/III and
 WAE train steps with the kernels against the library backward, with their
 launches per step, and ``alt_backward``'s rewrites against cuDNN's grads.
 
@@ -695,3 +697,92 @@ def test_device_iterator_delivers_pinned_batches_in_order(cuda_device):
         assert g["fmri"].device.type == "cuda"
         np.testing.assert_array_equal(g["fmri"].cpu().numpy(), w["fmri"])
         np.testing.assert_array_equal(g["image"].cpu().numpy(), w["image"])
+
+
+# ------------------------------------------------------ serving's CUDA graphs
+
+
+@pytest.mark.parametrize("output", ["float", "uint8"])
+def test_serving_graph_per_bucket_matches_eager(cuda_device, tiny, output):
+    """warmup captures one graph per (bucket, reconstruct | generate); each
+    replay equals the same program run eagerly on the same static buffers
+    with cuDNN's deterministic algorithms, as the graphs were captured:
+    float within 1e-6, uint8 within 1 LSB (the same kernels; the bound
+    leaves room for another algorithm only); a replay gives the same bits
+    twice."""
+    from fmri_tpu_torch.eval.serve import deterministic_cudnn
+
+    cfg, groups, data = tiny
+    served = ServingModel(cfg, port_model(groups, cfg), max_batch=8, output=output,
+                          device=cuda_device)
+    served.warmup()
+    assert served.graphs == 2 * len(served.buckets) == 8
+    for b in served.buckets:
+        x = data["fmri"][:b]
+        got = served.reconstruct(x)
+        assert np.array_equal(served.reconstruct(x), got)
+        gen = served.generate(b)
+        with deterministic_cudnn():
+            eager = served._program("reconstruct", b)[:b].cpu().numpy()
+            gen_eager = served._program("generate", b)[:b].cpu().numpy()
+        for a, e in ((got, eager), (gen, gen_eager)):
+            gap = np.abs(a.astype(np.float64) - e.astype(np.float64)).max()
+            assert gap <= (1e-6 if output == "float" else 1), (b, gap)
+    assert served.graphs == 8                       # nothing captured again
+
+
+def test_serving_reload_under_graphs(cuda_device, tmp_path):
+    """A reload copies into the captured tensors: the outputs move to a
+    fresh server's, bit for bit, and nothing is captured again."""
+    from fmri_tpu_torch.checkpoints import store
+    from fmri_tpu_torch.train.stages import BUILDERS
+
+    cfg = get_config("tiny")
+    d1, d2 = str(tmp_path / "s1"), str(tmp_path / "s2")
+    store.save_checkpoint(d1, 0, BUILDERS["vgan_stage1"](cfg, steps_per_epoch=1,
+                                                         device="cpu")[0])
+    state = BUILDERS["vgan_stage2"](cfg, d1, steps_per_epoch=1, device="cpu")[0]
+    store.save_checkpoint(d2, 0, state)
+    with torch.no_grad():
+        for p in state.nets.module("decoder").parameters():
+            p.add_(0.1)
+    store.save_checkpoint(d2, 1, state)
+    served = ServingModel.from_checkpoint(d2, "vgan", 2, "tiny", epoch=0, max_batch=4,
+                                          device=cuda_device)
+    served.warmup()
+    x = np.random.default_rng(0).normal(size=(3, cfg.model.num_voxels)).astype(np.float32)
+    before = served.reconstruct(x)
+    assert served.reload(d2, epoch=1)["epoch"] == 1
+    after = served.reconstruct(x)
+    assert served.graphs == 6 and np.abs(after - before).max() > 1e-3
+    fresh = ServingModel.from_checkpoint(d2, "vgan", 2, "tiny", epoch=1, max_batch=4,
+                                         device=cuda_device)
+    np.testing.assert_array_equal(after, fresh.reconstruct(x))
+    with pytest.raises(ValueError, match="reload refused"):
+        served.reload(d1)
+    np.testing.assert_array_equal(served.reconstruct(x), after)
+
+
+def test_serving_capture_failure_raises(cuda_device, tiny):
+    """A program that cannot be captured (its forward syncs with the host)
+    raises; it never falls back to eager. The card serves on afterwards."""
+    from fmri_tpu_torch.eval.steps import VaeGanCognitive
+
+    class Syncing(VaeGanCognitive):
+        @torch.no_grad()
+        def reconstruct(self, x, eps=None):
+            out = super().reconstruct(x, eps)
+            return out * (1.0 + 0.0 * float(out.sum()))   # a host sync
+
+    cfg, groups, data = tiny
+    model = Syncing(cfg.model)
+    model.load_state_dict(port_model(groups, cfg).state_dict(), strict=True)
+    served = ServingModel(cfg, model, max_batch=4, device=cuda_device)
+    with pytest.raises(RuntimeError, match="as a CUDA graph failed"):
+        served.reconstruct(data["fmri"][:3])
+    assert served.graphs == 0
+    fine = ServingModel(cfg, port_model(groups, cfg), max_batch=4, device=cuda_device)
+    cpu = ServingModel(cfg, port_model(groups, cfg), max_batch=4, device="cpu")
+    np.testing.assert_allclose(fine.reconstruct(data["fmri"][:3]),
+                               cpu.reconstruct(data["fmri"][:3]), atol=1e-4)
+    assert fine.graphs == 1

@@ -146,3 +146,66 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# the converter kind of each served (family, stage): the groups random_groups
+# draws and from_jax_groups reads
+SERVE_KINDS = {("vgan", 1): "vae-gan", ("vgan", 2): "vae-gan-cognitive-eval",
+               ("vgan", 3): "vae-gan-cognitive-eval", ("wae", 1): "wae-gan",
+               ("wae", 2): "wae-gan-cognitive", ("wae", 3): "wae-gan-cognitive",
+               ("wae-vgan", 1): "wae-vgan", ("wae-vgan", 3): "wae-vgan"}
+
+
+def serving_pair(family, stage, seed=0, max_batch=8, **kw):
+    """(the port's ServingModel on the CPU, the JAX ServingModel) of one
+    (family, stage), both holding the same seeded random groups; the JAX
+    one with a single bucket (``min_bucket == max_batch``: one compiled
+    program)."""
+    from fmri_tpu.configs import get_config as jax_config
+    from fmri_tpu.eval.serve import ServingModel as JaxServingModel
+    from fmri_tpu_torch.checkpoints.convert import (
+        UNUSED_PREFIXES, from_jax_groups, random_groups,
+    )
+    from fmri_tpu_torch.configs import get_config
+    from fmri_tpu_torch.eval.serve import ServingModel
+    from fmri_tpu_torch.eval.steps import eval_module
+
+    cfg = get_config("tiny")
+    kind = SERVE_KINDS[(family, stage)]
+    groups = random_groups(cfg, seed=seed, kind=kind)
+    sd = {k: v for k, v in from_jax_groups(groups, cfg, kind).items()
+          if not k.startswith(UNUSED_PREFIXES)}
+    model = eval_module(family, stage)[0](cfg.model)
+    model.load_state_dict(sd, strict=True)
+    port = ServingModel(cfg, model, family=family, stage=stage, max_batch=max_batch,
+                        device="cpu", **kw)
+    ref = JaxServingModel(family, stage, jax_config("tiny"), jax_state(groups),
+                          max_batch=max_batch, min_bucket=max_batch, **kw)
+    return port, ref, groups
+
+
+def serve_requests(model, n, seed):
+    """``n`` seeded requests for a ServingModel: images in [0, 1] for the
+    image kinds, standard normal fMRI for the pair kinds."""
+    rng = np.random.default_rng(seed)
+    shape = (n, *model.sample_shape())
+    if model.data_kind == "image":
+        return rng.uniform(size=shape).astype(np.float32)
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def jax_decode(groups, z):
+    """The JAX package's ``tiny`` decoder on latents ``z`` (numpy),
+    denormalized and clipped to [0, 1] as the served images are."""
+    import jax.numpy as jnp
+
+    from fmri_tpu.configs import get_config as jax_config
+    from fmri_tpu.data.transforms import denormalize
+    from fmri_tpu.models.nets import Decoder
+
+    cfg = jax_config("tiny")
+    dec = groups["decoder"]
+    out = Decoder(cfg.model).apply(
+        {"params": dec["params"], "batch_stats": dec["batch_stats"]},
+        jnp.asarray(z), train=False)
+    return np.clip(np.asarray(denormalize(out, cfg.data.mean, cfg.data.std)), 0.0, 1.0)
