@@ -68,8 +68,9 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      vsplit forbids it; ``pallas_backward`` on): ``tap_matmul`` exactly 8
      times, held against the unfused step on the card;
   8. kernels: SSIM at every shape phase 4 recorded, against its plain
-     version (the mean within 1e-5), per image against the plain version
-     in float64 (``SSIM_IMAGE_TOL``), and the same bits twice; then one JSON line
+     version evaluated in float64 on the same inputs (the mean within 1e-5,
+     per image within ``SSIM_IMAGE_TOL``; ``hold_ssim_call`` says why not
+     the fp32 plain version), and the same bits twice; then one JSON line
      per the port's kernels with launches on the main path, error against
      the plain version, warm times summed over the main path's calls, and
      the bound computed from this run's shapes: FLOP at the rate of the
@@ -109,7 +110,8 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      and 2 SSIM (the validation pass and the train-batch metrics), the
      checkpoint restored bitwise, the same step over epoch 0's batches
      staged beforehand, ``results.csv`` and the grids, checkpoint write
-     seconds (sync, async); then, with cuDNN's deterministic algorithms, a
+     seconds (sync, async); then, with the ``Trainer``'s own defaults
+     (it runs cuDNN's deterministic algorithms; the smoke sets no flag), a
      recorded run (every kernel call against its plain version), its epoch
      0 against a hand loop of the same step over the same batches and
      draws, and the run resumed after epoch 0 against its epoch 1 (both
@@ -121,8 +123,11 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      dir (exactly 4 SSIM launches, each held against plain). Each path
      prints its seconds per step through the trainer beside the bare
      step's, epoch wall seconds, images per second and the profiled
-     epoch's device busy share. In the ``kernels`` line the ``trainer_*``
-     paths count one epoch's launches;
+     epoch's device busy share. Each of (a), (b) and (c) runs again with
+     cuDNN's default algorithms in each train step (``DefaultCudnn`` sets
+     the flag off by hand around the step) and prints the cost of
+     determinism per step (``[determinism]`` lines). In the ``kernels`` line
+     the ``trainer_*`` paths count one epoch's launches;
   12. serve: serving from phase 11's res64 checkpoint dirs, max_batch 64
      (``serve_phase``). (a) ``vgan_stage3`` with float and with uint8
      output: warmup captures 14 CUDA graphs (7 buckets x reconstruct and
@@ -149,7 +154,30 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      burst of 8 clients x 4 requests, each reply an image or ``"shed":
      true``, the server's shed count equal to the replies'; both stopped
      with SIGINT, exit code 0. No BN, dW or SSIM kernel may launch over the
-     phase (``serve: 0`` in each kernel's ``launches_by_path``).
+     phase (``serve: 0`` in each kernel's ``launches_by_path``);
+  13. data: the host data path (``data_phase``). (a) the port's native
+     loader (``fmri_tpu_torch/native/loader.cc``) builds with g++ (else the
+     run fails, printing ``why_unavailable()``); on a memory-mapped packed
+     pair dir of 20,000 res64 pairs (3,620 fp32 voxels and a 64x64x3 uint8
+     image each, 535 MB, written by ``write_packed`` and removed after),
+     ``gather``, ``gather_dequant`` and ``prefetch`` of 4,096 shuffled rows
+     bitwise numpy's; (b) ``Batches`` (shuffled, batch 64, 312 batches)
+     through the native gather bitwise numpy's gather, then seconds per epoch
+     of each, warm (numpy, native, native, numpy) and cold (``fsync`` and
+     ``POSIX_FADV_DONTNEED`` on each array file, mapped again), and the
+     thread count; (c) ``python -m fmri_tpu_torch.train.run --family vgan
+     --stage 1 --preset res64`` for one epoch on a 1,280-pair packed dir (18
+     steps): its ``Batches`` on the native gather, exactly 2 SSIM launches
+     (``data`` in each kernel's ``launches_by_path``), each held against
+     plain, BN and dW 0; (d) raw data (Pillow, scipy): 640 COCO-style
+     stimuli of 400-480 px (JPEG and PNG, every 7th greyscale, every 11th
+     RGBA) trained one epoch at res64 with ``--cache-dir``; the same run
+     again from the cache with the decoder raising; ``CSI1..CSI4`` ROI dirs
+     (100 records of 3,620 voxels each) through ``--dataset bold --stage 2
+     --prev-ckpt`` the stage-I run; the inference CLI on its 20% split
+     (exactly 4 SSIM launches, ``data_inference``, each held against
+     plain); ``--dataset mnist69`` from a ``scipy.io.savemat`` file. Each
+     run prints its seconds per step and wall seconds.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -361,24 +389,33 @@ class Recorder:
 
 def hold_ssim_call(a, b, rest):
     """One recorded SSIM call against its plain version: the mean within
-    ``TOL``, the same bits twice, and per image against the plain version
-    in float64 within ``SSIM_IMAGE_TOL``. Returns (|kernel - plain| of the
-    mean, per-image error of the kernel and of the plain version)."""
+    ``TOL`` of the plain version evaluated in float64 on the same inputs,
+    the same bits twice, and per image within ``SSIM_IMAGE_TOL`` of it.
+    The plain version in fp32 is no reference for the mean: in flat regions
+    the variances E[x^2] - mu^2 cancel down to C2 = 9e-4, where the
+    rounding of its 121-term 2-D window sums takes one sign over a whole
+    flat stimulus, so over phase 13's raw stimuli its mean lies further
+    than ``TOL`` from float64's while the kernel's separable FMA blur stays
+    well inside it. Returns (|kernel - float64| of the mean, per-image
+    error from float64 of the kernel and of the fp32 plain version); the
+    fp32 plain version's gaps are printed with a failure, and by phase 13
+    for each of its calls."""
     import torch
 
     from fmri_tpu_torch.ops.ssim import ssim, ssim_plain, ssim_plane_sums
 
-    err = abs(float(ssim(a, b, *rest)) - float(ssim_plain(a, b, *rest)))
-    check(err <= TOL, f"ssim {list(a.shape)}: |kernel - plain| = {err} > {TOL}")
-    check(torch.equal(ssim_plane_sums(a, b, *rest), ssim_plane_sums(a, b, *rest)),
-          f"ssim {list(a.shape)}: two runs differ")
-    # per image, both fp32 versions against float64: in flat regions the
-    # variances E[x^2] - mu^2 cancel down to C2 = 9e-4, where fp32
-    # rounding moves a pixel's score by about 1e-4
     exact = ssim_plain(a.double(), b.double(), *rest, size_average=False)
+    kernel, plain = float(ssim(a, b, *rest)), float(ssim_plain(a, b, *rest))
+    err = abs(kernel - float(exact.mean()))
     img_err = float((ssim(a, b, *rest, size_average=False) - exact).abs().max())
     img_err_plain = float((ssim_plain(a, b, *rest, size_average=False)
                            - exact).abs().max())
+    check(err <= TOL, f"ssim {list(a.shape)}: |kernel - plain in float64| = {err} > {TOL} "
+                      f"(fp32 plain: {abs(plain - float(exact.mean()))} from float64, "
+                      f"{abs(kernel - plain)} from the kernel; per image at most: kernel "
+                      f"{img_err}, fp32 plain {img_err_plain})")
+    check(torch.equal(ssim_plane_sums(a, b, *rest), ssim_plane_sums(a, b, *rest)),
+          f"ssim {list(a.shape)}: two runs differ")
     check(img_err <= SSIM_IMAGE_TOL,
           f"ssim {list(a.shape)}: per image {img_err} from float64 > {SSIM_IMAGE_TOL}")
     return err, img_err, img_err_plain
@@ -1265,8 +1302,8 @@ def wae_inference_phase(dev, cfg, batches, data):
     for (a, b, *rest), count in calls.values():
         err, img_err, _ = hold_ssim_call(a, b, rest)
         max_err = max(max_err, err)
-        print(f"[inference] WAE: ssim {list(a.shape)} x{count} |kernel - plain| "
-              f"{err:.3g}, per image from float64 {img_err:.3g}", flush=True)
+        print(f"[inference] WAE: ssim {list(a.shape)} x{count} |kernel - plain in float64| "
+              f"{err:.3g}, per image {img_err:.3g}", flush=True)
     size = cfg.model.image_size
     check(tuple(rw.shape) == (n, size, size, 3) and bool(torch.isfinite(rw).all()),
           f"WAE recons {tuple(rw.shape)}, finite {bool(torch.isfinite(rw).all())}")
@@ -1347,7 +1384,7 @@ def set_launches(value: int = 0) -> dict:
 
 
 def fit_path(path, cfg, built, data, run_dir, n_epochs, bare_s, *, record=True,
-             profile=True, checkpoints=True, snapshot_epoch0=False):
+             profile=True, checkpoints=True, snapshot_epoch0=False, note=""):
     """One trainer path: ``Trainer.fit`` of ``built`` (a builder's result)
     over ``data`` (train, valid) for ``n_epochs``, with ``profile`` the
     second epoch traced (``--profile``), with ``record`` every BN/dW/SSIM
@@ -1358,7 +1395,8 @@ def fit_path(path, cfg, built, data, run_dir, n_epochs, bare_s, *, record=True,
     seconds and images per second, and the profiled epoch's device busy
     share. Returns (final state, launches in the first epoch, {numbers},
     {"state", "row"} of epoch 0 where ``snapshot_epoch0``); without
-    ``checkpoints`` the run writes none."""
+    ``checkpoints`` the run writes none; ``note`` follows the path's name in
+    the printed line."""
     import copy
     import os
 
@@ -1409,7 +1447,7 @@ def fit_path(path, cfg, built, data, run_dir, n_epochs, bare_s, *, record=True,
     numbers = {"s_per_step": [s / n for s, n in clock.loops], "bare_s_per_step": bare_s,
                "epoch_wall_s": walls,
                "train_images_per_s": [n_img / s for s, _ in clock.loops]}
-    print(f"[{path}] {n_epochs} epochs of {TRAINER_STEPS} steps at batch "
+    print(f"[{path}]{note} {n_epochs} epochs of {TRAINER_STEPS} steps at batch "
           f"{cfg.train.batch_size}{' (recorded)' if record else ''}: launches per epoch "
           f"{per_epoch[0]} (want {want}); s per step through the Trainer "
           f"{['%.4f' % s for s in numbers['s_per_step']]}"
@@ -1426,6 +1464,49 @@ def fit_path(path, cfg, built, data, run_dir, n_epochs, bare_s, *, record=True,
         print(f"[{path}] profiled epoch (torch.profiler -> utils/profile_report.py): "
               + profile_report.format_report(prof, top=6).replace("\n", " | "), flush=True)
     return state, per_epoch[0], numbers, snapshot
+
+
+class DefaultCudnn:
+    """Wraps a trainer's steps so that each train step runs with cuDNN's
+    default algorithms: the flag is set off by hand for the step and back on
+    after it (the ``Trainer`` runs with cuDNN's deterministic algorithms and
+    has no option to turn them off). Only the comparison run of
+    ``determinism_cost`` uses it."""
+
+    def __init__(self, steps):
+        from fmri_tpu_torch.train.steps_vgan import StepFns
+
+        self.inner = steps
+        self.steps = StepFns(self.train_step, steps.eval_step, steps.generate_step)
+
+    def train_step(self, *args):
+        import torch
+
+        torch.backends.cudnn.deterministic = False
+        try:
+            return self.inner.train_step(*args)
+        finally:
+            torch.backends.cudnn.deterministic = True
+
+
+def determinism_cost(path, cfg, built, data, run_dir, numbers) -> None:
+    """The cost of the trainer's deterministic cuDNN per step: ``built``
+    (a fresh builder result of ``path``) through the same ``Trainer.fit``
+    as the timed run, with cuDNN's default algorithms in each train step.
+    Prints the clean epoch's seconds per step of both (epoch 2; the timed
+    run profiled epoch 1) and adds them to ``numbers``."""
+    state, steps, kw = built
+    _, _, plain, _ = fit_path(path, cfg, (state, DefaultCudnn(steps).steps, kw), data,
+                              run_dir, TRAINER_EPOCHS, numbers["bare_s_per_step"],
+                              record=False, profile=False, checkpoints=False,
+                              note=" (cuDNN's default algorithms in each step)")
+    det, dflt = numbers["s_per_step"][-1], plain["s_per_step"][-1]
+    numbers["defaults_s_per_step"] = plain["s_per_step"]
+    numbers["determinism_cost_s_per_step"] = det - dflt
+    print(f"[determinism] {path}: s per step through the Trainer, clean epoch: "
+          f"{det:.4f} with cuDNN's deterministic algorithms (the Trainer's), {dflt:.4f} "
+          f"with cuDNN's defaults: {1e3 * (det - dflt):+.2f} ms "
+          f"({100 * (det - dflt) / dflt:+.1f}%)", flush=True)
 
 
 def bare_loop(steps, state, batches, n_steps=TRAINER_STEPS):
@@ -1509,6 +1590,7 @@ def trainer_phase(dev, cfg, preset, bare_seconds, then=None):
     from fmri_tpu_torch.data.pipeline import Batches, to_device
     from fmri_tpu_torch.data.synthetic import synthetic_images, synthetic_pairs
     from fmri_tpu_torch.data.transforms import train_augment
+    from fmri_tpu_torch.device import deterministic_cudnn
     from fmri_tpu_torch.eval import inference
     from fmri_tpu_torch.ops import ssim as ssim_ops
     from fmri_tpu_torch.train import run
@@ -1539,6 +1621,8 @@ def trainer_phase(dev, cfg, preset, bare_seconds, then=None):
         final, launches["trainer_stage1"], numbers["trainer_stage1"], snap = fit_path(
             "trainer_stage1", cfg, build(), images, run_a, TRAINER_EPOCHS,
             bare_seconds["stage1"], record=False, snapshot_epoch0=True)
+        determinism_cost("trainer_stage1", cfg, build(), images,
+                         os.path.join(work, "stage1_defaults"), numbers["trainer_stage1"])
         restored, meta = store.restore_checkpoint(os.path.join(run_a, "checkpoints"),
                                                   build()[0])
         sa, sb = restored.nets.state_dict(), final.nets.state_dict()
@@ -1573,33 +1657,33 @@ def trainer_phase(dev, cfg, preset, bare_seconds, then=None):
               f"device beforehand: {loop_s:.4f} s per step (the Trainer's clean epoch: "
               f"{numbers['trainer_stage1']['s_per_step'][-1]:.4f})", flush=True)
 
-        # exactness, with cuDNN's deterministic algorithms (its default dgrad
-        # may sum in any order, and from zero moments the equilibrium gate
-        # and RMSprop's first updates turn rounding into different runs):
-        # epoch 0 through the Trainer (every kernel call recorded) against a
-        # hand loop of the step over the same batches and draws, and the run
-        # resumed after epoch 0 against the uninterrupted epoch 1
-        torch.backends.cudnn.deterministic = True
-        try:
-            run_d = os.path.join(work, "stage1_deterministic")
-            final_d, _, _, snap_d = fit_path(
-                "trainer_stage1", cfg, build(), images, run_d, 2, bare_seconds["stage1"],
-                profile=False, snapshot_epoch0=True)
-            hand, steps, kw = build()
+        # exactness with the Trainer's defaults (cuDNN's deterministic
+        # algorithms, which it sets itself): epoch 0 through the Trainer (every
+        # kernel call recorded) against a hand loop of the step over the same
+        # batches and draws under the same algorithms, and the run resumed
+        # after epoch 0 against the uninterrupted epoch 1
+        check(not torch.backends.cudnn.deterministic,
+              "the smoke itself left cudnn.deterministic set")
+        run_d = os.path.join(work, "stage1_deterministic")
+        final_d, _, _, snap_d = fit_path(
+            "trainer_stage1", cfg, build(), images, run_d, 2, bare_seconds["stage1"],
+            profile=False, snapshot_epoch0=True)
+        hand, steps, kw = build()
+        with deterministic_cudnn():
             for batch, noise, gate in epoch0_batches(kw):
                 hand, _ = steps.train_step(hand, batch, noise, *gate)
-            state_gaps("trainer_stage1 epoch 0 vs a hand loop of the step", snap_d["state"],
-                       hand, start, STEP_TOL)
-            resumed, meta = store.restore_checkpoint(os.path.join(run_d, "checkpoints"),
-                                                     build()[0], epoch=0)
-            run_b = os.path.join(work, "stage1_resumed")
-            os.makedirs(run_b)
-            resumed = Trainer(cfg, build()[1], run_b, tensorboard=False, **kw).fit(
-                resumed, *images, start_epoch=meta["epoch"] + 1, n_epochs=2, grid_every=1)
-            state_gaps("trainer_stage1 resumed after epoch 0 vs the uninterrupted epoch 1",
-                       resumed, final_d, start, STEP_TOL)
-        finally:
-            torch.backends.cudnn.deterministic = False
+        state_gaps("trainer_stage1 epoch 0 vs a hand loop of the step", snap_d["state"],
+                   hand, start, STEP_TOL)
+        resumed, meta = store.restore_checkpoint(os.path.join(run_d, "checkpoints"),
+                                                 build()[0], epoch=0)
+        run_b = os.path.join(work, "stage1_resumed")
+        os.makedirs(run_b)
+        resumed = Trainer(cfg, build()[1], run_b, tensorboard=False, **kw).fit(
+            resumed, *images, start_epoch=meta["epoch"] + 1, n_epochs=2, grid_every=1)
+        state_gaps("trainer_stage1 resumed after epoch 0 vs the uninterrupted epoch 1",
+                   resumed, final_d, start, STEP_TOL)
+        check(not torch.backends.cudnn.deterministic,
+              "the Trainer did not restore the caller's cudnn.deterministic")
 
         with open(os.path.join(run_a, "results.csv")) as f:
             reader = csv.DictReader(f)
@@ -1626,14 +1710,17 @@ def trainer_phase(dev, cfg, preset, bare_seconds, then=None):
                   "trainer_stage3": ("encoder.", "teacher_net.encoder.")}
         for stage, path in ((2, "trainer_stage2"), (3, "trainer_stage3")):
             key = "stage1_ckpt" if stage == 2 else "stage2_ckpt"
-            built = BUILDERS[f"vgan_stage{stage}"](cfg, **{key: prev}, steps_per_epoch=spe,
-                                                   seed=t.seed, device=dev)
+            build_n = lambda: BUILDERS[f"vgan_stage{stage}"](  # noqa: E731
+                cfg, **{key: prev}, steps_per_epoch=spe, seed=t.seed, device=dev)
+            built = build_n()
             before = {k: v.clone() for k, v in built[0].nets.state_dict().items()}
             run_dir = os.path.join(work, path)
             state, launches[path], numbers[path], _ = fit_path(
                 path, cfg, built, pairs, run_dir, TRAINER_EPOCHS,
                 bare_seconds[f"stage{stage}"],
                 checkpoints=stage == 2)
+            determinism_cost(path, cfg, build_n(), pairs, run_dir + "_defaults",
+                             numbers[path])
             sd = state.nets.state_dict()
             moved = [k for k, v in sd.items() if k.startswith(frozen[path])
                      and "running" not in k and "num_batches" not in k
@@ -1645,11 +1732,13 @@ def trainer_phase(dev, cfg, preset, bare_seconds, then=None):
         stage3_state = state
 
         # (c) WAE stage I
+        build_w = lambda: BUILDERS["wae_stage1"](cfg, steps_per_epoch=spe,  # noqa: E731
+                                                 seed=t.seed, device=dev)
         state, launches["trainer_wae1"], numbers["trainer_wae1"], _ = fit_path(
-            "trainer_wae1", cfg, BUILDERS["wae_stage1"](cfg, steps_per_epoch=spe,
-                                                        seed=t.seed, device=dev),
-            images, os.path.join(work, "wae1"), TRAINER_EPOCHS, bare_seconds["wae_stage1"],
-            checkpoints=False)
+            "trainer_wae1", cfg, build_w(), images, os.path.join(work, "wae1"),
+            TRAINER_EPOCHS, bare_seconds["wae_stage1"], checkpoints=False)
+        determinism_cost("trainer_wae1", cfg, build_w(), images,
+                         os.path.join(work, "wae1_defaults"), numbers["trainer_wae1"])
         numbers["trainer_wae1"].update(checkpoint_seconds("trainer_wae1", state, work))
         wae1_state = state
 
@@ -2067,6 +2156,417 @@ def serve_phase(dev, dirs, work, preset="res64", cli_args=()):
     return launches, numbers
 
 
+# phase 13, the host data path: a memory-mapped packed pair dir at res64 width
+# (3,620 fp32 voxels and a 64x64x3 uint8 image per pair, 535 MB at 20,000
+# pairs), epochs of 312 batches of 64; the train CLI on a 1,280-pair packed
+# dir (18 steps); raw datasets: 640 COCO-style stimuli above the 375 px crop,
+# 4 x 100 CSI* ROI records over them, 400 MNIST69 rows
+DATA_PAIRS, DATA_BATCH = 20_000, 64
+DATA_CLI_PAIRS = 1_280
+RAW_IMAGES, RAW_RECORDS, MNIST_ROWS = 640, 100, 400
+
+
+def write_packed(path, n, voxels, size, seed, chunk=2048):
+    """A packed pair dir in the format ``fmri-tpu-prepare`` writes
+    (``meta.json``, ``fmri.npy`` float32, ``image.npy`` uint8), filled from
+    ``seed`` chunk by chunk through memory maps."""
+    import os
+
+    import numpy as np
+
+    os.makedirs(path)
+    rng = np.random.default_rng(seed)
+    fmt = np.lib.format
+    image = fmt.open_memmap(os.path.join(path, "image.npy"), mode="w+", dtype=np.uint8,
+                            shape=(n, size, size, 3))
+    fmri = fmt.open_memmap(os.path.join(path, "fmri.npy"), mode="w+", dtype=np.float32,
+                           shape=(n, voxels))
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        image[lo:hi] = rng.integers(0, 256, (hi - lo, size, size, 3), dtype=np.uint8)
+        fmri[lo:hi] = rng.standard_normal((hi - lo, voxels), dtype=np.float32)
+    image.flush()
+    fmri.flush()
+    del image, fmri
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({"keys": ["fmri", "image"], "quantized": ["image"], "num_examples": n}, f)
+
+
+def drop_page_cache(path) -> None:
+    """Write back and evict a packed dir's array files from the page cache
+    (``fsync``, then ``POSIX_FADV_DONTNEED``), so the next mapping reads
+    from the disk. Pages still mapped by this process stay: close the
+    memmaps first."""
+    import os
+
+    for name in os.listdir(path):
+        if name.endswith(".npy"):
+            fd = os.open(os.path.join(path, name), os.O_RDONLY)
+            try:
+                os.fsync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+
+
+class NumpyGather:
+    """The port's loader with its library off inside the block, as on a host
+    without a compiler: every gather takes numpy's fancy indexing."""
+
+    def __enter__(self):
+        from fmri_tpu_torch import native
+
+        self.saved = native._lib, native._lib_err
+        native._lib, native._lib_err = None, "off for the numpy comparison"
+
+    def __exit__(self, *exc):
+        from fmri_tpu_torch import native
+
+        native._lib, native._lib_err = self.saved
+
+
+class Counted:
+    """Stands in for ``module.name``, counting its calls."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.orig, self.calls = module, name, getattr(module, name), 0
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        self.calls += 1
+        return self.orig(*args, **kw)
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
+def epoch_seconds(packed, numpy=False, cold=False, in_ram=False) -> float:
+    """Host seconds of one shuffled epoch of ``Batches`` (batch 64) over the
+    packed dir ``packed``, mapped afresh: through the native gather, or with
+    ``numpy`` numpy's; with ``cold`` the dir's pages are evicted first; with
+    ``in_ram`` the arrays are copied into memory first (not timed)."""
+    import contextlib
+    import gc
+
+    import numpy as np
+
+    from fmri_tpu_torch.data.packed import open_packed
+    from fmri_tpu_torch.data.pipeline import Batches
+
+    if cold:
+        gc.collect()  # no mapping of the files may be left to pin their pages
+        drop_page_cache(packed)
+    data = open_packed(packed)
+    if in_ram:
+        data = {k: np.array(v) for k, v in data.items()}
+    batches = Batches(data, DATA_BATCH, shuffle=True, seed=0)
+    batches.epoch = 1
+    with NumpyGather() if numpy else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        for _ in batches:
+            pass
+        return time.perf_counter() - t0
+
+
+def cli_run(main, argv, want_ssim, name):
+    """``main(argv)`` of a port CLI (the train CLI, or the inference CLI),
+    with the launch counts set to 0 just before and read just after: BN and
+    dW 0, SSIM exactly ``want_ssim``, each SSIM call held against its plain
+    version. The train CLI's ``Trainer`` is timed per epoch (``EpochClock``).
+    Returns (launches, seconds per step of its epochs, wall seconds)."""
+    from fmri_tpu_torch.ops import ssim as ssim_ops
+    from fmri_tpu_torch.train import trainer as trainer_mod
+
+    clocks = []
+    real = trainer_mod.Trainer
+
+    class Clocked(real):
+        def __init__(self, cfg, steps, *a, **kw):
+            clocks.append(EpochClock(steps))
+            super().__init__(cfg, clocks[-1].steps, *a, **kw)
+
+    calls = {}
+    trainer_mod.Trainer = Clocked
+    recorder = Recorder(ssim_ops, "ssim_plane_sums", calls)
+    set_launches(0)
+    t0 = time.perf_counter()
+    try:
+        check(main(argv) == 0, f"{name}: the CLI failed")
+    finally:
+        wall = time.perf_counter() - t0
+        launches = set_launches(0)
+        recorder.restore()
+        trainer_mod.Trainer = real
+    check(launches == {"bn_bwd_reduce": 0, "bn_bwd_apply": 0, "tap_matmul": 0,
+                       "ssim": want_ssim},
+          f"{name}: launches {launches}, want {want_ssim} SSIM launches only")
+    from fmri_tpu_torch.ops.ssim import ssim_plain
+
+    for (a, b, *rest), _ in calls.values():
+        err, img_err, img_err_plain = hold_ssim_call(a, b, rest)
+        plain_err = abs(float(ssim_plain(a, b, *rest))
+                        - float(ssim_plain(a.double(), b.double(), *rest)))
+        print(f"[data] {name}: ssim {list(a.shape)} from the plain version in float64: "
+              f"mean, kernel {err:.3g}, fp32 plain {plain_err:.3g}; per image at most, "
+              f"kernel {img_err:.3g}, fp32 plain {img_err_plain:.3g}", flush=True)
+    per_step = [s / n for c in clocks for s, n in c.loops]
+    return launches, per_step, wall
+
+
+def write_raw(root, size_range, voxels, seed):
+    """Raw data as users keep it: ``coco/`` (``RAW_IMAGES`` stimuli, JPEG
+    and PNG, RGB with every 7th greyscale and every 11th RGBA, sides drawn
+    from ``size_range``), ``bold/CSI1..CSI4`` (``<sub>_roi_pad.npz`` of
+    ``voxels`` and ``<sub>_stimuli_paths.pickle`` naming those stimuli) and
+    ``mnist69.mat`` (``MNIST_ROWS`` rows of 784 pixels and ``voxels``)."""
+    import os
+    import pickle
+
+    import numpy as np
+    import scipy.io
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    coco = os.path.join(root, "coco")
+    os.makedirs(coco)
+    paths = []
+    for i in range(RAW_IMAGES):
+        h, w = (int(v) for v in rng.integers(*size_range, 2))
+        y, x = np.mgrid[0:h, 0:w]
+        c0, c1, rc = rng.uniform(0, 255, (3, 3))
+        img = (y[..., None] / h * c0 + x[..., None] / w * c1).astype(np.float32)
+        y0, x0 = int(rng.integers(0, h // 2)), int(rng.integers(0, w // 2))
+        img[y0:y0 + h // 3, x0:x0 + w // 3] = rc
+        img = img.clip(0, 255).astype(np.uint8)
+        if i % 7 == 3:
+            mode, ext = "L", "png"
+            img = img[..., 0]
+        elif i % 11 == 5:
+            mode, ext = "RGBA", "png"
+            img = np.concatenate([img, np.full((h, w, 1), 200, np.uint8)], axis=2)
+        else:
+            mode, ext = "RGB", ("jpg" if i % 2 else "png")
+        path = os.path.join(coco, f"{i:012d}.{ext}")
+        Image.fromarray(img).save(path, **({"compress_level": 1} if ext == "png" else {}))
+        check(Image.open(path).mode == mode, f"stimulus {path} is not {mode}")
+        paths.append(path)
+    for s, sub in enumerate(("CSI1", "CSI2", "CSI3", "CSI4")):
+        d = os.path.join(root, "bold", sub)
+        os.makedirs(d)
+        np.savez(os.path.join(d, f"{sub}_roi_pad.npz"),
+                 roi=rng.normal(0.5 * s, 1.0 + s, (RAW_RECORDS, voxels)))
+        with open(os.path.join(d, f"{sub}_stimuli_paths.pickle"), "wb") as f:
+            pickle.dump([paths[(7 * i + s) % RAW_IMAGES] for i in range(RAW_RECORDS)], f)
+    rows = np.concatenate([rng.integers(0, 256, (MNIST_ROWS, 784)).astype(np.float64),
+                           rng.normal(size=(MNIST_ROWS, voxels))], axis=1)
+    scipy.io.savemat(os.path.join(root, "mnist69.mat"), {"D": rows})
+
+
+def data_phase(preset="res64", pairs=DATA_PAIRS, cli_pairs=DATA_CLI_PAIRS,
+               size_range=(400, 481), cli_args=()):
+    """Phase 13: the host data path. (a) the port's native loader builds
+    with g++, and ``gather``, ``gather_dequant`` and ``prefetch`` on a
+    memory-mapped packed pair dir of ``pairs`` pairs at ``preset`` width
+    equal numpy's bitwise; (b) shuffled ``Batches`` epochs (batch 64)
+    through it against numpy's gather, bitwise, each timed warm and cold;
+    (c) the train CLI, stage I, one epoch on a ``cli_pairs`` packed dir
+    (its ``Batches`` on the native gather, 2 SSIM launches held against
+    plain); (d) raw data: COCO stimuli for stage I with ``--cache-dir``,
+    again from the cache alone, ``--dataset bold`` stage II from that
+    run, the inference CLI on the BOLD split (4 SSIM launches),
+    ``--dataset mnist69`` stage II. Returns ({path: launches}, {numbers})."""
+    import contextlib
+    import os
+    import shutil
+
+    import numpy as np
+
+    from fmri_tpu_torch import native
+    from fmri_tpu_torch.configs import get_config
+    from fmri_tpu_torch.data import datasets
+    from fmri_tpu_torch.data.packed import open_packed
+    from fmri_tpu_torch.data.pipeline import Batches
+    from fmri_tpu_torch.eval import inference
+    from fmri_tpu_torch.native import build as native_build
+    from fmri_tpu_torch.train import run
+
+    cfg = get_config(preset)
+    voxels, size = cfg.model.num_voxels, cfg.model.image_size
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_runs")
+    shutil.rmtree(work, ignore_errors=True)
+    numbers, launches = {}, {}
+    try:
+        # (a) build (again: the trainer phase's Batches loaded it) and parity
+        t0 = time.perf_counter()
+        try:
+            native_build.build_library(force=True)
+        except (OSError, RuntimeError) as e:
+            fail(f"the native loader did not build: {e}")
+        numbers["native_build_s"] = time.perf_counter() - t0
+        if not native.available():
+            fail(f"the native loader did not load: {native.why_unavailable()}")
+        threads = native._threads_default()
+        packed = os.path.join(work, "packed")
+        t0 = time.perf_counter()
+        write_packed(packed, pairs, voxels, size, seed=0)
+        mib = sum(os.path.getsize(os.path.join(packed, f))
+                  for f in os.listdir(packed)) / 2**20
+        print(f"[data] native loader built with g++ in {numbers['native_build_s']:.2f} s "
+              f"({os.path.relpath(native_build.library_path())}), {threads} threads; "
+              f"packed dir of {pairs} pairs ({voxels} fp32 voxels, {size}x{size}x3 uint8), "
+              f"{mib:.1f} MiB, written in {time.perf_counter() - t0:.1f} s", flush=True)
+        data = open_packed(packed)
+        rng = np.random.default_rng(1)
+        idx = rng.permutation(pairs)[:4096]
+        for key, arr in data.items():
+            check(isinstance(arr, np.memmap), f"{key} is not memory-mapped")
+            check(native.prefetch(arr, idx), f"prefetch of {key} was not issued natively")
+            got = native.gather(arr, idx)
+            check(got.dtype == arr.dtype and got.tobytes() == arr[idx].tobytes(),
+                  f"native gather of {key} differs from numpy's")
+        u8 = data["image"]
+        check(native.gather_dequant(u8, idx).tobytes()
+              == (u8[idx].astype(np.float32) * np.float32(1.0 / 255.0)).tobytes(),
+              "native gather_dequant differs from numpy's")
+        print(f"[data] gather (fmri, image), gather_dequant and prefetch of {len(idx)} "
+              f"shuffled rows: bitwise numpy's", flush=True)
+
+        # (b) epochs of Batches, native against numpy's gather
+        batches = Batches(data, DATA_BATCH, shuffle=True, seed=0)
+        n_batches = len(batches)
+        order = np.random.default_rng((0, 0)).permutation(pairs)
+        gathers = Counted(native, "gather")
+        try:
+            for b, batch in enumerate(batches):
+                rows = order[b * DATA_BATCH:(b + 1) * DATA_BATCH]
+                for key, arr in data.items():
+                    check(batch[key].tobytes() == arr[rows].tobytes(),
+                          f"Batches {key} batch {b} differs from numpy's gather")
+        finally:
+            gathers.restore()
+        check(gathers.calls == 2 * n_batches,
+              f"Batches made {gathers.calls} native gathers, want {2 * n_batches}")
+        del data, batches, batch, arr, u8, got
+        warm = {"numpy": [], "native": []}
+        for side in ("numpy", "native", "native", "numpy"):
+            warm[side].append(epoch_seconds(packed, numpy=side == "numpy"))
+        cold = {side: epoch_seconds(packed, numpy=side == "numpy", cold=True)
+                for side in ("native", "numpy")}
+        # what the native time is made of: one thread (no fork-join), and the
+        # arrays copied into RAM (no page faults through the mapping)
+        os.environ["FMRI_TPU_NATIVE_THREADS"] = "1"
+        try:
+            one_thread = epoch_seconds(packed)
+        finally:
+            del os.environ["FMRI_TPU_NATIVE_THREADS"]
+        in_ram = {side: epoch_seconds(packed, numpy=side == "numpy", in_ram=True)
+                  for side in ("native", "numpy", "native", "numpy")}
+        numbers.update(threads=threads, epoch_batches=n_batches, packed_mib=mib,
+                       warm_epoch_s=warm, cold_epoch_s=cold,
+                       native_one_thread_epoch_s=one_thread, in_ram_epoch_s=in_ram)
+        print(f"[data] Batches over the mapped dir, {n_batches} shuffled batches of "
+              f"{DATA_BATCH}: bitwise numpy's gather; seconds per epoch (host gather "
+              f"alone), warm: native {warm['native']}, numpy {warm['numpy']}; cold "
+              f"(fsync + POSIX_FADV_DONTNEED, mapped again): native {cold['native']:.3f}, "
+              f"numpy {cold['numpy']:.3f}; {threads} threads; native on one thread "
+              f"{one_thread:.3f}; arrays in RAM: native {in_ram['native']:.3f}, numpy "
+              f"{in_ram['numpy']:.3f} (the second of two runs each)", flush=True)
+
+        # (c) the train CLI on a packed dir, its Batches on the native gather
+        cli_dir = os.path.join(work, "packed_cli")
+        write_packed(cli_dir, cli_pairs, voxels, size, seed=2)
+        gathers = Counted(native, "gather")
+        try:
+            launches["data"], per_step, wall = cli_run(run.main, [
+                "--family", "vgan", "--stage", "1", "--preset", preset, "--input", cli_dir,
+                "--epochs", "1", "-o", os.path.join(work, "cli"), *cli_args], 2,
+                "train CLI on a packed dir")
+        finally:
+            gathers.restore()
+        check(gathers.calls > 0, "the train CLI's Batches did not take the native gather")
+        # what the native loader moves end to end: the same run with numpy's
+        # gather, then with the native one again
+        again = {}
+        for side in ("numpy", "native"):
+            with NumpyGather() if side == "numpy" else contextlib.nullcontext():
+                _, again[f"{side}_s_per_step"], again[f"{side}_wall_s"] = cli_run(
+                    run.main, ["--family", "vgan", "--stage", "1", "--preset", preset,
+                               "--input", cli_dir, "--epochs", "1", "-o",
+                               os.path.join(work, f"cli_{side}"), *cli_args], 2,
+                    f"train CLI on a packed dir again ({side} gather)")
+        numbers["train_cli_packed"] = {"s_per_step": per_step, "wall_s": wall,
+                                       "native_gathers": gathers.calls, "then": again}
+        print(f"[data] python -m fmri_tpu_torch.train.run --preset {preset} --input "
+              f"<{cli_pairs}-pair packed dir>, 1 epoch: {wall:.2f} s wall, s per step "
+              f"{['%.4f' % s for s in per_step]}, {gathers.calls} native gathers, launches "
+              f"{launches['data']}; then with numpy's gather {again['numpy_wall_s']:.2f} "
+              f"s wall, s per step {['%.4f' % s for s in again['numpy_s_per_step']]}, "
+              f"and native again {again['native_wall_s']:.2f} s wall, s per step "
+              f"{['%.4f' % s for s in again['native_s_per_step']]}", flush=True)
+
+        # (d) raw data through the train and inference CLIs
+        raw = os.path.join(work, "raw")
+        t0 = time.perf_counter()
+        write_raw(raw, size_range, voxels, seed=3)
+        import PIL
+        import scipy
+
+        print(f"[data] raw data written in {time.perf_counter() - t0:.1f} s: {RAW_IMAGES} "
+              f"stimuli, 4 x {RAW_RECORDS} CSI* records, {MNIST_ROWS} MNIST69 rows "
+              f"(Pillow {PIL.__version__}, scipy {scipy.__version__})", flush=True)
+        cache = os.path.join(work, "cache")
+        raw_runs = {}
+
+        def train(name, *argv):
+            out = os.path.join(work, name)
+            _, per_step, wall = cli_run(run.main, [*argv, "--preset", preset, "--epochs",
+                                                   "1", "-o", out, *cli_args], 2, name)
+            raw_runs[name] = {"s_per_step": per_step, "wall_s": wall}
+            run_dir, = (os.path.join(out, d, r) for d in os.listdir(out)
+                        for r in os.listdir(os.path.join(out, d)))
+            return os.path.join(run_dir, "checkpoints")
+
+        coco = ["--family", "vgan", "--stage", "1", "--dataset", "coco", "-i",
+                os.path.join(raw, "coco"), "--cache-dir", cache]
+        stage1 = train("coco", *coco)
+        check(os.listdir(cache) == ["coco_train.npz"], f"coco cache: {os.listdir(cache)}")
+
+        def no_decoding(*a, **k):
+            raise AssertionError("a stimulus was decoded though the cache holds it")
+
+        real_load = datasets.load_stimulus
+        datasets.load_stimulus = no_decoding
+        try:
+            train("coco_cached", *coco)
+        finally:
+            datasets.load_stimulus = real_load
+        bold = ["--dataset", "bold", "-i", os.path.join(raw, "bold"), "--cache-dir", cache]
+        stage2 = train("bold", "--family", "vgan", "--stage", "2", *bold,
+                       "--prev-ckpt", stage1)
+        launches["data_inference"], _, wall = cli_run(inference.main, [
+            "--family", "vgan", "--stage", "2", *bold, "--ckpt", stage2, "--preset", preset,
+            "-o", os.path.join(work, "inference"), *cli_args], SSIM_LAUNCHES_PER_RUN,
+            "inference CLI on raw BOLD")
+        with open(os.path.join(work, "inference", "summary.json")) as f:
+            summary = json.load(f)
+        n_valid = -(-4 * RAW_RECORDS // 5)  # split_dataset's ceil(0.2 * n)
+        check(summary["num_images"] == n_valid and 0.0 < summary["ssim"] <= 1.0,
+              f"inference on raw BOLD: {summary}")
+        train("mnist69", "--family", "vgan", "--stage", "2", "--dataset", "mnist69", "-i",
+              os.path.join(raw, "mnist69.mat"), "--prev-ckpt", stage1)
+        numbers["raw"] = raw_runs
+        numbers["inference_raw_bold_wall_s"] = wall
+        print(f"[data] raw CLIs (one epoch each; s per step, wall s): "
+              + "; ".join(f"{k} {['%.4f' % s for s in v['s_per_step']]}, {v['wall_s']:.2f}"
+                          for k, v in raw_runs.items())
+              + f"; inference on the BOLD split ({summary['num_images']} pairs) "
+              f"{wall:.2f} s, launches {launches['data_inference']}, ssim "
+              f"{summary['ssim']:.4f}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, numbers
+
+
 def main() -> None:
     import torch
 
@@ -2224,8 +2724,8 @@ def main() -> None:
     for (a, b, *rest), count in ssim_calls1.values():
         err, img_err, _ = hold_ssim_call(a, b, rest)
         max_err = max(max_err, err)
-        print(f"[inference] stage I: ssim {list(a.shape)} x{count} |kernel - plain| "
-              f"{err:.3g}, per image from float64 {img_err:.3g}", flush=True)
+        print(f"[inference] stage I: ssim {list(a.shape)} x{count} |kernel - plain in "
+              f"float64| {err:.3g}, per image {img_err:.3g}", flush=True)
     check(tuple(r1.shape) == (n, 64, 64, 3) and bool(torch.isfinite(r1).all()),
           f"stage-I recons {tuple(r1.shape)}, finite {bool(torch.isfinite(r1).all())}")
     err1 = abs(m1["ssim"] - quality_metrics(r1, t1, ssim_fn=ssim_plain)["ssim"])
@@ -2302,6 +2802,12 @@ def main() -> None:
              if path.startswith("trainer_")})
         entry["launches_by_path"]["serve"] = served["launches"][entry["name"]]
 
+    # 13. the host data path: the native loader, the CLIs on packed and raw data
+    data_launches, data_numbers = data_phase()
+    for entry in train_kernels:
+        entry["launches_by_path"].update(
+            {path: counts[entry["name"]] for path, counts in data_launches.items()})
+
     # 8. kernels line; ssim at every shape the inference run gave it, each
     #    held against the plain version, times summed over the run's launches
     ssim_tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "flops": 0.0,
@@ -2328,8 +2834,8 @@ def main() -> None:
         print(f"[kernels] ssim {list(a.shape)} x{count}: {ms:.4f} ms per call, device "
               f"{dev_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {100 * bound_ms / dev_ms:.1f}% of it on the device), "
-              f"|kernel - plain| {err:.3g}; per image from float64: kernel "
-              f"{img_err:.3g}, plain {img_err_plain:.3g}", flush=True)
+              f"|kernel - plain in float64| {err:.3g}; per image from float64: kernel "
+              f"{img_err:.3g}, fp32 plain {img_err_plain:.3g}", flush=True)
     bound_ms, bound_by = bound(ssim_tot["flops"], ssim_tot["bytes"])
     print(f"[kernels] ssim per inference run: {launches['ssim']} launches, "
           f"{ssim_tot['ms']:.4f} ms (device {ssim_tot['device_ms']:.4f} ms), plain "
@@ -2348,7 +2854,9 @@ def main() -> None:
                              "train_cli": trainer_launches["train_cli"]["ssim"],
                              "inference_trained_run":
                                  trainer_launches["inference_trained_run"]["ssim"],
-                             "serve": served["launches"]["ssim"]},
+                             "serve": served["launches"]["ssim"],
+                             **{path: counts["ssim"]
+                                for path, counts in data_launches.items()}},
         "max_abs_err": max_err,
         "ms": ssim_tot["ms"],
         "device_ms": ssim_tot["device_ms"],
@@ -2368,6 +2876,7 @@ def main() -> None:
     print(f"[trainer] per path (host clock; epoch 1 profiled): "
           f"{json.dumps(trainer_numbers)}", flush=True)
     print(f"[serve] numbers (host clock): {json.dumps(served['numbers'])}", flush=True)
+    print(f"[data] numbers (host clock): {json.dumps(data_numbers)}", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

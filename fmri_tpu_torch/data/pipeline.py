@@ -6,14 +6,14 @@ Counterpart of ``fmri_tpu/data/pipeline.py:73-166``:
   ``np.random.default_rng((seed, epoch)).permutation(n)``, the order of the
   JAX ``Batches`` and of ``train/epoch_scan.py::epoch_permutation``, and
   drops the remainder by default, so every batch has one shape;
+* rows are gathered by the port's native loader (``fmri_tpu_torch.native``)
+  for memory-mapped arrays and on multi-core hosts, numpy fancy indexing
+  otherwise (``fmri_tpu/data/pipeline.py:36-71``); the gather writes a
+  fresh array, which :func:`to_device` pins, never a view of a memmap;
+  the next batch's mapped rows get a ``madvise(WILLNEED)`` read-ahead;
 * :func:`device_iterator` stages batches ahead on a producer thread; on
   CUDA each copy goes from pinned host memory with ``non_blocking=True``,
   so the transfer of batch N+1 overlaps the step on batch N.
-
-Rows are gathered with numpy fancy indexing. The JAX package's native C++
-gather and its ``madvise`` read-ahead for memory-mapped arrays
-(``fmri_tpu/native/loader.cc``, used at ``pipeline.py:36-71``) are not in
-the port yet.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ from typing import Dict, Iterable, Iterator, Union
 import numpy as np
 import torch
 
+from fmri_tpu_torch import native
+
 Batch = Union[np.ndarray, Dict[str, np.ndarray]]
 
 
@@ -34,10 +36,30 @@ def num_examples(data: Batch) -> int:
     return len(data)
 
 
+def _gather(v: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """Row gather through the native loader where it buys something: a
+    mapped array (the call releases the GIL, so the producer thread's page
+    faults overlap the main thread) or a multi-core host (a parallel row
+    copy); numpy fancy indexing otherwise, where both are memcpy-bound."""
+    if isinstance(v, np.ndarray) and (isinstance(v, np.memmap)
+                                      or native._threads_default() > 1):
+        return native.gather(v, idx)
+    return v[idx]
+
+
 def _index(data: Batch, idx: np.ndarray) -> Batch:
     if isinstance(data, dict):
-        return {k: v[idx] for k, v in data.items()}
-    return data[idx]
+        return {k: _gather(v, idx) for k, v in data.items()}
+    return _gather(data, idx)
+
+
+def _prefetch_rows(data: Batch, idx: np.ndarray) -> None:
+    """``madvise(WILLNEED)`` the rows of the next batch in mapped arrays (a
+    no-op without the native library): on datasets larger than the page
+    cache the kernel reads ahead while the current batch computes."""
+    for v in (data.values() if isinstance(data, dict) else (data,)):
+        if isinstance(v, np.memmap):
+            native.prefetch(v, idx)
 
 
 class Batches:
@@ -71,8 +93,11 @@ class Batches:
         else:
             order = np.arange(n)
         self.epoch += 1
+        bs = self.batch_size
         for b in range(self.num_batches):
-            batch = _index(self.data, order[b * self.batch_size:(b + 1) * self.batch_size])
+            batch = _index(self.data, order[b * bs:(b + 1) * bs])
+            if b + 1 < self.num_batches:  # read ahead one batch
+                _prefetch_rows(self.data, order[(b + 1) * bs:(b + 2) * bs])
             yield self.transform(batch) if self.transform is not None else batch
 
 

@@ -1,7 +1,14 @@
-"""Image transforms on NHWC tensors, run on the batch's device
-(``fmri_tpu/data/transforms.py:92-164``): normalization, the eval
-preprocess, the bilinear resize, and the train-time augmentation (flip,
-integer shift with nearest-edge fill, normalize).
+"""Image transforms, a host half and a device half
+(``fmri_tpu/data/transforms.py``).
+
+The host half (numpy and PIL, once per image, cacheable; :34-86 there):
+decode -> center-crop -> resize -> grey-to-color, fixed-shape float32 HWC in
+[0, 1]. PIL is imported inside the functions and called as the JAX package
+calls it (uint8 BILINEAR), so the arrays are bitwise the JAX ones.
+
+The device half, on NHWC tensors on the batch's device (:92-164 there):
+normalization, the eval preprocess, the bilinear resize, and the train-time
+augmentation (flip, integer shift with nearest-edge fill, normalize).
 
 The augmentation's random parts come from the caller as tensors, a flip
 mask [B] and integer shifts [B, 2] (the trainer's draws), so the tests can
@@ -11,8 +18,70 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+# ------------------------- host-side (numpy / PIL) -------------------------
+
+
+def center_crop(img: np.ndarray, crop: int) -> np.ndarray:
+    """Center crop of an HWC array with the reference's integer-floor window
+    (``CenterCrop.__call__``, ``data_loader.py:155-161``); smaller where the
+    image is."""
+    h, w = img.shape[:2]
+    y0 = max(h // 2 - crop // 2, 0)
+    x0 = max(w // 2 - crop // 2, 0)
+    return img[y0:y0 + crop, x0:x0 + crop]
+
+
+def resize_image(img: np.ndarray, size: int) -> np.ndarray:
+    """Bilinear resize of an HWC float array in [0, 1] to (size, size)
+    through PIL on uint8, as the reference's torchvision path does
+    (``train_vgan_stage1.py:164``); 1 channel becomes 3."""
+    from PIL import Image
+
+    if img.ndim == 2:
+        img = img[:, :, None]
+    arr = np.clip(img, 0.0, 1.0)
+    if arr.shape[2] == 1:
+        arr = np.repeat(arr, 3, axis=2)
+    pil = Image.fromarray((arr * 255.0 + 0.5).astype(np.uint8))
+    out = pil.resize((size, size), Image.BILINEAR)
+    return np.asarray(out, dtype=np.float32) / 255.0
+
+
+def grey_to_color(img: np.ndarray) -> np.ndarray:
+    """1 channel -> 3 (reference ``GreyToColor``, ``data_loader.py:374-400``);
+    RGBA loses its alpha."""
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.shape[2] == 1:
+        return np.repeat(img, 3, axis=2)
+    if img.shape[2] == 4:
+        return img[:, :, :3]
+    return img
+
+
+def decode_image(path: str) -> np.ndarray:
+    """An image file as float32 HWC (3 channels; uint8 files scaled to [0, 1])."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        arr = np.asarray(im)
+    if arr.dtype == np.uint8:
+        arr = arr.astype(np.float32) / 255.0
+    else:
+        arr = arr.astype(np.float32)
+    return grey_to_color(arr)
+
+
+def load_stimulus(path: str, crop: int, size: int) -> np.ndarray:
+    """decode -> center-crop -> resize: a stimulus as [size, size, 3] in [0, 1]."""
+    return resize_image(center_crop(decode_image(path), crop), size)
+
+
+# ------------------------- device-side (torch, batched) -------------------------
 
 
 def _channel(v: Sequence[float], x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,8 @@
-"""Device selection for the port's entry points."""
+"""Device selection and numerics settings for the port's entry points."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -25,3 +27,21 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block; the caller's
+    setting comes back on exit. Every entry point that computes results runs
+    in it (the ``Trainer``'s fit and evaluation, the inference CLI's
+    reconstruction, serving's graphs): cuDNN's default algorithm for the
+    stride-2 convs' input grads and the decoder's transposed convolutions
+    (its dgrad engine) sums in no fixed order, so two runs of one epoch from
+    one seed would part ways, and one request could come back different in
+    its last bits. The JAX trainer resumes bit for bit; there is no opt-out."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved

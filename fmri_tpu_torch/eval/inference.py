@@ -16,12 +16,16 @@ written by
 (``vgan`` stages 2 and 3), ``wae-gan`` (``wae`` stage 1) or
 ``wae-gan-cognitive`` (``wae`` stages 2 and 3), or by the port's
 ``from_jax_groups``. ``--family wae`` always decodes mu: ``--sample``
-has no effect there, as the JAX WAE eval takes no sample. Data is
-``--dataset synthetic`` or a packed directory (``--input``; the image ->
-image runs read its images). Runs on ``cuda`` unless ``--device cpu``.
+has no effect there, as the JAX WAE eval takes no sample. The data is
+the validation split of the train CLI's loaders with the same flags
+(``fmri_tpu_torch/train/run.py``, as ``fmri_tpu/eval/inference.py:126-130``
+does): ``--dataset synthetic``, a packed ``--input`` directory, or raw
+``--dataset coco|bold|mnist69`` with ``--cache-dir``; the image -> image
+runs read images. Runs on ``cuda`` unless ``--device cpu``, with cuDNN's
+deterministic algorithms.
 
-Not in this port yet: the Inception Score (the summary has no ``is_*``
-keys), the raw BOLD5000/COCO/MNIST loaders. Counterpart of
+Not in this port yet: the Inception Score (slice 8: the summary has no
+``is_*`` keys and there is no ``--no-is``). Counterpart of
 ``fmri_tpu/eval/inference.py:40-154``.
 """
 
@@ -38,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--family", choices=["vgan", "wae", "wae-vgan"], required=True)
-    p.add_argument("--stage", type=int, choices=[1, 2, 3], default=3)
+    p.add_argument("--stage", type=int, choices=[1, 2, 3], default=1)
     p.add_argument("--preset", default="res64")
     p.add_argument("--ckpt", required=True,
                    help="a port training run's checkpoint dir, or a reference-layout "
@@ -47,11 +51,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="epoch to load from a checkpoint dir (default latest)")
     p.add_argument("--dataset", default="synthetic",
                    choices=["coco", "bold", "mnist69", "synthetic"])
-    p.add_argument("--input", "-i", default=None, help="packed pair directory")
+    p.add_argument("--input", "-i", default=None,
+                   help="data root, as the train CLI's --input")
     p.add_argument("--valid-input", default=None,
-                   help="packed validation directory (default: hold out "
-                        "part of --input)")
+                   help="validation data root (default: the train CLI's split of --input)")
+    p.add_argument("--cache-dir", default=None,
+                   help="the raw loaders' packed-array cache, as the train CLI's")
     p.add_argument("--output", "-o", default="inference_out")
+    p.add_argument("--logs", "-l", default=None, help="unused; CLI parity")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--num-voxels", type=int, default=None,
                    help="override the preset's fMRI voxel count (must match "
@@ -70,10 +77,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _holdout(arrays, k):
-    return {key: v[:k] for key, v in arrays.items()}
-
-
 def image_only(args) -> bool:
     """Image -> image: stage 1 of either family, and WAE/Dual-GAN."""
     from fmri_tpu_torch.eval.steps import eval_module
@@ -82,31 +85,14 @@ def image_only(args) -> bool:
 
 
 def load_valid(args, cfg):
-    """The validation {'fmri', 'image'} arrays (image -> image: {'image'}),
-    split as the reference CLI splits them
-    (``fmri_tpu/train/run.py:_load_pairs``, ``_load_images``): the first
-    max(n // 10, batch) examples."""
-    from fmri_tpu_torch.data.packed import is_packed_dir, open_packed
+    """The validation arrays, {'fmri', 'image'} (image -> image: {'image'}):
+    the train CLI's split of the same flags (``train/run.py::_load_images``,
+    ``_load_pairs``)."""
+    from fmri_tpu_torch.train import run
 
-    bs = cfg.train.batch_size
-    keys = ("image",) if image_only(args) else ("fmri", "image")
-    if args.input and is_packed_dir(args.input):
-        arrays = open_packed(args.valid_input or args.input)
-        missing = set(keys) - set(arrays)
-        if missing:
-            raise SystemExit(f"packed dir lacks arrays {sorted(missing)}")
-        arrays = {k: arrays[k] for k in keys}
-        if args.valid_input:
-            return arrays
-        return _holdout(arrays, max(len(arrays["image"]) // 10, bs))
-    if args.dataset != "synthetic":
-        raise SystemExit(f"--dataset {args.dataset} is not ported yet; use "
-                         "--dataset synthetic or a packed --input directory")
-    from fmri_tpu_torch.data.synthetic import synthetic_pairs
-
-    n = args.synthetic_n or max(4 * bs, 64)
-    data = synthetic_pairs(n, cfg.data.image_size, cfg.model.num_voxels, seed=0)
-    return _holdout({k: data[k] for k in keys}, max(n // 10, bs))
+    if image_only(args):
+        return {"image": run._load_images(args, cfg)[1]}
+    return run._load_pairs(args, cfg)[1]
 
 
 def load_weights(ckpt: str, epoch=None):
@@ -128,7 +114,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from fmri_tpu_torch.configs.presets import get_config, override_num_voxels
-    from fmri_tpu_torch.device import resolve_device
+    from fmri_tpu_torch.device import deterministic_cudnn, resolve_device
     from fmri_tpu_torch.eval.evaluate import (
         objective_scores, quality_metrics, reconstruct_dataset,
         save_objective_bar_chart, save_objective_csv, save_reconstructions,
@@ -152,9 +138,10 @@ def main(argv=None) -> int:
     n, bs = len(valid["image"]), cfg.train.batch_size
     batches = ({k: v[lo:lo + bs] for k, v in valid.items()}
                for lo in range(0, n, bs))
-    recons, targets = reconstruct_dataset(
-        model, batches, mean=cfg.data.mean, std=cfg.data.std,
-        sample=args.sample, seed=args.seed, max_batches=args.max_batches)
+    with deterministic_cudnn():
+        recons, targets = reconstruct_dataset(
+            model, batches, mean=cfg.data.mean, std=cfg.data.std,
+            sample=args.sample, seed=args.seed, max_batches=args.max_batches)
 
     os.makedirs(args.output, exist_ok=True)
     summary = {**source, "device": str(device), "num_images": int(len(recons))}

@@ -68,7 +68,6 @@ from __future__ import annotations
 
 import argparse
 import base64
-import contextlib
 import json
 import os
 import queue
@@ -84,27 +83,12 @@ import torch
 
 from fmri_tpu_torch.configs.presets import Config
 from fmri_tpu_torch.data.transforms import denormalize, eval_preprocess
-from fmri_tpu_torch.device import resolve_device
+from fmri_tpu_torch.device import deterministic_cudnn, resolve_device
 from fmri_tpu_torch.eval.steps import eval_module
 
 # eager calls of a program on a side stream before its capture: cuDNN picks
 # its algorithm and allocates its workspace there, not inside the graph
 CAPTURE_WARM_CALLS = 2
-
-
-@contextlib.contextmanager
-def deterministic_cudnn():
-    """cuDNN's deterministic algorithms inside the block. The default
-    algorithm of the decoder's transposed convolutions (cuDNN's dgrad
-    engine) sums in no fixed order, so the same request could come back
-    different in its last bits from call to call; a graph keeps the
-    algorithm it was captured with."""
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = saved
 
 
 def batch_buckets(max_batch: int, min_bucket: int = 1) -> List[int]:

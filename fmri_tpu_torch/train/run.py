@@ -1,9 +1,9 @@
 """Training CLI of the port: one entry point for every family and stage.
 
     python -m fmri_tpu_torch.train.run --family vgan --stage 1 --preset res64 \\
-        --dataset synthetic -o results
-    python -m fmri_tpu_torch.train.run --family vgan --stage 2 --input <packed dir> \\
-        --prev-ckpt results/vgan_stage1/<run>/checkpoints -o results
+        --dataset coco -i /data/coco/train2017 --cache-dir cache -o results
+    python -m fmri_tpu_torch.train.run --family vgan --stage 2 --dataset bold \\
+        -i /data/bold_roi --prev-ckpt results/vgan_stage1/<run>/checkpoints -o results
     python -m fmri_tpu_torch.train.run --family wae --stage 3 --input <packed dir> \\
         --prev-ckpt <stage-2 checkpoints> --stage1-ckpt <stage-1 checkpoints>
 
@@ -12,16 +12,27 @@ stages map to the reference scripts: ``vgan`` 1/2/3
 (``train_vgan_stage{1,2,3}.py``), ``wae`` 1/2/3 (``train_wae_stage{1,2,3}.py``),
 ``wae-vgan`` 1 (``wae_vgan_stage1.py``). ``--prev-ckpt`` and
 ``--stage1-ckpt`` take a port run's ``checkpoints`` dir or a
-reference-layout ``.pth``. Data is ``--dataset synthetic`` (generated, no
-files) or a packed ``--input`` dir (``fmri-tpu-prepare`` writes them; a
-leading tenth is held out for validation unless ``--valid-input`` names
-another packed dir). Runs on ``cuda`` unless ``--device cpu``; without a
-card the default raises.
+reference-layout ``.pth``. Runs on ``cuda`` unless ``--device cpu``;
+without a card the default raises.
+
+Data, as the JAX CLI loads it (``fmri_tpu/train/run.py:182-266``):
+* a packed ``--input`` dir (``fmri-tpu-prepare`` writes them), memory-mapped;
+* ``--dataset synthetic``: generated, no files;
+* ``--dataset coco`` (stage I): a directory of images, decoded, center-cropped
+  and resized once (Pillow); ``--valid-input`` names a second directory,
+  else the leading max(n // 10, batch) images are held out;
+* ``--dataset bold`` (stages II/III): a directory of ``CSI*`` subject dirs
+  (``<sub>_roi_pad.npz|pickle`` and ``<sub>_stimuli_paths.pickle``; the
+  subjects present are used) or a records pickle, split 80/20 by
+  ``split_dataset``;
+* ``--dataset mnist69`` (stages II/III): a ``.mat`` file, its last fifth
+  (at least a batch) held out.
+``--cache-dir D`` keeps the decoded arrays as uint8 ``.npz`` (D/coco_train,
+coco_valid, bold_train, bold_valid), which later runs read instead of
+decoding; the JAX CLI reads and writes the same files.
 
 Not in the port yet, and refused with the slice that brings them:
-``--mesh`` (slice 10), ``--family exp`` (slice 9), a raw ``--dataset
-coco|bold|mnist69`` without a packed dir and ``--cache-dir`` (slice 6; the
-raw loaders stay on ``fmri-tpu-prepare``).
+``--mesh`` (slice 10), ``--family exp`` (slice 9).
 """
 
 from __future__ import annotations
@@ -29,6 +40,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import pickle
 import sys
 
 
@@ -46,12 +59,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="loss algebra for the vgan family (train_vgan_stage1.py:359-387)")
     p.add_argument("--dataset", default="synthetic",
                    choices=["coco", "bold", "mnist69", "synthetic"])
-    p.add_argument("--input", "-i", default=None, help="packed data dir")
+    p.add_argument("--input", "-i", default=None,
+                   help="data root: a packed dir, or the images dir for coco, the "
+                        "CSI* ROI dir or a records pickle for bold, the .mat for mnist69")
     p.add_argument("--output", "-o", default="results")
     p.add_argument("--logs", "-l", default=None,
                    help="unused; kept for reference CLI parity (logs go to the run dir)")
     p.add_argument("--valid-input", default=None,
-                   help="separate packed validation dir (default: hold out a tenth)")
+                   help="separate validation data root (default: split the train data)")
     p.add_argument("--prev-ckpt", default=None,
                    help="previous stage's checkpoint dir or .pth (stages 2/3)")
     p.add_argument("--stage1-ckpt", default=None,
@@ -81,7 +96,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default=None,
                    help="'data=N[,model=M]' multi-card mesh (not in the port yet)")
     p.add_argument("--cache-dir", default=None,
-                   help="packed-array cache of the raw loaders (not in the port yet)")
+                   help="where to cache the raw loaders' packed arrays (.npz)")
     p.add_argument("--synthetic-n", type=int, default=None,
                    help="synthetic dataset size (default max(4*batch, 64))")
     p.add_argument("--on-device-epochs", action="store_true",
@@ -103,10 +118,6 @@ def _refuse(args) -> None:
     if args.family == "exp":
         raise SystemExit("--family exp: the ablation experiments are not in the port "
                          "yet (slice 9, experiments and auxiliaries)")
-    if args.cache_dir:
-        raise SystemExit("--cache-dir: the raw dataset loaders are not in the port yet "
-                         "(slice 6, data loaders); pack the data with fmri-tpu-prepare "
-                         "and pass the packed dir as --input")
 
 
 def _open_packed_split(args, cfg, keys):
@@ -138,10 +149,13 @@ def _open_packed_split(args, cfg, keys):
     return {key: v[k:] for key, v in train.items()}, {key: v[:k] for key, v in train.items()}
 
 
-def _raw_dataset(args) -> SystemExit:
-    return SystemExit(f"--dataset {args.dataset} without a packed --input dir: the raw "
-                      "loaders are not in the port yet (slice 6, data loaders); pack the "
-                      "data with fmri-tpu-prepare, or use --dataset synthetic")
+def _cache(args, name: str):
+    return os.path.join(args.cache_dir, f"{name}.npz") if args.cache_dir else None
+
+
+def _need_input(args) -> None:
+    if not args.input:
+        raise SystemExit(f"--dataset {args.dataset} needs --input (its data root)")
 
 
 def _load_images(args, cfg):
@@ -149,33 +163,73 @@ def _load_images(args, cfg):
     from a packed dir)."""
     from fmri_tpu_torch.data.packed import is_packed_dir
 
+    c, bs = cfg.data, cfg.train.batch_size
     if args.input and is_packed_dir(args.input):
         train, valid = _open_packed_split(args, cfg, ("image",))
         return train["image"], valid["image"]
-    if args.dataset != "synthetic":
-        raise _raw_dataset(args)
-    from fmri_tpu_torch.data.synthetic import synthetic_images
+    if args.dataset == "synthetic":
+        from fmri_tpu_torch.data.synthetic import synthetic_images
 
-    n = args.synthetic_n or max(4 * cfg.train.batch_size, 64)
-    imgs, _ = synthetic_images(n, cfg.data.image_size, seed=0)
-    k = max(len(imgs) // 10, cfg.train.batch_size)
-    return imgs[k:], imgs[:k]
+        n = args.synthetic_n or max(4 * bs, 64)
+        imgs, _ = synthetic_images(n, c.image_size, seed=0)
+        k = max(len(imgs) // 10, bs)
+        return imgs[k:], imgs[:k]
+    if args.dataset != "coco":
+        raise SystemExit(f"stage 1 expects --dataset coco|synthetic, got {args.dataset}")
+    _need_input(args)
+    from fmri_tpu_torch.data.datasets import CocoImages
+
+    train = CocoImages(args.input, crop=c.image_crop,
+                       size=c.image_size).as_array(_cache(args, "coco_train"))
+    if args.valid_input:
+        valid = CocoImages(args.valid_input, crop=c.image_crop,
+                           size=c.image_size).as_array(_cache(args, "coco_valid"))
+        return train, valid
+    k = max(len(train) // 10, bs)
+    return train[k:], train[:k]
 
 
 def _load_pairs(args, cfg):
     """Stage-II/III pairs: (train, valid) {'fmri', 'image'} dicts."""
     from fmri_tpu_torch.data.packed import is_packed_dir
 
+    c, bs = cfg.data, cfg.train.batch_size
     if args.input and is_packed_dir(args.input):
         return _open_packed_split(args, cfg, ("fmri", "image"))
-    if args.dataset != "synthetic":
-        raise _raw_dataset(args)
-    from fmri_tpu_torch.data.synthetic import synthetic_pairs
+    if args.dataset == "synthetic":
+        from fmri_tpu_torch.data.synthetic import synthetic_pairs
 
-    n = args.synthetic_n or max(4 * cfg.train.batch_size, 64)
-    data = synthetic_pairs(n, cfg.data.image_size, cfg.model.num_voxels, seed=0)
-    k = max(n // 10, cfg.train.batch_size)
-    return ({key: v[k:] for key, v in data.items()}, {key: v[:k] for key, v in data.items()})
+        n = args.synthetic_n or max(4 * bs, 64)
+        data = synthetic_pairs(n, c.image_size, cfg.model.num_voxels, seed=0)
+        k = max(n // 10, bs)
+        return ({key: v[k:] for key, v in data.items()},
+                {key: v[:k] for key, v in data.items()})
+    if args.dataset not in ("bold", "mnist69"):
+        raise SystemExit("stages 2/3 expect --dataset bold|mnist69|synthetic")
+    _need_input(args)
+    if args.dataset == "mnist69":
+        from fmri_tpu_torch.data.datasets import Mnist69
+
+        arrays = Mnist69(args.input, size=c.image_size).as_arrays()
+        k = max(len(arrays["fmri"]) // 5, bs)  # 80/20 (train_vgan_stage2.py:196)
+        return ({key: v[:-k] for key, v in arrays.items()},
+                {key: v[-k:] for key, v in arrays.items()})
+    from fmri_tpu_torch.data.datasets import BoldRoiDataset
+    from fmri_tpu_torch.data.etl import concatenate_bold_data, split_dataset
+
+    if os.path.isdir(args.input):
+        # the CSI* subject dirs present (the reference hard-codes all four)
+        subs = tuple(sorted(
+            d for d in os.listdir(args.input)
+            if d.startswith("CSI") and os.path.isdir(os.path.join(args.input, d))))
+        records = concatenate_bold_data(args.input.rstrip("/") + "/", subjects=subs or None)
+    else:  # a records pickle the user's own ETL wrote
+        with open(args.input, "rb") as f:
+            records = pickle.load(f)
+    train_recs, valid_recs = split_dataset(records, c.data_split, c.split_seed)
+    return tuple(BoldRoiDataset(recs, crop=c.image_crop, size=c.image_size)
+                 .as_arrays(_cache(args, f"bold_{tag}"))
+                 for recs, tag in ((train_recs, "train"), (valid_recs, "valid")))
 
 
 def main(argv=None) -> int:

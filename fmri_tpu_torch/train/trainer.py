@@ -18,7 +18,10 @@ steps and the trainer's keywords per stage):
   the NaN guard and patience, checkpoints on a cadence (optionally written
   by a background thread and pruned) and a final one;
 * ``profile``: a ``torch.profiler`` trace of the second epoch of the run,
-  summarized by ``python -m fmri_tpu_torch.utils.profile_report``.
+  summarized by ``python -m fmri_tpu_torch.utils.profile_report``;
+* cuDNN's deterministic algorithms (``device.deterministic_cudnn``) inside
+  ``fit`` and ``evaluate_batches``, so a seed gives one run and a resumed
+  run equals the uninterrupted one, as in the JAX trainer.
 
 Randomness comes from a draws object (:class:`Draws` by default) asked per
 (epoch, batch) for the flip mask, the shifts and the step's noise, and per
@@ -44,6 +47,7 @@ from fmri_tpu_torch.checkpoints.store import (
 from fmri_tpu_torch.configs.presets import Config
 from fmri_tpu_torch.data.pipeline import Batches, device_iterator, num_examples, to_device
 from fmri_tpu_torch.data.transforms import denormalize, train_augment
+from fmri_tpu_torch.device import deterministic_cudnn
 from fmri_tpu_torch.metrics.quality import mse, pearson_correlation, ssim
 from fmri_tpu_torch.train.epoch_scan import device_epoch, epoch_permutation
 from fmri_tpu_torch.train.state import TrainState
@@ -248,6 +252,7 @@ class Trainer:
         state, meta = restore_checkpoint(self.ckpt_dir, state, epoch=epoch)
         return state, int(meta["epoch"]) + 1
 
+    @deterministic_cudnn()
     def evaluate_batches(self, state: TrainState, batches: Iterable, draws,
                          max_batches: int = 0, save_images_to: Optional[str] = None,
                          nrow: int = 8) -> Dict[str, float]:
@@ -318,6 +323,7 @@ class Trainer:
 
     # ------------------------------------------------------------------
 
+    @deterministic_cudnn()
     def fit(self, state: TrainState, train_data, valid_data=None, *,
             n_epochs: Optional[int] = None, start_epoch: int = 0,
             eval_batches: int = 1, grid_every: int = 2,

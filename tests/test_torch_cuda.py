@@ -5,7 +5,9 @@ paths on the card against the same paths on the CPU, serving's CUDA graphs
 against its eager programs (with ``reload`` under them, and a failed
 capture raising), the stage-II/III and
 WAE train steps with the kernels against the library backward, with their
-launches per step, and ``alt_backward``'s rewrites against cuDNN's grads.
+launches per step, ``alt_backward``'s rewrites against cuDNN's grads, the
+``Trainer``'s epochs bitwise reproducible with its defaults, and the native
+``Batches`` gather bitwise numpy's on the card's host.
 
 Imports only torch, numpy and the port, so it runs where the JAX package's
 dependencies are not installed:
@@ -16,6 +18,9 @@ Tolerances: SSIM kernel vs plain 1e-5 on the means (fp32 both sides,
 different summation orders); card vs CPU images 1e-4 (cuDNN may pick FFT or
 Winograd convolutions, whose fp32 rounding differs from the CPU's direct
 convolution by a few 1e-6 on these weights); n-way fractions within 1/N."""
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -697,6 +702,80 @@ def test_device_iterator_delivers_pinned_batches_in_order(cuda_device):
         assert g["fmri"].device.type == "cuda"
         np.testing.assert_array_equal(g["fmri"].cpu().numpy(), w["fmri"])
         np.testing.assert_array_equal(g["image"].cpu().numpy(), w["image"])
+
+
+def test_native_batches_of_a_mapped_dir_are_numpys_on_the_card(cuda_device, tmp_path,
+                                                               monkeypatch):
+    """On the card's host: the port's ``Batches`` over a memory-mapped
+    pair dir (the g++-built gather and read-ahead) bitwise equal to numpy's
+    gather, also after the pinned copy to the card."""
+    from fmri_tpu_torch import native
+    from fmri_tpu_torch.data.packed import open_packed
+    from fmri_tpu_torch.data.pipeline import Batches, device_iterator
+
+    assert native.available(), native.why_unavailable()
+    rng = np.random.default_rng(3)
+    os.makedirs(tmp_path / "packed")
+    for key, arr in (("image", rng.integers(0, 256, (300, 64, 64, 3), dtype=np.uint8)),
+                     ("fmri", rng.normal(size=(300, 3620)).astype(np.float32))):
+        np.save(tmp_path / "packed" / f"{key}.npy", arr)
+    with open(tmp_path / "packed" / "meta.json", "w") as f:
+        json.dump({"keys": ["image", "fmri"]}, f)
+    data = open_packed(str(tmp_path / "packed"))
+    plain = {k: np.array(v) for k, v in data.items()}
+    batches = Batches(data, 64, shuffle=True, seed=5)
+    for epoch in range(2):
+        order = np.random.default_rng((5, epoch)).permutation(300)
+        got = list(device_iterator(iter(batches), cuda_device))
+        assert len(got) == 4
+        for b, g in enumerate(got):
+            idx = order[b * 64:(b + 1) * 64]
+            for k in plain:
+                assert g[k].device.type == "cuda"
+                assert g[k].cpu().numpy().tobytes() == plain[k][idx].tobytes(), (epoch, b, k)
+
+
+def test_trainer_fit_is_bitwise_reproducible_with_its_defaults(cuda_device, tmp_path):
+    """res64 stage I through ``Trainer.fit`` with the trainer's defaults
+    (no flag set by the caller): the same two epochs twice are bitwise
+    equal, and a run resumed after epoch 0 equals the uninterrupted epoch 1
+    (cuDNN's default dgrad sums in no fixed order; the trainer runs its
+    deterministic algorithms)."""
+    import dataclasses
+
+    from fmri_tpu_torch.checkpoints import store
+    from fmri_tpu_torch.data.synthetic import synthetic_images
+    from fmri_tpu_torch.train.stages import BUILDERS
+    from fmri_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("res64")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=64, ckpt_every=1))
+    imgs, _ = synthetic_images(256, 64, seed=0)
+    assert torch.backends.cudnn.deterministic is False
+
+    def fit(name, n_epochs=2, resume=False):
+        state, steps, kw = BUILDERS["vgan_stage1"](cfg, steps_per_epoch=3, seed=8,
+                                                   device=cuda_device)
+        run_dir = tmp_path / name
+        run_dir.mkdir()
+        trainer = Trainer(cfg, steps, str(run_dir), tensorboard=False, **kw)
+        start = 0
+        if resume:
+            state, meta = store.restore_checkpoint(str(tmp_path / "a" / "checkpoints"),
+                                                   state, epoch=0)
+            start = meta["epoch"] + 1
+        state = trainer.fit(state, imgs[64:], imgs[:64], n_epochs=n_epochs,
+                            start_epoch=start)
+        assert torch.backends.cudnn.deterministic is False
+        return state
+
+    a, b, resumed = fit("a"), fit("b"), fit("c", resume=True)
+    for other in (b, resumed):
+        sa, so = a.nets.state_dict(), other.nets.state_dict()
+        assert all(torch.equal(sa[k], so[k]) for k in sa)
+        for g in a.opt_state:
+            for k, v in a.opt_state[g].items():
+                assert torch.equal(v, other.opt_state[g][k]), (g, k)
 
 
 # ------------------------------------------------------ serving's CUDA graphs

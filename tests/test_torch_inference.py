@@ -207,13 +207,14 @@ def test_inference_cli_on_a_pth(tiny, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--family", "wae", "--dataset", "coco"], "not ported yet"),
-    (["--family", "wae-vgan", "--dataset", "mnist69"], "not ported yet"),
-    (["--family", "vgan", "--dataset", "bold"], "not ported yet"),
+    (["--family", "wae", "--dataset", "coco"], "needs --input"),
+    (["--family", "wae-vgan", "--dataset", "mnist69"], "stage 1 expects"),
+    (["--family", "vgan", "--dataset", "bold"], "stage 1 expects"),
 ])
 def test_inference_cli_refuses_what_is_not_ported(tmp_path, argv, message):
-    """Every family reaches the data loaders, which refuse the raw
-    datasets the port does not read yet."""
+    """Every family reaches the train CLI's data loaders, which refuse what
+    they cannot read: a raw dataset without ``--input``, or one the stage
+    does not take (the default ``--stage`` is 1, image -> image)."""
     with pytest.raises(SystemExit, match=message):
         inference.main(argv + ["--ckpt", "x.pth", "--preset", "tiny",
                                "--device", "cpu", "-o", str(tmp_path)])

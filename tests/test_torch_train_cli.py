@@ -1,7 +1,8 @@
 """``python -m fmri_tpu_torch.train.run`` on the CPU (``tiny``, synthetic data):
 the vgan and WAE chains through the port's own checkpoint dirs, WAE/Dual-GAN,
 resume, ``--evaluate``, retention, a packed input, the refusals, and the
-inference CLI reading a training run's checkpoint dir."""
+inference CLI reading a training run's checkpoint dir. The raw datasets are
+in ``test_torch_cli_raw.py``."""
 
 import csv
 import glob
@@ -134,11 +135,7 @@ def test_packed_input(tmp_path):
 
 @pytest.mark.parametrize("args,slice_", [
     (["--family", "vgan", "--mesh", "data=2"], "slice 10"),
-    (["--family", "exp", "--exp", "vae"], "slice 9"),
-    (["--family", "vgan", "--dataset", "coco"], "slice 6"),
-    (["--family", "vgan", "--stage", "2", "--dataset", "bold", "--prev-ckpt", "x"], "slice 6"),
-    (["--family", "wae", "--dataset", "mnist69"], "slice 6"),
-    (["--family", "vgan", "--cache-dir", "/nonexistent"], "slice 6")])
+    (["--family", "exp", "--exp", "vae"], "slice 9")])
 def test_unported_options_name_their_slice(tmp_path, args, slice_):
     with pytest.raises(SystemExit, match=slice_):
         run.main([*BASE, "-o", str(tmp_path), *args])
