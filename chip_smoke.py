@@ -17,7 +17,10 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      alone and must be exactly 4, and each is recorded with its shape (1,024
      images for ``quality_metrics``, 2,048, 5,120 and 10,240 for the n-way
      tests); the metrics must agree with the same run on
-     the plain SSIM (SSIM within 1e-5, n-way fractions within 1/N), and a
+     the plain SSIM (SSIM within 1e-5, n-way fractions within 1/N); the
+     Inception Score (the proxy) is its own stage, its probabilities held
+     against the same proxy on the CPU (``PROXY_PROB_TOL``, ``IS_REL_TOL``),
+     ``quality_metrics`` timed without it as before; and a
      small batch must agree with the same model on the CPU (atol 1e-4: cuDNN
      may pick FFT or Winograd convolutions, which round differently). Then
      the stage-I inference path (``--stage 1``: image -> image through a
@@ -178,6 +181,31 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      (exactly 4 SSIM launches, ``data_inference``, each held against
      plain); ``--dataset mnist69`` from a ``scipy.io.savemat`` file. Each
      run prints its seconds per step and wall seconds.
+  14. prepare: the offline ETL (``prepare_phase``). A BOLD5000-layout tree
+     (``write_bold5000``: 320 COCO-named stimuli of 400-480 px, a
+     ``ds001499`` session tree of 4 subjects x 2 runs of 50 trials, one
+     run without an ``ImgType`` column, empty cells, a file outside the run
+     pattern; ``stim_lists`` with ``rep_`` entries) through ``python -m
+     fmri_tpu_torch.data.prepare`` in subprocesses: ``parse-sessions``,
+     ``stimuli-paths``, ``split-stimuli``, ``pack`` and ``pack-stream``
+     over an ``.npz`` cache, a record pickle and the stimulus dir, each
+     timed and its summary line checked (``extract-roi`` is not run: it
+     needs h5py; the phase writes the ROI arrays itself); the cache and the
+     pickle stream to the same bytes; then the train CLI one epoch on the
+     streamed stimuli (2 SSIM launches) and the inference CLI on the pack
+     output through ``--cache-dir`` with the decoder raising (4). No kernel
+     launch in this process over the subcommands (``prepare: 0``);
+  15. is_parity (``is_parity_phase``): (a) Inception-v3 at full width,
+     seeded weights in torchvision's layout through
+     ``FMRI_TPU_INCEPTION_NPZ``, over phase 4's 1,024 reconstructions at
+     299 px, timed, 8 images' probabilities against the CPU
+     (``V3_PROB_TOL``); (b) ``python -m fmri_tpu_torch.eval.parity`` at
+     ``res100`` (latent 512) stage 3 on 2,560 synthetic pairs with the IS
+     on: a ``.pth`` of random weights and a checkpoint dir of the same
+     weights agree, ``parity.json`` has the JAX CLI's keys, exactly 8 SSIM
+     launches (4 per row), each recorded 100 px call held against the
+     plain version in float64 and timed beside its bound; the res100
+     reconstruction's seconds and images per second, seconds by stage.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -213,6 +241,9 @@ SSIM_IMAGE_TOL = 1e-3
 # SSIM launches per inference run: quality_metrics 1, objective_scores 3
 # (the 2/5/10-way tests)
 SSIM_LAUNCHES_PER_RUN = 4
+# the IS proxy on the card against the CPU, on the same reconstructions: its
+# probabilities (about 1e-3 each over 1,000 classes) and the IS's mean
+PROXY_PROB_TOL, IS_REL_TOL = 1e-6, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -2268,7 +2299,7 @@ def epoch_seconds(packed, numpy=False, cold=False, in_ram=False) -> float:
         return time.perf_counter() - t0
 
 
-def cli_run(main, argv, want_ssim, name):
+def cli_run(main, argv, want_ssim, name, tag="data"):
     """``main(argv)`` of a port CLI (the train CLI, or the inference CLI),
     with the launch counts set to 0 just before and read just after: BN and
     dW 0, SSIM exactly ``want_ssim``, each SSIM call held against its plain
@@ -2306,11 +2337,26 @@ def cli_run(main, argv, want_ssim, name):
         err, img_err, img_err_plain = hold_ssim_call(a, b, rest)
         plain_err = abs(float(ssim_plain(a, b, *rest))
                         - float(ssim_plain(a.double(), b.double(), *rest)))
-        print(f"[data] {name}: ssim {list(a.shape)} from the plain version in float64: "
+        print(f"[{tag}] {name}: ssim {list(a.shape)} from the plain version in float64: "
               f"mean, kernel {err:.3g}, fp32 plain {plain_err:.3g}; per image at most, "
               f"kernel {img_err:.3g}, fp32 plain {img_err_plain:.3g}", flush=True)
     per_step = [s / n for c in clocks for s, n in c.loops]
     return launches, per_step, wall
+
+
+def draw_stimulus(rng, size_range):
+    """An RGB uint8 stimulus, its sides drawn from ``size_range``: two
+    colour gradients and a flat rectangle (smooth, as photographs are, with
+    flat regions)."""
+    import numpy as np
+
+    h, w = (int(v) for v in rng.integers(*size_range, 2))
+    y, x = np.mgrid[0:h, 0:w]
+    c0, c1, rc = rng.uniform(0, 255, (3, 3))
+    img = (y[..., None] / h * c0 + x[..., None] / w * c1).astype(np.float32)
+    y0, x0 = int(rng.integers(0, h // 2)), int(rng.integers(0, w // 2))
+    img[y0:y0 + h // 3, x0:x0 + w // 3] = rc
+    return img.clip(0, 255).astype(np.uint8)
 
 
 def write_raw(root, size_range, voxels, seed):
@@ -2331,13 +2377,8 @@ def write_raw(root, size_range, voxels, seed):
     os.makedirs(coco)
     paths = []
     for i in range(RAW_IMAGES):
-        h, w = (int(v) for v in rng.integers(*size_range, 2))
-        y, x = np.mgrid[0:h, 0:w]
-        c0, c1, rc = rng.uniform(0, 255, (3, 3))
-        img = (y[..., None] / h * c0 + x[..., None] / w * c1).astype(np.float32)
-        y0, x0 = int(rng.integers(0, h // 2)), int(rng.integers(0, w // 2))
-        img[y0:y0 + h // 3, x0:x0 + w // 3] = rc
-        img = img.clip(0, 255).astype(np.uint8)
+        img = draw_stimulus(rng, size_range)
+        h, w = img.shape[:2]
         if i % 7 == 3:
             mode, ext = "L", "png"
             img = img[..., 0]
@@ -2567,7 +2608,438 @@ def data_phase(preset="res64", pairs=DATA_PAIRS, cli_pairs=DATA_CLI_PAIRS,
     return launches, numbers
 
 
+# phase 14, the offline ETL: a BOLD5000-layout tree (4 subjects x 2 runs of
+# 50 trials over 320 stimuli of 400-480 px) through the prepare CLI's
+# subcommands as subprocesses, then the train CLI on a pack-stream dir and the
+# inference CLI on the pack output
+PREP_SUBJECTS, PREP_TRIALS, PREP_STIMULI = 4, 100, 320
+
+
+def write_bold5000(root, size_range, seed):
+    """A BOLD5000 release as users download it: ``stimuli/COCO`` (JPEG
+    stimuli named as COCO's), ``ds001499/sub-CSI<s>/ses-01/func`` with two
+    runs per subject (a ``*_bold.nii.gz`` and its ``events.tsv``; run 2 has
+    no ``ImgType`` column; run 1 has a row with an empty ``ImgName`` and one
+    with an empty ``ImgType``; a file outside the run pattern) and
+    ``stim_lists/CSI0<s>_stim_lists.txt`` (every third entry ``rep_``).
+    Returns {subject: the stimulus names its runs show}."""
+    import csv
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from fmri_tpu_torch.data import nifti
+
+    rng = np.random.default_rng(seed)
+    names = [f"COCO_train2014_{i:012d}.jpg" for i in range(PREP_STIMULI)]
+    coco = os.path.join(root, "stimuli", "COCO")
+    os.makedirs(coco)
+    for name in names:
+        Image.fromarray(draw_stimulus(rng, size_range)).save(os.path.join(coco, name))
+    shown, lists = {}, os.path.join(root, "stim_lists")
+    os.makedirs(lists)
+    half = PREP_TRIALS // 2
+    for s in range(1, PREP_SUBJECTS + 1):
+        sub = f"CSI{s}"
+        shown[sub] = [names[(7 * i + s) % PREP_STIMULI] for i in range(PREP_TRIALS)]
+        func = os.path.join(root, "ds001499", f"sub-{sub}", "ses-01", "func")
+        os.makedirs(func)
+        for run, rows in ((1, shown[sub][:half]), (2, shown[sub][half:])):
+            stem = f"sub-{sub}_ses-01_task-5000scenes_run-{run:02d}"
+            nifti.save(os.path.join(func, f"{stem}_bold.nii.gz"),
+                       np.zeros((2, 2, 2, 4), np.int16))
+            with open(os.path.join(func, f"{stem}_events.tsv"), "w", newline="") as f:
+                w = csv.writer(f, delimiter="\t")
+                if run == 1:
+                    w.writerow(["onset", "duration", "ImgName", "ImgType"])
+                    w.writerows([10.0 * i, 1.0, n, "rep_coco" if i % 3 == 1 else "coco"]
+                                for i, n in enumerate(rows))
+                    w.writerow([10.0 * half, 1.0, "", "coco"])
+                    w.writerow([10.0 * half + 10, 1.0, "beach_1.jpg", ""])
+                else:
+                    w.writerow(["onset", "duration", "ImgName"])
+                    w.writerows([10.0 * i, 1.0, n] for i, n in enumerate(rows))
+        nifti.save(os.path.join(func, f"sub-{sub}_ses-01_task-5000scenes_acq-x_bold.nii.gz"),
+                   np.zeros((2, 2, 2, 4), np.int16))
+        with open(os.path.join(lists, f"CSI0{s}_stim_lists.txt"), "w") as f:
+            f.write("\n".join(("rep_" if i % 3 == 2 else "") + n
+                              for i, n in enumerate(shown[sub])) + "\n")
+    return shown
+
+
+def prepare_phase(preset="res64", size_range=(400, 481), cli_args=()):
+    """Phase 14: the offline ETL. On a BOLD5000-layout tree
+    (``write_bold5000``), ``python -m fmri_tpu_torch.data.prepare`` in
+    subprocesses: ``parse-sessions``, ``stimuli-paths``, ``split-stimuli``,
+    then ``pack`` (the ROI arrays written as ``extract-roi`` would, which
+    needs h5py), ``pack-stream`` over an ``.npz`` cache, a record pickle and
+    the stimulus dir; each summary line checked, the two pair dirs equal
+    byte for byte, the streamed images the in-process decode's. Then the
+    train CLI one epoch on the streamed stimulus dir (2 SSIM launches) and
+    the inference CLI on the ``pack`` output through ``--cache-dir`` with
+    the decoder raising (4 SSIM launches). Returns ({path: launches},
+    {numbers})."""
+    import importlib.util
+    import math
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups, random_groups
+    from fmri_tpu_torch.configs import get_config
+    from fmri_tpu_torch.data import datasets
+    from fmri_tpu_torch.data.packed import _quantize_u8
+    from fmri_tpu_torch.data.transforms import load_stimulus
+    from fmri_tpu_torch.eval import inference
+    from fmri_tpu_torch.eval.steps import VaeGanCognitive
+    from fmri_tpu_torch.train import run
+
+    cfg = get_config(preset)
+    size, voxels = cfg.data.image_size, cfg.model.num_voxels
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_runs", "prepare")
+    shutil.rmtree(work, ignore_errors=True)
+    launches, numbers = {}, {}
+    try:
+        t0 = time.perf_counter()
+        shown = write_bold5000(work, size_range, seed=4)
+        print(f"[prepare] BOLD5000 tree written in {time.perf_counter() - t0:.1f} s: "
+              f"{PREP_STIMULI} stimuli, {PREP_SUBJECTS} subjects x 2 runs of "
+              f"{PREP_TRIALS // 2} trials", flush=True)
+        out = os.path.join(work, "out")
+        roi = os.path.join(out, "bold_roi")
+        packed = os.path.join(out, "packed")
+        coco = os.path.join(work, "stimuli", "COCO")
+
+        set_launches(0)
+
+        def prepare(name, *flags):
+            """``name``'s subcommand (its first word) in a subprocess, timed;
+            returns its summary line."""
+            t = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "fmri_tpu_torch.data.prepare",
+                                name.split()[0], *flags],
+                               capture_output=True, text=True, timeout=300,
+                               cwd=os.path.dirname(os.path.abspath(__file__)))
+            numbers[name] = time.perf_counter() - t
+            check(r.returncode == 0, f"prepare {name}: exit {r.returncode}\n{r.stderr}")
+            return json.loads(r.stdout.strip().splitlines()[-1])
+
+        n_trials = PREP_SUBJECTS * (PREP_TRIALS + 1)  # the empty ImgName is kept
+        got = prepare("parse-sessions", "-i", os.path.join(work, "ds001499"),
+                      "--stimuli", os.path.join(work, "stimuli"), "-o",
+                      os.path.join(out, "bold5000.pickle"))
+        check(got["trials"] == n_trials, f"parse-sessions: {got}, want {n_trials} trials")
+        got = prepare("stimuli-paths", "-i", os.path.join(work, "stim_lists"),
+                      "--bold-index", os.path.join(out, "bold5000.pickle"), "-o", roi)
+        check(got == {s: PREP_TRIALS for s in shown}, f"stimuli-paths: {got}")
+        got = prepare("split-stimuli", "-i",
+                      os.path.join(work, "stim_lists", "CSI01_stim_lists.txt"), "-o", roi)
+        unique = len(set(shown["CSI1"]))
+        n_test = math.ceil(0.1 * unique)  # the default --ratio
+        check(got == {"train": unique - n_test, "valid": n_test},
+              f"split-stimuli: {got} of {unique} stimuli")
+        h5py = importlib.util.find_spec("h5py") is not None
+        print(f"[prepare] extract-roi not run here: it reads the figshare ROI .h5 files "
+              f"with h5py ({'installed' if h5py else 'not installed on this machine'}), "
+              f"and the CPU tests hold it against the JAX package's; the phase writes "
+              f"<sub>_roi_pad.npz itself", flush=True)
+        rng = np.random.default_rng(5)
+        for s, sub in enumerate(shown):
+            np.savez(os.path.join(roi, sub, f"{sub}_roi_pad.npz"),
+                     roi=rng.normal(0.5 * s, 1.0 + s, (PREP_TRIALS, voxels)))
+        n = PREP_SUBJECTS * PREP_TRIALS
+        n_valid = -(-n // 5)  # split_dataset's ceil(0.2 * n)
+        shape_flags = ("--crop", str(cfg.data.image_crop), "--size", str(size))
+        got = prepare("pack", "-i", roi, "-o", packed, *shape_flags)
+        pairs = {tag: {"fmri": [m, voxels], "image": [m, size, size, 3]}
+                 for tag, m in (("train", n - n_valid), ("valid", n_valid))}
+        check(got == pairs, f"pack: {got}")
+        streams = {}
+        for kind, source in (("npz", os.path.join(packed, "bold_train.npz")),
+                             ("pickle", os.path.join(packed, "bold_train.pickle")),
+                             ("images", coco)):
+            streams[kind] = os.path.join(out, f"stream_{kind}")
+            got = prepare(f"pack-stream {kind}", "-i", source,
+                          "-o", streams[kind], *shape_flags)
+            want = ({"image": [PREP_STIMULI, size, size, 3]} if kind == "images"
+                    else pairs["train"])
+            check(got == want, f"pack-stream {kind}: {got}, want {want}")
+        launches["prepare"] = set_launches(0)
+        check(set(launches["prepare"].values()) == {0},
+              f"prepare: launches {launches['prepare']} in this process")
+        for name in ("fmri.npy", "image.npy", "meta.json"):
+            with open(os.path.join(streams["npz"], name), "rb") as f, \
+                    open(os.path.join(streams["pickle"], name), "rb") as g:
+                check(f.read() == g.read(),
+                      f"pack-stream: {name} of the .npz cache and of its records differ")
+        streamed = np.load(os.path.join(streams["images"], "image.npy"), mmap_mode="r")
+        paths = sorted(os.listdir(coco))
+        for i in (0, PREP_STIMULI // 2, PREP_STIMULI - 1):
+            want = _quantize_u8(load_stimulus(os.path.join(coco, paths[i]),
+                                              cfg.data.image_crop, size))
+            check(np.array_equal(streamed[i], want),
+                  f"pack-stream images: image {i} differs from the in-process decode")
+        print(f"[prepare] subcommands (python -m fmri_tpu_torch.data.prepare, wall s each, "
+              f"process start included): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in numbers.items())
+              + f"; the .npz cache and the record pickle stream to the same bytes; "
+              f"launches in this process {launches['prepare']}", flush=True)
+
+        launches["prepare_train_cli"], per_step, wall = cli_run(run.main, [
+            "--family", "vgan", "--stage", "1", "--preset", preset, "--input",
+            streams["images"], "--epochs", "1", "-o", os.path.join(work, "train"),
+            *cli_args], 2, "train CLI on a pack-stream dir", tag="prepare")
+        numbers["train_cli_wall"] = wall
+        numbers["train_cli_s_per_step"] = per_step
+        model = VaeGanCognitive(cfg.model)
+        model.load_state_dict(from_jax_groups(random_groups(cfg, seed=6), cfg), strict=True)
+        pth = os.path.join(work, "stage3.pth")
+        torch.save(model.state_dict(), pth)
+
+        def no_decoding(*a, **k):
+            raise AssertionError("a stimulus was decoded though the pack output holds it")
+
+        real_load = datasets.load_stimulus
+        datasets.load_stimulus = no_decoding
+        try:
+            launches["prepare_inference"], _, wall = cli_run(inference.main, [
+                "--family", "vgan", "--stage", "3", "--dataset", "bold", "-i", roi,
+                "--cache-dir", packed, "--ckpt", pth, "--preset", preset, "-o",
+                os.path.join(work, "inference"), *cli_args], SSIM_LAUNCHES_PER_RUN,
+                "inference CLI on the pack output", tag="prepare")
+        finally:
+            datasets.load_stimulus = real_load
+        numbers["inference_wall"] = wall
+        with open(os.path.join(work, "inference", "summary.json")) as f:
+            summary = json.load(f)
+        check(summary["num_images"] == n_valid and 0.0 < summary["ssim"] <= 1.0
+              and summary["is_proxy"] == 1.0 and summary["is_mean"] > 0.999,
+              f"inference on the pack output: {summary}")
+        print(f"[prepare] python -m fmri_tpu_torch.train.run --input <pack-stream dir of "
+              f"{PREP_STIMULI} stimuli>, 1 epoch: {numbers['train_cli_wall']:.2f} s wall, s "
+              f"per step {['%.4f' % s for s in per_step]}, launches "
+              f"{launches['prepare_train_cli']}; the inference CLI on the pack output "
+              f"({n_valid} pairs from bold_valid.npz, nothing decoded): {wall:.2f} s, "
+              f"launches {launches['prepare_inference']}, ssim {summary['ssim']:.4f}, "
+              f"is_mean {summary['is_mean']:.6f}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, numbers
+
+
+class Timed:
+    """Stands in for ``module.name``, keeping the seconds of each call
+    (synchronized before and after on the card)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.orig = module, name, getattr(module, name)
+        self.seconds = []
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.orig(*args, **kw)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+    def restore(self):
+        setattr(self.module, self.name, self.orig)
+
+
+# phase 15: Inception-v3 (random weights in torchvision's layout) over phase
+# 4's 1,024 res64 reconstructions at 299 px; the parity CLI at res100
+# (latent 512), stage 3, on 2,560 synthetic pairs (its 256-pair validation
+# split, batch 100)
+# card vs CPU Inception-v3 (fp32 both, TF32 off): the probabilities, and the
+# logits relative to their largest magnitude (cuDNN's algorithms against the
+# CPU's over 94 convs)
+V3_PROB_TOL, V3_LOGIT_TOL = 1e-5, 1e-3
+PARITY_SYNTHETIC = 2_560
+PARITY_ROW_KEYS = ["checkpoint", "num_images", "pcc", "ssim", "mse", "is_mean", "is_std",
+                   "is_proxy", "pcc_2way", "ssim_2way", "pcc_5way", "ssim_5way",
+                   "pcc_10way", "ssim_10way"]
+
+
+def is_parity_phase(dev, recons, preset="res100", synthetic=PARITY_SYNTHETIC, cli_args=()):
+    """Phase 15. (a) Inception-v3 at full width: seeded weights in
+    torchvision's layout (``inception_v3.random_weights``) written to an
+    ``.npz`` that ``FMRI_TPU_INCEPTION_NPZ`` names, ``inception_score`` over
+    ``recons`` (each upsampled to 299 px), timed warm; 8 images'
+    probabilities on the card against the same module on the CPU. (b) the
+    parity CLI at ``res100`` stage 3 with the IS (the proxy) on: ``--ref-ckpt``
+    a ``.pth`` of random weights (``torch.save`` of the eval module's
+    ``state_dict``, read back by ``load_pth``), ``--ckpt`` a port checkpoint
+    dir of the same weights in a stage-3 ``TrainState``; both rows agree,
+    ``parity.json`` has the JAX CLI's keys, SSIM launches 4 per row, each
+    recorded 100 px call held against the plain version in float64 and
+    timed beside its bound. ``preset``, ``synthetic`` and ``cli_args`` let a
+    rehearsal on the CPU run it small. Returns (launches, {numbers}, [SSIM
+    shapes])."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups, load_pth, random_groups
+    from fmri_tpu_torch.checkpoints.store import save_checkpoint
+    from fmri_tpu_torch.configs import get_config
+    from fmri_tpu_torch.data.transforms import resize_batch
+    from fmri_tpu_torch.eval import evaluate, parity
+    from fmri_tpu_torch.eval.steps import VaeGanCognitive
+    from fmri_tpu_torch.metrics import inception, inception_v3
+    from fmri_tpu_torch.ops import ssim as ssim_ops
+    from fmri_tpu_torch.ops.ssim import ssim_plain, ssim_plane_sums
+    from fmri_tpu_torch.train.state import VaeGanCognitiveTrain, make_cognitive_state
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_runs", "is_parity")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    numbers = {}
+    try:
+        # (a) Inception-v3 over the res64 reconstructions
+        npz = os.path.join(work, "inception_v3.npz")
+        np.savez(npz, **inception_v3.random_weights(seed=0))
+        os.environ["FMRI_TPU_INCEPTION_NPZ"] = npz
+        try:
+            check(not inception.is_proxy(), "FMRI_TPU_INCEPTION_NPZ set, yet the proxy scores")
+            inception.classify(recons[:64])  # loads the weights, warms cuDNN
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, std, proxy = inception.inception_score(recons)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            card = inception_v3.classify_with_weights(npz, recons[:8])
+            cpu = inception_v3.classify_with_weights(npz, recons[:8].cpu())
+        finally:
+            del os.environ["FMRI_TPU_INCEPTION_NPZ"]
+        x8 = resize_batch(recons[:8], inception_v3.INPUT_SIZE).permute(0, 3, 1, 2).contiguous()
+        with torch.no_grad():
+            logits = inception_v3.load_model(npz, x8.device)(x8).cpu()
+            logits_cpu = inception_v3.load_model(npz, torch.device("cpu"))(x8.cpu())
+        err = float(np.abs(card - cpu).max())
+        logit_err = float((logits - logits_cpu).abs().max() / logits_cpu.abs().max())
+        check(np.isfinite(mean) and mean > 0.999 and not proxy,
+              f"Inception-v3 IS {mean} +- {std}, is_proxy {proxy}")
+        check(err <= V3_PROB_TOL and logit_err <= V3_LOGIT_TOL,
+              f"Inception-v3 card vs CPU: probabilities {err} (bound {V3_PROB_TOL}), logits "
+              f"{logit_err} of the largest (bound {V3_LOGIT_TOL})")
+        numbers["inception_v3"] = {"images": len(recons), "seconds": secs,
+                                   "images_per_s": len(recons) / secs, "is_mean": mean,
+                                   "is_std": std, "is_proxy": float(proxy),
+                                   "card_vs_cpu_prob": err, "card_vs_cpu_logit_rel": logit_err,
+                                   "logit_std": float(logits_cpu.std())}
+        print(f"[is_parity] Inception-v3 (random weights, torchvision layout) over "
+              f"{len(recons)} reconstructions of {recons.shape[1]} px, each upsampled to "
+              f"{inception_v3.INPUT_SIZE} px: {secs:.3f} s, "
+              f"{len(recons) / secs:.1f} images/s; is_mean {mean:.6f}, is_std {std:.3g}, "
+              f"is_proxy {float(proxy):.0f}; 8 images card vs CPU: probabilities {err:.3g} "
+              f"(bound {V3_PROB_TOL}), logits {logit_err:.3g} of the largest (bound "
+              f"{V3_LOGIT_TOL}; logits' std {float(logits_cpu.std()):.3g})", flush=True)
+
+        # (b) the parity CLI at res100
+        cfg = get_config(preset)
+        size = cfg.data.image_size
+        model = VaeGanCognitive(cfg.model)
+        model.load_state_dict(from_jax_groups(random_groups(cfg, seed=1), cfg), strict=True)
+        pth = os.path.join(work, "vaegan_cog_3st.pth")
+        torch.save(model.state_dict(), pth)
+        back = load_pth(pth)
+        check(back.keys() == model.state_dict().keys()
+              and all(torch.equal(back[k], v) for k, v in model.state_dict().items()),
+              "load_pth does not read back the saved state dict")
+        nets = VaeGanCognitiveTrain(cfg)
+        nets.load_state_dict(from_jax_groups(random_groups(cfg, seed=1, kind="vae-gan-cognitive"),
+                                             cfg, "vae-gan-cognitive"), strict=True)
+        ckpt = os.path.join(work, "checkpoints")
+        save_checkpoint(ckpt, 0, make_cognitive_state(nets.to(dev), cfg, 3))
+        del nets
+        calls = {}
+        recorder = Recorder(ssim_ops, "ssim_plane_sums", calls)
+        timers = {name: Timed(evaluate, name) for name in (
+            "reconstruct_dataset", "quality_metrics", "inception_score", "objective_scores")}
+        out = os.path.join(work, "parity")
+        set_launches(0)
+        t0 = time.perf_counter()
+        try:
+            check(parity.main(["--family", "vgan", "--stage", "3", "--preset", preset,
+                               "--ref-ckpt", pth, "--ckpt", ckpt, "--dataset", "synthetic",
+                               "--synthetic-n", str(synthetic), "-o", out,
+                               *cli_args]) == 0, "the parity CLI failed")
+        finally:
+            wall = time.perf_counter() - t0
+            launches = set_launches(0)
+            recorder.restore()
+            for t in timers.values():
+                t.restore()
+        check(launches == {"bn_bwd_reduce": 0, "bn_bwd_apply": 0, "tap_matmul": 0,
+                           "ssim": 2 * SSIM_LAUNCHES_PER_RUN},
+              f"parity CLI: launches {launches}, want {2 * SSIM_LAUNCHES_PER_RUN} SSIM")
+        with open(os.path.join(out, "parity.json")) as f:
+            report = json.load(f)
+        check(list(report) == ["preset", "family", "stage", "dataset", "rows"]
+              and [list(r) for r in report["rows"]] == [PARITY_ROW_KEYS] * 2,
+              f"parity.json keys: {list(report)}, rows {[list(r) for r in report['rows']]}")
+        ref, fw = report["rows"]
+        n = ref["num_images"]
+        gaps = {k: abs(ref[k] - fw[k]) for k in PARITY_ROW_KEYS[1:]}
+        check(n == fw["num_images"] == max(synthetic // 10, cfg.train.batch_size)
+              and all(gaps[k] <= 1e-6 for k in ("pcc", "ssim", "mse", "is_std"))
+              and gaps["is_mean"] <= 1e-6 * ref["is_mean"] and ref["is_proxy"] == 1.0
+              and all(gaps[k] <= 1.0 / n for k in PARITY_ROW_KEYS if k.endswith("way")),
+              f"the parity rows disagree: {ref} vs {fw}")
+        with open(os.path.join(out, "parity.md")) as f:
+            header = f.readline().strip()
+        check(header == "| checkpoint | pcc | ssim | mse | pcc_2way | pcc_5way | pcc_10way | "
+                        "ssim_2way | ssim_5way | ssim_10way |", f"parity.md header {header}")
+        shapes = []
+        for (a, b, *rest), count in calls.values():
+            check(tuple(a.shape[1:]) == (size, size, 3), f"ssim call at {list(a.shape)}")
+            err, img_err, img_err_plain = hold_ssim_call(a, b, rest)
+            ms = cuda_ms(lambda: ssim_plane_sums(a, b, *rest), iters=10)
+            dev_ms, source = device_ms(lambda: ssim_plane_sums(a, b, *rest))
+            plain_ms = cuda_ms(lambda: ssim_plain(a, b, *rest, size_average=False),
+                               iters=3, warmup=1)
+            bound_ms, bound_by = ssim_bound(tuple(a.shape))
+            shapes.append({"shape": list(a.shape), "count": count, "ms": ms,
+                           "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "max_abs_err": err})
+            print(f"[is_parity] ssim {list(a.shape)} x{count}: {ms:.4f} ms per call, device "
+                  f"{dev_ms:.4f} ms ({source}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+                  f"ms ({bound_by}; {100 * bound_ms / dev_ms:.1f}% of it on the device), "
+                  f"|kernel - plain in float64| {err:.3g}; per image from float64: kernel "
+                  f"{img_err:.3g}, fp32 plain {img_err_plain:.3g}", flush=True)
+        stages = {name: t.seconds for name, t in timers.items()}
+        rec = stages["reconstruct_dataset"]
+        numbers["parity_res100"] = {"wall_s": wall, "images_per_row": n,
+                                    "seconds_by_stage": stages,
+                                    "reconstruct_images_per_s": [n / s for s in rec],
+                                    "row": {k: ref[k] for k in PARITY_ROW_KEYS[1:]},
+                                    "row_gaps": gaps}
+        print(f"[is_parity] python -m fmri_tpu_torch.eval.parity --preset {preset} --stage 3 "
+              f"(a .pth and a checkpoint dir of the same weights, {n} synthetic pairs each, "
+              f"IS on): {wall:.2f} s wall; launches {launches}; reconstruction "
+              f"{['%.4f' % s for s in rec]} s ({['%.1f' % (n / s) for s in rec]} images/s); "
+              f"seconds by stage (each row) "
+              + "; ".join(f"{k} {['%.4f' % s for s in v]}" for k, v in stages.items())
+              + f"; reference row {json.dumps({k: ref[k] for k in PARITY_ROW_KEYS[1:]})}; "
+              f"largest row gap {max(gaps.values()):.3g}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, numbers, shapes
+
+
 def main() -> None:
+    import os
+
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -2582,12 +3054,16 @@ def main() -> None:
         )
         from fmri_tpu_torch.eval.serve import ServingModel
         from fmri_tpu_torch.eval.steps import VaeGanCognitive, VaeGanVisual
+        from fmri_tpu_torch.metrics.inception import classify, inception_score
         from fmri_tpu_torch.metrics.quality import distractor_indices
         from fmri_tpu_torch.ops import build
         from fmri_tpu_torch.ops import ssim as ssim_ops
         from fmri_tpu_torch.ops.ssim import ssim, ssim_plain, ssim_plane_sums
     except ImportError as e:
         fail(f"run from the root of a checkout of the repository ({e})")
+    # which classifier scores the IS is the smoke's choice: the proxy, and
+    # Inception-v3 on phase 15's weights
+    os.environ.pop("FMRI_TPU_INCEPTION_NPZ", None)
 
     # 1. device
     dev = resolve_device("cuda")
@@ -2645,7 +3121,9 @@ def main() -> None:
 
         r, t = stage("reconstruct", lambda: reconstruct_dataset(
             model, batches, mean=cfg.data.mean, std=cfg.data.std))
-        m = stage("quality_metrics", lambda: quality_metrics(r, t))
+        m = stage("quality_metrics", lambda: quality_metrics(r, t, with_is=False))
+        is_mean, is_std, proxy = stage("inception_score", lambda: inception_score(r))
+        m.update(is_mean=is_mean, is_std=is_std, is_proxy=float(proxy))
         s = stage("objective_scores", lambda: objective_scores(r, t, tops=(2, 5, 10)))
         return r, t, m, s, seconds
 
@@ -2677,7 +3155,22 @@ def main() -> None:
     check(0.0 <= float(recons.min()) and float(recons.max()) <= 1.0,
           "reconstructions outside [0, 1]")
 
-    plain_metrics = quality_metrics(recons, targets, ssim_fn=ssim_plain)
+    # the IS proxy on the card against the same proxy on the CPU, same recons
+    probs, probs_cpu = classify(recons), classify(recons.cpu())
+    prob_err = float(np.abs(probs - probs_cpu).max())
+    is_cpu = inception_score(recons.cpu())[0]
+    is_err = abs(metrics["is_mean"] - is_cpu) / is_cpu
+    check(metrics["is_proxy"] == 1.0 and prob_err <= PROXY_PROB_TOL and is_err <= IS_REL_TOL,
+          f"IS proxy card vs CPU: probabilities {prob_err} (bound {PROXY_PROB_TOL}), "
+          f"is_mean {metrics['is_mean']} vs {is_cpu} ({is_err} relative, bound "
+          f"{IS_REL_TOL}), is_proxy {metrics['is_proxy']}")
+    print(f"[inference] inception score (proxy, {n} recons at 64 px, on the card): "
+          f"{warm['inception_score']:.4f} s warm ({cold['inception_score']:.4f} s first); "
+          f"is_mean {metrics['is_mean']:.8f}, is_std {metrics['is_std']:.3g}; card vs CPU: "
+          f"probabilities {prob_err:.3g} (bound {PROXY_PROB_TOL}), is_mean {is_err:.3g} "
+          f"relative (bound {IS_REL_TOL})", flush=True)
+
+    plain_metrics = quality_metrics(recons, targets, with_is=False, ssim_fn=ssim_plain)
     plain_scores = objective_scores(recons, targets, tops=(2, 5, 10),
                                     ssim_fn=ssim_plain)
     err = abs(metrics["ssim"] - plain_metrics["ssim"])
@@ -2804,6 +3297,16 @@ def main() -> None:
 
     # 13. the host data path: the native loader, the CLIs on packed and raw data
     data_launches, data_numbers = data_phase()
+    # 14. the offline ETL: the prepare CLI, then the train and inference CLIs
+    #     on what it wrote; 15. Inception-v3 and the parity CLI at res100
+    t0 = time.perf_counter()
+    prep_launches, prep_numbers = prepare_phase()
+    prep_numbers["phase_s"] = time.perf_counter() - t0
+    data_launches.update(prep_launches)
+    t0 = time.perf_counter()
+    data_launches["is_parity"], is_numbers, ssim_res100 = is_parity_phase(dev, recons)
+    is_numbers["phase_s"] = time.perf_counter() - t0
+    max_err = max([max_err] + [call["max_abs_err"] for call in ssim_res100])
     for entry in train_kernels:
         entry["launches_by_path"].update(
             {path: counts[entry["name"]] for path, counts in data_launches.items()})
@@ -2867,6 +3370,7 @@ def main() -> None:
         "library_ms": None,
         "ms_b1024": ms_b1024,
         "shapes": ssim_tot["shapes"],
+        "shapes_res100": ssim_res100,
     }] + train_kernels
     print(f"[train] seconds per step at batch {cfg.train.batch_size}, both kernel flags "
           f"on (stage3_fused, wae_vgan_fused: pallas_backward only; stage1_alt: "
@@ -2877,6 +3381,8 @@ def main() -> None:
           f"{json.dumps(trainer_numbers)}", flush=True)
     print(f"[serve] numbers (host clock): {json.dumps(served['numbers'])}", flush=True)
     print(f"[data] numbers (host clock): {json.dumps(data_numbers)}", flush=True)
+    print(f"[prepare] numbers (host clock): {json.dumps(prep_numbers)}", flush=True)
+    print(f"[is_parity] numbers (host clock): {json.dumps(is_numbers)}", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

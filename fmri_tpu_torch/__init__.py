@@ -15,7 +15,11 @@ weight grads run through hand-written CUDA kernels (``ops/csrc/bn.cu``,
 the training driver: ``train/trainer.py``, the stage builders
 (``train/stages.py``), the checkpoint store (``checkpoints/store.py``), the
 input pipeline (``data/pipeline.py``), run artifacts (``utils/``) and the
-``python -m fmri_tpu_torch.train.run`` CLI.
+``python -m fmri_tpu_torch.train.run`` CLI; the data path (the native
+gather, the raw datasets, the BOLD5000 ETL and its ``data/prepare.py``
+CLI); the Inception Score (``metrics/inception.py``, ``inception_v3.py``);
+and the parity and user-study CLIs (``eval/parity.py``,
+``eval/user_study.py``).
 """
 
 __version__ = "0.1.0"

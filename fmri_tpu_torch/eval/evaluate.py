@@ -1,9 +1,10 @@
-"""Full-dataset evaluation: reconstructions, PCC / SSIM / MSE, the n-way
-objective identification, and their CSV, bar-chart and PNG artifacts.
+"""Full-dataset evaluation: reconstructions, PCC / SSIM / MSE / Inception
+Score, the n-way objective identification, and their CSV, bar-chart and
+PNG artifacts.
 
 Counterpart of ``fmri_tpu/eval/evaluate.py:32-148``. Reconstructions stay on
-the model's device, so on the card the metrics (and the SSIM kernel) run
-there with no host round trip. The Inception Score is not in this port yet.
+the model's device, so on the card the metrics (the SSIM kernel, the IS
+classifier) run there with no host round trip.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from fmri_tpu_torch.data.transforms import denormalize, normalize, resize_batch
 from fmri_tpu_torch.eval.steps import VaeGanCognitive, VaeGanVisual
+from fmri_tpu_torch.metrics.inception import inception_score
 from fmri_tpu_torch.metrics.quality import mse, objective_assessment, pearson_correlation, ssim
 
 
@@ -62,12 +64,20 @@ def reconstruct_dataset(model: VaeGanCognitive | VaeGanVisual,
 
 
 def quality_metrics(recons: torch.Tensor, targets: torch.Tensor, *,
-                    ssim_fn=ssim) -> Dict[str, float]:
-    """Mean PCC / SSIM / MSE over the full arrays (``train_utils.py:678-749``).
-    ``ssim_fn`` lets a check substitute the plain SSIM for the kernel."""
-    return {"pcc": float(pearson_correlation(recons, targets)),
-            "ssim": float(ssim_fn(recons, targets)),
-            "mse": float(mse(recons, targets))}
+                    with_is: bool = True, ssim_fn=ssim) -> Dict[str, float]:
+    """Mean PCC / SSIM / MSE over the full arrays (``train_utils.py:678-749``),
+    and with ``with_is`` the Inception Score of the reconstructions
+    (``is_mean``, ``is_std``, ``is_proxy`` as a float). The classifier sees
+    the denormalized reconstructions as they are, as the JAX function feeds
+    it (``fmri_tpu/eval/evaluate.py:81``). ``ssim_fn`` lets a check
+    substitute the plain SSIM for the kernel."""
+    out = {"pcc": float(pearson_correlation(recons, targets)),
+           "ssim": float(ssim_fn(recons, targets)),
+           "mse": float(mse(recons, targets))}
+    if with_is:
+        is_mean, is_std, proxy = inception_score(recons)
+        out.update(is_mean=is_mean, is_std=is_std, is_proxy=float(proxy))
+    return out
 
 
 def objective_scores(recons: torch.Tensor, targets: torch.Tensor,

@@ -1,8 +1,9 @@
 """Inference / evaluation CLI for the VAE/GAN and WAE families: image ->
 image through a stage-I model (``--stage 1``, and ``--family wae-vgan``,
 which ignores ``--stage`` as the JAX CLI does) or fMRI -> image through a
-cognitive model (``--stage 2|3``); PCC/SSIM/MSE against the images,
-2/5/10-way objective assessment with CSV and bar chart, optional PNG dump.
+cognitive model (``--stage 2|3``); PCC/SSIM/MSE against the images, the
+Inception Score of the reconstructions (``--no-is`` skips it), 2/5/10-way
+objective assessment with CSV and bar chart, optional PNG dump.
 
     python -m fmri_tpu_torch.eval.inference --family vgan --stage 3 \\
         --preset res64 --ckpt model.pth --dataset synthetic -o out
@@ -22,10 +23,9 @@ the validation split of the train CLI's loaders with the same flags
 does): ``--dataset synthetic``, a packed ``--input`` directory, or raw
 ``--dataset coco|bold|mnist69`` with ``--cache-dir``; the image -> image
 runs read images. Runs on ``cuda`` unless ``--device cpu``, with cuDNN's
-deterministic algorithms.
-
-Not in this port yet: the Inception Score (slice 8: the summary has no
-``is_*`` keys and there is no ``--no-is``). Counterpart of
+deterministic algorithms. The IS classifier is the proxy, or Inception-v3
+when ``FMRI_TPU_INCEPTION_NPZ`` names its weights
+(``fmri_tpu_torch/metrics/inception.py``). Counterpart of
 ``fmri_tpu/eval/inference.py:40-154``.
 """
 
@@ -66,6 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-batches", type=int, default=0, help="0 = all")
     p.add_argument("--no-evaluate", action="store_true",
                    help="skip metrics; just reconstruct + save images")
+    p.add_argument("--no-is", action="store_true", help="skip Inception Score")
     p.add_argument("--sample", action="store_true",
                    help="reparameterize at eval")
     p.add_argument("--save-images", action="store_true")
@@ -146,7 +147,7 @@ def main(argv=None) -> int:
     os.makedirs(args.output, exist_ok=True)
     summary = {**source, "device": str(device), "num_images": int(len(recons))}
     if not args.no_evaluate:
-        summary.update(quality_metrics(recons, targets))
+        summary.update(quality_metrics(recons, targets, with_is=not args.no_is))
         scores = objective_scores(recons, targets, seed=args.seed)
         save_objective_csv(scores, os.path.join(args.output, "objective.csv"))
         save_objective_bar_chart(

@@ -1,5 +1,6 @@
-"""Reconstruction-quality metrics: PCC, MSE, windowed SSIM and the n-way
-objective identification. Images are NHWC float tensors.
+"""Reconstruction-quality metrics: PCC, MSE, windowed SSIM, the n-way
+objective identification and the Inception Score from class probabilities.
+Images are NHWC float tensors.
 
 Counterpart of ``fmri_tpu/metrics/quality.py``. The objective assessment
 draws its distractors with the same ``np.random.default_rng(seed)`` sequence
@@ -66,3 +67,18 @@ def objective_assessment(out: torch.Tensor, target: torch.Tensor, top: int = 5,
     wins_ssim = (s_gt[:, None] > s_rand).all(dim=1)
     return np.array([wins_pcc.double().mean().item(),
                      wins_ssim.double().mean().item()])
+
+
+def inception_score_from_probs(probs: np.ndarray, splits: int = 1):
+    """IS = exp(mean_x KL(p(y|x) || p(y))) over splits; returns ``(mean,
+    std)`` over splits like the reference (``train_utils.py:869-881``). numpy
+    on ``probs`` ([N, num_classes] softmax outputs, in their own dtype), the
+    arithmetic of ``fmri_tpu/metrics/quality.py:134-146``."""
+    n = probs.shape[0]
+    scores = []
+    for k in range(splits):
+        part = probs[k * (n // splits): (k + 1) * (n // splits)]
+        py = np.mean(part, axis=0)
+        kl = np.sum(part * (np.log(part + 1e-12) - np.log(py + 1e-12)), axis=1)
+        scores.append(np.exp(np.mean(kl)))
+    return float(np.mean(scores)), float(np.std(scores))

@@ -16,7 +16,8 @@ reference-layout ``.pth``. Runs on ``cuda`` unless ``--device cpu``;
 without a card the default raises.
 
 Data, as the JAX CLI loads it (``fmri_tpu/train/run.py:182-266``):
-* a packed ``--input`` dir (``fmri-tpu-prepare`` writes them), memory-mapped;
+* a packed ``--input`` dir (``fmri-tpu-torch-prepare pack-stream``, i.e.
+  ``python -m fmri_tpu_torch.data.prepare``, writes them), memory-mapped;
 * ``--dataset synthetic``: generated, no files;
 * ``--dataset coco`` (stage I): a directory of images, decoded, center-cropped
   and resized once (Pillow); ``--valid-input`` names a second directory,

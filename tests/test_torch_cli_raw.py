@@ -233,10 +233,8 @@ def _flags(parser):
             for a in parser._actions if not isinstance(a, argparse._HelpAction)}
 
 
-# flags one CLI has and the other does not, by name: the port's --device, and
-# the JAX inference CLI's --no-is, which returns with the Inception Score
-# (slice 8)
-ALLOWED = {"device", "no_is"}
+# flags one CLI has and the other does not, by name: the port's --device
+ALLOWED = {"device"}
 
 
 @pytest.mark.parametrize("cli", ["train", "inference", "serve"])
@@ -249,7 +247,7 @@ def test_parser_flags_and_defaults_are_the_jax_clis(cli):
     assert "device" in a and "device" not in b
     if cli == "inference":
         assert a["stage"][1] == b["stage"][1] == 1
-        assert a["logs"][0] == ("--logs", "-l") and "no_is" in b and "no_is" not in a
+        assert a["logs"][0] == ("--logs", "-l") and a["no_is"] == b["no_is"]
 
 
 # -------------------------------------------------------------- determinism

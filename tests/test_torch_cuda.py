@@ -6,8 +6,9 @@ against its eager programs (with ``reload`` under them, and a failed
 capture raising), the stage-II/III and
 WAE train steps with the kernels against the library backward, with their
 launches per step, ``alt_backward``'s rewrites against cuDNN's grads, the
-``Trainer``'s epochs bitwise reproducible with its defaults, and the native
-``Batches`` gather bitwise numpy's on the card's host.
+``Trainer``'s epochs bitwise reproducible with its defaults, the native
+``Batches`` gather bitwise numpy's on the card's host, and the Inception
+Score's classifiers (the proxy, Inception-v3) on the card against the CPU.
 
 Imports only torch, numpy and the port, so it runs where the JAX package's
 dependencies are not installed:
@@ -40,10 +41,11 @@ pytestmark = pytest.mark.cuda
 
 
 @pytest.mark.parametrize("batch,size", [(4, 8), (4, 16), (4, 64), (4, 100),
-                                        (1024, 64), (10240, 64)])
+                                        (1024, 64), (10240, 64), (256, 100)])
 def test_kernel_matches_plain(cuda_device, batch, size):
     """Small images (the generic k < 11 instance at 8 px), res100's 15
-    bands, and the inference run's 1,024 and 10,240 images at 64 px."""
+    bands, the inference run's 1,024 and 10,240 images at 64 px, and a
+    res100 validation split of 256 images."""
     a, b = uniform_pair((batch, size, size, 3), seed=size + batch)
     ta, tb = torch.from_numpy(a).to(cuda_device), torch.from_numpy(b).to(cuda_device)
     before = port.ssim_plane_sums.launches
@@ -90,6 +92,7 @@ def test_evaluation_on_the_card_matches_the_cpu(cuda_device, tiny):
     np.testing.assert_allclose(card[0].numpy(), cpu[0].numpy(), atol=1e-4)
     for k in ("pcc", "ssim", "mse"):
         assert card[1][k] == pytest.approx(cpu[1][k], abs=1e-5), k
+    assert card[1]["is_mean"] == pytest.approx(cpu[1]["is_mean"], rel=1e-5)
     for k in ("pcc", "ssim"):
         np.testing.assert_allclose(card[2][k], cpu[2][k], atol=1.0 / 32 + 1e-12)
     assert (card[3], cpu[3]) == (4, 0)  # one launch per SSIM call, none on the CPU
@@ -865,3 +868,37 @@ def test_serving_capture_failure_raises(cuda_device, tiny):
     np.testing.assert_allclose(fine.reconstruct(data["fmri"][:3]),
                                cpu.reconstruct(data["fmri"][:3]), atol=1e-4)
     assert fine.graphs == 1
+
+
+@pytest.mark.parametrize("size", [64, 100])
+def test_inception_proxy_on_the_card_matches_the_cpu(cuda_device, size, monkeypatch):
+    """The proxy runs on the images' device; its probabilities within 1e-6
+    of the CPU's and its IS within 1e-5 relative ('SAME' padding on both)."""
+    from fmri_tpu_torch.metrics import inception
+
+    monkeypatch.delenv("FMRI_TPU_INCEPTION_NPZ", raising=False)
+    x = torch.from_numpy(np.random.default_rng(size).uniform(
+        0, 1, (256, size, size, 3)).astype(np.float32))
+    card, cpu = inception.classify(x.to(cuda_device)), inception.classify(x)
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-6)
+    got, want = inception.inception_score(x.to(cuda_device)), inception.inception_score(x)
+    assert got[2] is want[2] is True
+    assert got[0] == pytest.approx(want[0], rel=1e-5)
+
+
+def test_inception_v3_on_the_card_matches_the_cpu(cuda_device, tmp_path, monkeypatch):
+    """Seeded torchvision-layout weights through ``FMRI_TPU_INCEPTION_NPZ``:
+    4 images upsampled to 299 px, probabilities within 1e-5 of the CPU's
+    (fp32 both sides, TF32 off), the IS not a proxy."""
+    from fmri_tpu_torch.metrics import inception, inception_v3
+
+    path = str(tmp_path / "inception_v3.npz")
+    np.savez(path, **inception_v3.random_weights(seed=1))
+    monkeypatch.setenv("FMRI_TPU_INCEPTION_NPZ", path)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (4, 64, 64, 3))
+                         .astype(np.float32))
+    card = inception.classify(x.to(cuda_device))
+    cpu = inception_v3.classify_with_weights(path, x, batch_size=3)
+    assert card.shape == (4, 1000) and np.isfinite(card).all()
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-5)
+    assert inception.inception_score(x.to(cuda_device))[2] is False

@@ -209,3 +209,84 @@ def jax_decode(groups, z):
         {"params": dec["params"], "batch_stats": dec["batch_stats"]},
         jnp.asarray(z), train=False)
     return np.clip(np.asarray(denormalize(out, cfg.data.mean, cfg.data.std)), 0.0, 1.0)
+
+
+def _coco(i):
+    return f"COCO_train2014_{i:012d}.jpg"
+
+
+# the stimuli each subject's runs show, in order: (ImgName, ImgType) per row
+# of events.tsv; an empty cell is NaN to pandas
+_BOLD_RUNS = {
+    ("CSI1", 1, 1): [(_coco(1), "coco"), ("", "coco"), ("n01440764_1.JPEG", "imagenet"),
+                     ("beach_1.jpg", ""), ("beach_2.jpg", "rep_scenes"),
+                     (_coco(2), "rep_coco"), (_coco(3), "coco")],
+    ("CSI1", 1, 2): [(_coco(4), None), (_coco(5), None), (_coco(1), None), (_coco(6), None)],
+    ("CSI2", 2, 1): [(_coco(7), "coco"), ("beach_3.jpg", "scenes"), (_coco(8), "coco"),
+                     ("n01440764_2.JPEG", "imagenet"), (_coco(9), "Coco")],
+}
+
+
+def write_bold5000(root, seed=0, size=(40, 56)):
+    """A BOLD5000-layout fixture under ``root``: ``ds001499/sub-CSI*/ses-*/
+    func/*_bold.nii.gz`` with their ``events.tsv`` (one run lacks the
+    ``ImgType`` column, cells are empty, one run has no events file, one
+    file name does not match the run pattern), ``stimuli/{COCO,ImageNet,
+    Scene}`` images, ``rois/stim_lists/CSI0*_stim_lists.txt`` with ``rep_``
+    entries and a name no run shows, and ``rois/CSI*/h5/*_ROIs_TR34.h5``
+    (needs h5py) with one row per stim-list line. Returns the paths."""
+    import csv
+    import os
+
+    from PIL import Image
+
+    from fmri_tpu_torch.data import nifti
+
+    rng = np.random.default_rng(seed)
+    paths = {k: os.path.join(root, k) for k in ("ds001499", "stimuli", "rois")}
+    sub_of = {"COCO_": "COCO", "n0": "ImageNet", "beach": "Scene"}
+    names = sorted({name for rows in _BOLD_RUNS.values() for name, _ in rows if name})
+    for name in names:
+        d = os.path.join(paths["stimuli"], next(v for k, v in sub_of.items()
+                                                 if name.startswith(k)))
+        os.makedirs(d, exist_ok=True)
+        img = rng.integers(0, 256, (*size, 3), dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(d, name), format="JPEG")
+    lists = {}
+    for (sub, ses, run), rows in _BOLD_RUNS.items():
+        func = os.path.join(paths["ds001499"], f"sub-{sub}", f"ses-{ses:02d}", "func")
+        os.makedirs(func, exist_ok=True)
+        stem = f"sub-{sub}_ses-{ses:02d}_task-5000scenes_run-{run:02d}"
+        nifti.save(os.path.join(func, stem + "_bold.nii.gz"),
+                   rng.normal(size=(2, 2, 2, 5)).astype(np.float32))
+        with open(os.path.join(func, stem + "_events.tsv"), "w", newline="") as f:
+            w = csv.writer(f, delimiter="\t")
+            typed = rows[0][1] is not None
+            w.writerow(["onset", "duration", "ImgName"] + (["ImgType"] if typed else []))
+            for i, (name, kind) in enumerate(rows):
+                w.writerow([10.0 * i, 1.0, name] + ([kind] if typed else []))
+        lists.setdefault(sub, []).extend(name for name, _ in rows if name)
+    extra = os.path.join(paths["ds001499"], "sub-CSI2", "ses-02", "func")
+    nifti.save(os.path.join(extra, "sub-CSI2_ses-02_task-5000scenes_run-03_bold.nii.gz"),
+               np.zeros((2, 2, 2, 5), np.float32))  # no events file
+    nifti.save(os.path.join(extra, "sub-CSI2_ses-02_task-5000scenes_acq-x_run-01_bold.nii.gz"),
+               np.zeros((2, 2, 2, 5), np.float32))  # not the run pattern
+    stim_lists = os.path.join(paths["rois"], "stim_lists")
+    os.makedirs(stim_lists)
+    voxels = {"CSI1": {"RHPPA": 5, "LHEarlyVis": 7, "LHLOC": 3},
+              "CSI2": {"RHPPA": 4, "LHEarlyVis": 9, "LHLOC": 6}}
+    for sub, shown in lists.items():
+        entries = [("rep_" + n if i % 3 == 1 else n) for i, n in enumerate(shown)]
+        entries.insert(2, "never_shown.jpg")
+        with open(os.path.join(stim_lists, f"CSI0{sub[-1]}_stim_lists.txt"), "w") as f:
+            f.write("\n".join(entries) + "\n")
+        try:
+            import h5py
+        except ImportError:
+            continue
+        d = os.path.join(paths["rois"], sub, "h5")
+        os.makedirs(d)
+        with h5py.File(os.path.join(d, f"{sub}_ROIs_TR34.h5"), "w") as f:
+            for region, n in voxels[sub].items():
+                f[region] = rng.normal(size=(len(entries), n))
+    return paths
