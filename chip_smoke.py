@@ -206,6 +206,28 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      launches (4 per row), each recorded 100 px call held against the
      plain version in float64 and timed beside its bound; the res100
      reconstruction's seconds and images per second, seconds by stage.
+  16. exp (``exp_phase``): the ablation experiments at res64 (3,620 voxels,
+     latent 128, 64 px, batch 64, fp32). (a) each ``exp_*`` step
+     (``exp_decoder``, ``exp_vae``, ``exp_vgan``, ``exp_dcgan_stage1``,
+     ``exp_dcgan_stage2`` from a DCGAN stage-1 checkpoint dir), states from
+     the builders with moments warmed, both kernel flags on: launches per
+     step exactly ``EXP_LAUNCHES``, finite metrics and parameters, the
+     quirks (``exp_vae``'s discriminator bitwise with its moments at one
+     while its BatchNorm ticks; ``exp_dcgan_stage2``'s frozen encoder
+     bitwise, its BatchNorm ticked), against flags off per tensor
+     (``check_tensors``), 5 timed steps and a profiled one, every kernel
+     call against its plain version; (b) ``python -m
+     fmri_tpu_torch.train.run --family exp --exp <each>`` (res64 preset:
+     flags off) one epoch on synthetic data, exactly 2 SSIM launches each
+     (``exp_cli_<exp>``), each held against plain, each run's checkpoint
+     restored into its builder's state; (c) ``VoxelDecoder``,
+     ``WaeDecoder`` (its 1024 -> 512 deconv's weight grad and 512-channel
+     BatchNorm on the kernels) and ``ResNetEncoder`` forward and backward at
+     batch 64, flags on against off (``BACKBONE_GRAD_TOL``), launches
+     ``BACKBONE_LAUNCHES``, every recorded call against plain; VGG19's five
+     taps and the full ResNet-152 trunk over seeded torchvision-layout npz
+     weights and every aux loss, card against CPU (``CARD_CPU_TOL``), and
+     the two trunks' images/s at 64 px. An ``[exp] numbers`` JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -3036,6 +3058,313 @@ def is_parity_phase(dev, recons, preset="res100", synthetic=PARITY_SYNTHETIC, cl
     return launches, numbers, shapes
 
 
+# launches per step of each ablation path with both kernel flags on
+# (tests/test_torch_exp_cli.py counts the wrappers' calls on the CPU and
+# holds this table to its count): one backward per trained head through the
+# decoder (3 BN, 4 dW a pass) and the discriminator (3 BN and 4 dW; 2 BN
+# from the feature tap)
+EXP_LAUNCHES = {
+    "exp_decoder": {"bn_bwd_reduce": 3, "bn_bwd_apply": 3, "tap_matmul": 4},
+    "exp_vae": {"bn_bwd_reduce": 6, "bn_bwd_apply": 6, "tap_matmul": 4},
+    "exp_vgan": {"bn_bwd_reduce": 17, "bn_bwd_apply": 17, "tap_matmul": 12},
+    "exp_dcgan_stage1": {"bn_bwd_reduce": 9, "bn_bwd_apply": 9, "tap_matmul": 8},
+    "exp_dcgan_stage2": {"bn_bwd_reduce": 12, "bn_bwd_apply": 12, "tap_matmul": 12}}
+# a train-mode forward and backward of the backbones, both flags on
+BACKBONE_LAUNCHES = {
+    "voxel_decoder": {"bn_bwd_reduce": 3, "bn_bwd_apply": 3, "tap_matmul": 4},
+    "wae_decoder": {"bn_bwd_reduce": 3, "bn_bwd_apply": 3, "tap_matmul": 4},
+    "resnet_encoder": {"bn_bwd_reduce": 0, "bn_bwd_apply": 0, "tap_matmul": 0}}
+EXP_CLI = ("decoder", "vae", "vgan", "dcgan-stage1", "dcgan-stage2")
+# the backbones' gradients, flags on against off (L2 per tensor, relative);
+# the trunks and aux losses on the card against the CPU (largest |gap| over
+# the largest |CPU value|)
+BACKBONE_GRAD_TOL, CARD_CPU_TOL = 1e-3, 1e-4
+
+
+def exp_phase(dev, cfg, preset="res64", cli_args=(), backbone_batch=64, timed_batch=64):
+    """Phase 16: the ablation experiments and their backbones. (a) each
+    ``exp_*`` step at ``cfg`` with both kernel flags on, against flags off
+    (``check_tensors``), launches per step ``EXP_LAUNCHES``, 5 timed steps
+    and a profiled one, every kernel call against its plain version; (b)
+    ``--family exp --exp <each>`` through the train CLI one epoch on
+    synthetic data (2 SSIM launches each), each checkpoint restored; (c)
+    VoxelDecoder, WaeDecoder and ResNetEncoder forward and backward, flags
+    on against off; VGG19 and the ResNet-152 trunk over seeded npz weights
+    and the aux losses, card against CPU, and the trunks' images/s.
+    Returns ({path: launches}, numbers)."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fmri_tpu_torch.checkpoints import store
+    from fmri_tpu_torch.data.synthetic import synthetic_pairs
+    from fmri_tpu_torch.train import run
+    from fmri_tpu_torch.train import steps_exp as se
+    from fmri_tpu_torch.train.stages import BUILDERS
+
+    t, c = cfg.train, cfg.model
+    b = t.batch_size
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_runs", "exp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg_on = with_flags(cfg, pallas_bn=True, pallas_backward=True)
+    launches_by_path, numbers = {}, {"s_per_step": {}, "busy_share": {}}
+    try:
+        # (a) the bare steps, states from the builders
+        dcgan1 = os.path.join(work, "dcgan1")
+        store.save_checkpoint(dcgan1, 0, BUILDERS["exp_dcgan_stage1"](
+            cfg, steps_per_epoch=1, device="cpu")[0])
+        data = synthetic_pairs(b, c.image_size, c.num_voxels, seed=0)
+        fmri = torch.from_numpy(data["fmri"]).to(dev)
+        image = torch.from_numpy(2.0 * data["image"] - 1.0).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        hyper = (t.margin, t.equilibrium, t.lambda_mse)
+
+        def noise():
+            return torch.randn((b, c.latent_dim), generator=gen, device=dev)
+
+        paths = {  # (step maker, draw, frozen prefixes)
+            "exp_decoder": (se.make_supervised_decoder_step, lambda: (fmri, image), ()),
+            "exp_vae": (lambda c_: se.make_cognitive_scratch_step(c_, "vae"),
+                        lambda: (fmri, image, noise(), noise(), *hyper), ()),
+            "exp_vgan": (lambda c_: se.make_cognitive_scratch_step(c_, "vae-gan"),
+                         lambda: (fmri, image, noise(), noise(), *hyper), ()),
+            "exp_dcgan_stage1": (se.make_dcgan_stage1_step,
+                                 lambda: (image, noise(), *hyper), ()),
+            "exp_dcgan_stage2": (se.make_dcgan_stage2_step,
+                                 lambda: (fmri, image, noise(), noise(), *hyper),
+                                 ("encoder.",)),
+        }
+        for path, (factory, draw, frozen) in paths.items():
+            def new_state(cfg_, device, path=path):
+                args = [dcgan1] if path == "exp_dcgan_stage2" else []
+                return warm_moments(BUILDERS[path](cfg_, *args, steps_per_epoch=1,
+                                                   device=str(device))[0])
+
+            weights = {k: v.cpu().clone() for k, v in new_state(cfg, "cpu").nets.state_dict()
+                       .items()}
+            step_on = factory(cfg_on).train_step
+            args = draw()
+
+            # the main path: one step with both flags on, every call recorded
+            on = new_state(cfg_on, dev)
+            (on, m_on), launches, calls, cold = record_step(lambda: step_on(on, *args))
+            print(f"[{path}] {c.image_size} px step, batch {b}, both kernel flags on: first "
+                  f"step {cold:.3f} s; launches per step {launches}; metrics "
+                  f"{ {k: round(float(v), 6) for k, v in m_on.items()} }", flush=True)
+            check(launches == EXP_LAUNCHES[path],
+                  f"{path}: launches per step {launches}, want {EXP_LAUNCHES[path]}")
+            launches_by_path[path] = launches
+            check(all(np.isfinite(float(v)) for v in m_on.values()), f"{path}: metrics {m_on}")
+            sd = on.nets.state_dict()
+            check(all(bool(torch.isfinite(v).all()) for v in sd.values()),
+                  f"{path}: non-finite parameters")
+            for k, v in sd.items():
+                if k.startswith(frozen) and "running" not in k and "num_batches" not in k:
+                    check(torch.equal(v.cpu(), weights[k]), f"{path}: frozen {k} moved")
+            if path == "exp_vae":  # the discriminator never trains; its BN ticks
+                for k, v in sd.items():
+                    if k.startswith("discriminator.") and "num_batches" not in k:
+                        check(torch.equal(v.cpu(), weights[k]) != ("running" in k),
+                              f"exp_vae: discriminator {k}")
+                check(all(bool((v == 1.0).all())
+                          for v in on.opt_state["discriminator"].values()),
+                      "exp_vae: the discriminator's moments moved")
+            if path == "exp_dcgan_stage2":  # the frozen encoder's BatchNorm ticks
+                check(not torch.equal(sd["encoder.fc1.1.running_mean"].cpu(),
+                                      weights["encoder.fc1.1.running_mean"]),
+                      "exp_dcgan_stage2: the encoder's BatchNorm did not tick")
+                check("encoder" not in on.opt_state, "exp_dcgan_stage2: encoder moments")
+
+            # 1. against the library backward (both flags off) on the card, each
+            #    tensor above its own rounding noise (the reversed batch)
+            off_step = factory(cfg).train_step
+            off, m_off = off_step(new_state(cfg, dev), *args)
+            rev, _ = off_step(new_state(cfg, dev), *map(reversed_batch, args))
+            check_tensors(f"{path} kernels vs library backward on the card", on, m_on, off,
+                          m_off, weights, STEP_TOL, tensor_gaps(rev, off, weights))
+
+            # 2. five timed steps and a profiled one
+            n_steps = 5
+            (on, secs, _), counted, _, _ = record_step(
+                lambda: timed_steps(step_on, on, n_steps, draw), record=False)
+            numbers["s_per_step"][path] = secs
+            print(f"[{path}] {n_steps} steps: {secs:.4f} s per step, {b / secs:.1f} "
+                  f"examples/s (host clock, warm)", flush=True)
+            for n, count in counted.items():
+                check(count == n_steps * launches[n],
+                      f"{path} {n}: {count} launches over {n_steps} steps")
+            numbers["busy_share"][path] = profile_step(
+                lambda: step_on(on, *draw()), path, secs)["busy_share"]
+
+            # 3. every kernel call of the step against its plain version
+            hold_against_plain(calls, path, timed=False)
+
+        # (b) the train CLI, as users start it; dcgan-stage2 from dcgan-stage1's run
+        cli = {}
+        for exp in EXP_CLI:
+            extra = (["--prev-ckpt", os.path.join(cli["dcgan-stage1"], "checkpoints")]
+                     if exp == "dcgan-stage2" else [])
+            out = os.path.join(work, "cli_" + exp)
+            got, per_step, wall = cli_run(run.main, [
+                "--family", "exp", "--exp", exp, "--preset", preset, "--dataset",
+                "synthetic", "--epochs", "1", "-o", out, *extra, *cli_args],
+                SSIM_LAUNCHES_PER_EPOCH, f"--exp {exp}", tag="exp")
+            cli[exp] = next(os.path.join(root, d) for root, dirs, _ in os.walk(out)
+                            for d in dirs if os.path.isfile(os.path.join(
+                                root, d, "config.json")))
+            name = "exp_" + exp.replace("-", "_")
+            builder_args = ([os.path.join(cli["dcgan-stage1"], "checkpoints")]
+                            if exp == "dcgan-stage2" else [])
+            state = BUILDERS[name](cfg, *builder_args, steps_per_epoch=1,
+                                   device=str(dev))[0]
+            state, meta = store.restore_checkpoint(os.path.join(cli[exp], "checkpoints"),
+                                                   state)
+            check(int(state.step) > 0 and np.isfinite(meta["metrics"]["valid_SSIM"]),
+                  f"--exp {exp}: checkpoint step {int(state.step)}, metrics {meta}")
+            launches_by_path[f"exp_cli_{exp}"] = got
+            numbers[f"cli_{exp}"] = {"wall_s": wall, "s_per_step": per_step,
+                                     "valid_SSIM": meta["metrics"]["valid_SSIM"]}
+            print(f"[exp] python -m fmri_tpu_torch.train.run --family exp --exp {exp}: "
+                  f"{wall:.2f} s wall, s per step {per_step}, launches {got}; checkpoint "
+                  f"epoch {meta['epoch']} restored", flush=True)
+
+        # (c) the backbones
+        numbers.update(backbone_checks(dev, cfg, work, backbone_batch, timed_batch,
+                                       launches_by_path))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[exp] numbers (host clock): {json.dumps(numbers)}", flush=True)
+    return launches_by_path, numbers
+
+
+def backbone_checks(dev, cfg, work, b, timed_b, launches_by_path):
+    """Phase 16(c): VoxelDecoder, WaeDecoder and ResNetEncoder train-mode
+    forward and backward at batch ``b``, both flags on against off (each
+    recorded kernel call against its plain version); VGG19's five taps and
+    the full ResNet-152 trunk over seeded npz weights, card against CPU on 4
+    images, and their images/s at batch ``timed_b``; every aux loss, card
+    against CPU. Returns the numbers."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from fmri_tpu_torch.losses import aux_losses, vgg19
+    from fmri_tpu_torch.models import nets, resnet152
+
+    c, s = cfg.model, cfg.model.image_size
+    gen = torch.Generator().manual_seed(17)
+    inputs = {"voxel_decoder": torch.randn((b, c.num_voxels), generator=gen),
+              "wae_decoder": torch.randn((b, c.latent_dim), generator=gen),
+              "resnet_encoder": torch.rand((b, s, s, 3), generator=gen) * 2 - 1}
+    modules = {"voxel_decoder": nets.VoxelDecoder, "wae_decoder": nets.WaeDecoder,
+               "resnet_encoder": nets.ResNetEncoder}
+    numbers = {}
+    for name, module in modules.items():
+        torch.manual_seed(0)
+        ref_module = module(c)
+        x = inputs[name].to(dev)
+        grads = {}
+        for flags in (False, True):
+            m = module(with_flags(cfg, pallas_bn=flags, pallas_backward=flags).model)
+            m.load_state_dict(ref_module.state_dict())
+            m.to(dev).train()
+
+            def run(m=m):
+                out = m(x)
+                outs = out if isinstance(out, tuple) else (out,)
+                loss = sum((o * o).sum() for o in outs)
+                return torch.autograd.grad(loss, list(m.parameters()))
+
+            grads[flags], launches, calls, secs = record_step(run, record=flags)
+            if flags:
+                check(launches == BACKBONE_LAUNCHES[name],
+                      f"{name}: launches {launches}, want {BACKBONE_LAUNCHES[name]}")
+                launches_by_path[name] = launches
+                hold_against_plain(calls, name, timed=False)
+        gap = max(float((a - r).norm() / r.norm().clamp_min(1e-30))
+                  for a, r in zip(grads[True], grads[False]))
+        check(gap <= BACKBONE_GRAD_TOL, f"{name}: flags on vs off gradients {gap}")
+        numbers[name] = {"grad_gap_flags": gap}
+        print(f"[exp] {name} batch {b}: forward + backward, flags on vs off: gradients "
+              f"within {gap:.3g} (bound {BACKBONE_GRAD_TOL}); launches "
+              f"{launches_by_path[name]}", flush=True)
+
+    def gap_cpu(card, cpu):
+        return float((card.cpu() - cpu).abs().max() / cpu.abs().max().clamp_min(1e-30))
+
+    x4 = torch.rand((4, 64, 64, 3), generator=gen)
+    xb = torch.rand((timed_b, 64, 64, 3), generator=gen).to(dev)
+
+    def images_per_s(fn):
+        with torch.no_grad():
+            for _ in range(3):
+                fn(xb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn(xb)
+            torch.cuda.synchronize()
+        return 10 * timed_b / (time.perf_counter() - t0)
+
+    vgg_npz = os.path.join(work, "vgg19_features.npz")
+    np.savez(vgg_npz, **vgg19.random_weights(0))
+    gaps = {}
+    for depth in vgg19.TAPS:
+        with torch.no_grad():
+            card = vgg19.vgg19_tap_fn(depth, vgg_npz)(x4.to(dev))
+            gaps[depth] = gap_cpu(card, vgg19.vgg19_tap_fn(depth, vgg_npz)(x4))
+    check(max(gaps.values()) <= CARD_CPU_TOL, f"vgg19 card vs CPU per tap {gaps}")
+    deepest = vgg19.vgg19_tap_fn(5, vgg_npz)
+    numbers["vgg19"] = {"card_vs_cpu": gaps, "images_per_s_tap5": images_per_s(deepest)}
+
+    r_npz = os.path.join(work, "resnet152.npz")
+    np.savez(r_npz, **resnet152.random_weights(0))
+    trunk_cpu = resnet152.resnet152_trunk_fn(r_npz)
+    trunk = resnet152.resnet152_trunk_fn(r_npz).to(dev)
+    with torch.no_grad():
+        r_gap = gap_cpu(trunk(x4.to(dev)), trunk_cpu(x4))
+    check(r_gap <= CARD_CPU_TOL, f"resnet152 trunk card vs CPU {r_gap}")
+    numbers["resnet152"] = {"card_vs_cpu": r_gap, "images_per_s": images_per_s(trunk)}
+
+    a, t_ = torch.rand((8, 64, 64, 3), generator=gen) * 2 - 1, torch.rand((8, 64, 64, 3),
+                                                                         generator=gen)
+    v1, v2 = torch.randn((8, c.num_voxels), generator=gen), torch.randn((8, c.num_voxels),
+                                                                       generator=gen)
+    losses = {
+        "voxel_loss": lambda d: aux_losses.voxel_loss(v1.to(d), v2.to(d)),
+        "image_loss": lambda d: aux_losses.image_loss(a.to(d), t_.to(d)),
+        "feature_loss_proxy": lambda d: aux_losses.feature_loss(a.to(d), t_.to(d)),
+        "feature_cosine_loss_proxy": lambda d: aux_losses.feature_cosine_loss(a.to(d),
+                                                                              t_.to(d)),
+        "feature_loss_vgg19": lambda d: aux_losses.feature_loss(
+            a.to(d), t_.to(d), feature_fn=vgg19.vgg19_tap_fn(2, vgg_npz)),
+        "feature_cosine_loss_vgg19": lambda d: sum(
+            aux_losses.feature_cosine_loss(a.to(d), t_.to(d),
+                                           feature_fn=vgg19.vgg19_tap_fn(k, vgg_npz),
+                                           depths=(k,)) for k in vgg19.TAPS),
+        "total_variation_loss": lambda d: aux_losses.total_variation_loss(a.to(d)),
+        "total_variation_l1": lambda d: aux_losses.total_variation_l1(a.to(d)),
+        "total_variation_l2": lambda d: aux_losses.total_variation_l2(a.to(d)),
+    }
+    loss_gaps = {}
+    with torch.no_grad():
+        for name, fn in losses.items():
+            card, cpu = float(fn(dev)), float(fn(torch.device("cpu")))
+            loss_gaps[name] = abs(card - cpu) / max(abs(cpu), 1e-30)
+    check(max(loss_gaps.values()) <= CARD_CPU_TOL, f"aux losses card vs CPU {loss_gaps}")
+    numbers["aux_losses_card_vs_cpu"] = loss_gaps
+    print(f"[exp] VGG19 (seeded npz) card vs CPU per tap {gaps}, "
+          f"{numbers['vgg19']['images_per_s_tap5']:.1f} images/s to tap 5 at 64 px, batch "
+          f"{timed_b}; ResNet-152 trunk card vs CPU {r_gap:.3g}, "
+          f"{numbers['resnet152']['images_per_s']:.1f} images/s at 64 px; aux losses card vs "
+          f"CPU at most {max(loss_gaps.values()):.3g} (bound {CARD_CPU_TOL})", flush=True)
+    return numbers
+
+
 def main() -> None:
     import os
 
@@ -3307,9 +3636,18 @@ def main() -> None:
     data_launches["is_parity"], is_numbers, ssim_res100 = is_parity_phase(dev, recons)
     is_numbers["phase_s"] = time.perf_counter() - t0
     max_err = max([max_err] + [call["max_abs_err"] for call in ssim_res100])
+    # 16. the ablation experiments: bare steps, the --family exp CLI, backbones
+    t0 = time.perf_counter()
+    exp_launches, exp_numbers = exp_phase(dev, cfg)
+    exp_numbers["phase_s"] = time.perf_counter() - t0
+    data_launches.update({path: counts for path, counts in exp_launches.items()
+                          if path.startswith("exp_cli_")})
     for entry in train_kernels:
         entry["launches_by_path"].update(
             {path: counts[entry["name"]] for path, counts in data_launches.items()})
+        entry["launches_by_path"].update(
+            {path: counts[entry["name"]] for path, counts in exp_launches.items()
+             if not path.startswith("exp_cli_")})
 
     # 8. kernels line; ssim at every shape the inference run gave it, each
     #    held against the plain version, times summed over the run's launches
@@ -3383,6 +3721,10 @@ def main() -> None:
     print(f"[data] numbers (host clock): {json.dumps(data_numbers)}", flush=True)
     print(f"[prepare] numbers (host clock): {json.dumps(prep_numbers)}", flush=True)
     print(f"[is_parity] numbers (host clock): {json.dumps(is_numbers)}", flush=True)
+    print(f"[exp] phase 16: {exp_numbers['phase_s']:.1f} s; seconds per step at batch "
+          f"{cfg.train.batch_size}, both kernel flags on (host clock, warm): "
+          f"{json.dumps(exp_numbers['s_per_step'])}; device busy share of a profiled step: "
+          f"{json.dumps(exp_numbers['busy_share'])}", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,18 @@ reference-layout ``.pth``, or seeded random trees.
     kind of the same name;
   - ``"wae-vgan"``: ``encoder`` (visual), ``decoder``, ``discriminator``
     (image) and ``latent_disc`` (``latent_disc.``): ``WaeDualGan``. The JAX
-    package has no such kind; the names are the port's.
+    package has no such kind; the names are the port's;
+  - ``"exp-decoder"``: ``decoder``, a VoxelDecoder (the decoder's mapping,
+    its FC reading the voxels): ``train/state.py::ExpDecoder``;
+  - ``"dcgan"``: ``decoder`` and ``discriminator``: ``DcGan``. The
+    ablations' cognitive module ``CognitiveVaeGan`` is
+    ``"vae-gan-cognitive"`` without the teacher;
+  - ``"wae-decoder"``: ``decoder``, a ``WaeDecoder`` (the decoder's mapping
+    at 1024 channels), and ``"resnet-encoder"``: ``encoder``, a
+    ``ResNetEncoder`` (its compact trunk's ``Conv_0``, ``BatchNorm_0`` and
+    ``_ResBlock_0..3`` where the group has them, then ``Dense_0..3`` and
+    the head's two BatchNorms), both with no prefix: the state dicts of the
+    modules themselves. These kinds are the port's names too.
 
   It is the port's own copy of the inverse converters of
   ``fmri_tpu/checkpoints/torch_import.py:200-384`` and gives the same
@@ -52,6 +63,7 @@ import numpy as np
 import torch
 
 from fmri_tpu_torch.configs.presets import Config
+from fmri_tpu_torch.models.nets import RESNET_FC_HIDDEN
 from fmri_tpu_torch.train.optim import AdamState
 
 # prefixes of a train module's .pth that inference does not use
@@ -142,9 +154,11 @@ def _visual_encoder(group: Mapping, cfg: Config, prefix: str) -> Dict:
     return out
 
 
-def _decoder(group: Mapping, cfg: Config, prefix: str) -> Dict:
+def _decoder(group: Mapping, cfg: Config, prefix: str, size0: int | None = None) -> Dict:
+    """Decoder, VoxelDecoder (the FC's input width is the kernel's) and, with
+    ``size0`` 1024, WaeDecoder."""
     c = cfg.model
-    size0 = c.encoder_channels[-1]
+    size0 = size0 or c.encoder_channels[-1]
     p, s = group["params"], group.get("batch_stats")
     out = {f"{prefix}fc.0.weight": _inv_fc_out(p["Dense_0"]["kernel"], size0,
                                                c.fc_input, c.fc_input)}
@@ -157,6 +171,38 @@ def _decoder(group: Mapping, cfg: Config, prefix: str) -> Dict:
             _sub(s, f"DecoderBlock_{i}", "BatchNorm_0"))
     out[f"{prefix}conv.3.0.weight"] = _inv_conv(p["out_kernel"])
     out[f"{prefix}conv.3.0.bias"] = _f32(p["out_bias"])
+    return out
+
+
+def _wae_decoder(group: Mapping, cfg: Config, prefix: str) -> Dict:
+    return _decoder(group, cfg, prefix, size0=1024)
+
+
+def _resnet_encoder(group: Mapping, cfg: Config, prefix: str) -> Dict:
+    """ResNetEncoder: Flax names its layers in creation order, so the head's
+    BatchNorms are ``BatchNorm_1``/``_2`` after the compact trunk's stem
+    and ``BatchNorm_0``/``_1`` over a ``trunk``."""
+    p, s = group["params"], group.get("batch_stats")
+    out: Dict[str, np.ndarray] = {}
+    head_bn = ("BatchNorm_0", "BatchNorm_1")
+    if "Conv_0" in p:
+        out[f"{prefix}stem.weight"] = _inv_conv(p["Conv_0"]["kernel"])
+        _bn(out, f"{prefix}stem_bn", p["BatchNorm_0"], _sub(s, "BatchNorm_0"))
+        for i in range(4):
+            blk = p[f"_ResBlock_{i}"]
+            for j, (conv, bn) in enumerate((("conv1", "bn1"), ("conv2", "bn2"),
+                                            ("proj", "proj_bn"))):
+                if f"Conv_{j}" in blk:
+                    pre = f"{prefix}blocks.{i}."
+                    out[pre + conv + ".weight"] = _inv_conv(blk[f"Conv_{j}"]["kernel"])
+                    _bn(out, pre + bn, blk[f"BatchNorm_{j}"],
+                        _sub(s, f"_ResBlock_{i}", f"BatchNorm_{j}"))
+        head_bn = ("BatchNorm_1", "BatchNorm_2")
+    for j, name in enumerate(("fc1", "fc2", "fc3_mu", "fc3_logvar")):
+        out[f"{prefix}{name}.weight"] = _inv_lin(p[f"Dense_{j}"]["kernel"])
+        out[f"{prefix}{name}.bias"] = _f32(p[f"Dense_{j}"]["bias"])
+    for name, bn in zip(("bn1", "bn2"), head_bn):
+        _bn(out, f"{prefix}{name}", p[bn], _sub(s, bn))
     return out
 
 
@@ -206,6 +252,10 @@ KINDS = {
                           "latent_disc": (_latent_discriminator, "discriminator.")},
     "wae-vgan": {"encoder": _VISUAL, "decoder": _DECODER, "discriminator": _IMAGE_D,
                  "latent_disc": (_latent_discriminator, "latent_disc.")},
+    "exp-decoder": {"decoder": _DECODER},
+    "dcgan": {"decoder": _DECODER, "discriminator": _IMAGE_D},
+    "wae-decoder": {"decoder": (_wae_decoder, "")},
+    "resnet-encoder": {"encoder": (_resnet_encoder, "")},
 }
 # {kind: {group: (converter, prefix, shared prefixes)}}: the optional groups.
 # The stage-I teacher of "vae-gan-cognitive" (torch_import.py:372-383) brings
@@ -343,14 +393,17 @@ def _random_cognitive_encoder(rng, c) -> Dict[str, Any]:
         "batch_stats": {"BatchNorm_0": bns}}
 
 
-def _random_decoder(rng, c) -> Dict[str, Any]:
-    lat = c.latent_dim
+def _random_decoder(rng, c, zin: int | None = None, chans: tuple | None = None
+                    ) -> Dict[str, Any]:
+    """Decoder; VoxelDecoder with ``zin`` the voxels; WaeDecoder with
+    ``chans`` (1024, 512, 256, 128)."""
+    lat = zin or c.latent_dim
     size0 = c.encoder_channels[-1]
-    flat = c.fc_input * c.fc_input * size0
+    chans = chans or (size0, size0, c.decoder_channels[1], c.decoder_channels[2])
+    flat = c.fc_input * c.fc_input * chans[0]
     bnp, bns = _random_bn(rng, flat)
     dp = {"Dense_0": {"kernel": _uniform(rng, (lat, flat), lat)}, "BatchNorm_0": bnp}
     ds = {"BatchNorm_0": bns}
-    chans = (size0, size0, c.decoder_channels[1], c.decoder_channels[2])
     k = c.kernel_size
     for i in range(3):
         bnp, bns = _random_bn(rng, chans[i + 1])
@@ -387,6 +440,38 @@ def _random_latent_discriminator(rng, c) -> Dict[str, Any]:
     return {"params": p, "batch_stats": {}}
 
 
+def _random_resnet_encoder(rng, c) -> Dict[str, Any]:
+    """ResNetEncoder with its compact trunk."""
+    p, s = {"Conv_0": {"kernel": _uniform(rng, (7, 7, 3, 64), 147)}}, {}
+    p["BatchNorm_0"], s["BatchNorm_0"] = _random_bn(rng, 64)
+    for i, (cin, cout) in enumerate(((64, 64), (64, 128), (128, 256), (256, 512))):
+        bp, bs = {}, {}
+        shapes = [(3, 3, cin, cout), (3, 3, cout, cout)] + ([(1, 1, cin, cout)] if i else [])
+        for j, shape in enumerate(shapes):
+            bp[f"Conv_{j}"] = {"kernel": _uniform(rng, shape, int(np.prod(shape[:3])))}
+            bp[f"BatchNorm_{j}"], bs[f"BatchNorm_{j}"] = _random_bn(rng, cout)
+        p[f"_ResBlock_{i}"], s[f"_ResBlock_{i}"] = bp, bs
+    h1, h2 = RESNET_FC_HIDDEN
+    for j, (fan, out) in enumerate(((512, h1), (h1, h2), (h2, c.latent_dim),
+                                    (h2, c.latent_dim))):
+        p[f"Dense_{j}"] = {"kernel": _uniform(rng, (fan, out), fan),
+                           "bias": _uniform(rng, (out,), fan)}
+    p["BatchNorm_1"], s["BatchNorm_1"] = _random_bn(rng, h1)
+    p["BatchNorm_2"], s["BatchNorm_2"] = _random_bn(rng, h2)
+    return {"params": p, "batch_stats": s}
+
+
+# the kinds whose groups are not the VAE/GAN families' encoder-first set,
+# each group drawn in this order
+_OTHER_KINDS = {
+    "exp-decoder": (("decoder", lambda rng, c: _random_decoder(rng, c, c.num_voxels)),),
+    "dcgan": (("decoder", _random_decoder), ("discriminator", _random_image_discriminator)),
+    "wae-decoder": (("decoder", lambda rng, c: _random_decoder(
+        rng, c, chans=(1024, 512, 256, 128))),),
+    "resnet-encoder": (("encoder", _random_resnet_encoder),),
+}
+
+
 def random_groups(cfg: Config, seed: int = 0, kind: str = "vae-gan-cognitive-eval"
                   ) -> Dict[str, Dict[str, Any]]:
     """Seeded numpy groups of ``kind`` in the JAX package's layout and
@@ -397,10 +482,13 @@ def random_groups(cfg: Config, seed: int = 0, kind: str = "vae-gan-cognitive-eva
     then ``latent_disc`` for the WAE kinds, then ``teacher_encoder``
     (visual) for the two cognitive train kinds. So the groups two kinds
     share come out equal for one seed (the first two of
-    ``"vae-gan-cognitive"`` are the eval kind's)."""
+    ``"vae-gan-cognitive"`` are the eval kind's). The kinds of the
+    ablations and backbones draw their own groups (``_OTHER_KINDS``)."""
     _kind(kind)
     c = cfg.model
     rng = np.random.default_rng(seed)
+    if kind in _OTHER_KINDS:
+        return {g: fn(rng, c) for g, fn in _OTHER_KINDS[kind]}
     visual = kind in ("vae-gan", "wae-gan", "wae-vgan")
     groups = {"encoder": (_random_visual_encoder if visual
                           else _random_cognitive_encoder)(rng, c),

@@ -31,21 +31,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from fmri_tpu_torch.metrics.quality import inception_score_from_probs
+from fmri_tpu_torch.ops.conv import same_pad
 
 PROXY_WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "proxy_classifier.npz")
-
-
-def same_pad(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
-    """Zero padding of an NCHW tensor as XLA's (and flax's default)
-    ``'SAME'``: ceil(n / stride) outputs, the odd pixel of padding after.
-    At stride 2 and an even size that is 0 before and 1 after, which
-    ``nn.Conv2d(padding=1)`` would shift."""
-    pads = []
-    for n in (x.shape[3], x.shape[2]):  # F.pad takes the last dimension first
-        total = max((-(-n // stride) - 1) * stride + k - n, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads)
 
 
 class ProxyClassifier(nn.Module):

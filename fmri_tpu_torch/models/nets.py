@@ -1,12 +1,15 @@
 """The VAE/GAN and WAE networks: ``VisualEncoder`` (image -> mu, logvar),
 ``CognitiveEncoder`` (fMRI voxels -> mu, logvar), ``Decoder`` (latent ->
 image), ``ImageDiscriminator`` (image -> feature tap, score) and
-``LatentDiscriminator`` (latent -> score), in train and eval mode.
+``LatentDiscriminator`` (latent -> score), in train and eval mode; and the
+ablations' ``VoxelDecoder`` (voxels -> image), ``WaeDecoder`` (the wide
+decoder) and ``ResNetEncoder`` (image -> mu, logvar over a residual trunk).
 
 Counterparts of ``fmri_tpu/models/nets.py`` (``EncoderBlock`` :58,
 ``DecoderBlock`` :95, ``VisualEncoder`` :130, ``CognitiveEncoder`` :153,
 ``Decoder`` :177, ``ImageDiscriminator`` :219, ``LatentDiscriminator`` :263,
-``reparameterize`` :424). The attribute names are the reference's torch
+``VoxelDecoder`` :287, ``WaeDecoder`` :323, ``_ResBlock`` :362,
+``ResNetEncoder`` :382, ``reparameterize`` :424). The attribute names are the reference's torch
 ones (``conv.{i}.conv/.bn``, ``fc.0/.1``, ``l_mu``, ``l_var``, ``fc1.0/.1``,
 ``conv.3.0``, ``conv.0.0``, ``fc.3``, ``main.{0,2,4,6,8}``), so its state
 dicts load with ``strict=True``.
@@ -16,8 +19,8 @@ convention; the JAX package writes the same EMA as flax momentum 0.1,
 ``nets.py:33-36``). The BatchNorm after every conv and deconv is
 :class:`fmri_tpu_torch.models.norm.BatchNorm2d`, whose train-mode backward
 takes the hand-written kernels when ``ModelConfig.pallas_bn`` is set; the
-FC BatchNorms are :class:`~fmri_tpu_torch.models.norm.BatchNorm1d`, not
-behind the flag, as in the JAX package. ``Decoder.forward(z, vsplit=k)``
+FC BatchNorms, and ``ResNetEncoder``'s, are not behind the flag, as in the
+JAX package. ``Decoder.forward(z, vsplit=k)``
 decodes k back-to-back latent batches in one pass with per-sub-batch
 BatchNorm statistics (the fused decoder batch). The 5x5 convs and deconvs
 take their weight grad from ``ops/dw.py`` when ``ModelConfig.pallas_backward``
@@ -34,11 +37,12 @@ layout: ``VisualEncoder`` and ``ImageDiscriminator`` take NHWC and
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fmri_tpu_torch.configs.presets import ModelConfig
 from fmri_tpu_torch.models.norm import BatchNorm1d, BatchNorm2d
-from fmri_tpu_torch.ops.conv import conv2d, conv2d_transpose, linear
+from fmri_tpu_torch.ops.conv import conv2d, conv2d_transpose, linear, same_pad
 
 
 def _cd(cfg: ModelConfig) -> str | None:
@@ -144,18 +148,24 @@ class CognitiveEncoder(nn.Module):
 class Decoder(nn.Module):
     """Latent [B, latent] -> image [B, H, W, 3] in [-1, 1]
     (reference ``vae_gan.py:99-132``): FC + BN + ReLU, three deconv blocks,
-    5x5 out-conv + bias, tanh."""
+    5x5 out-conv + bias, tanh.
 
-    def __init__(self, cfg: ModelConfig):
+    ``in_features`` (default ``latent_dim``) and ``chans`` (the FC's
+    channels, then each block's; default ``(size0, size0,
+    decoder_channels[1], decoder_channels[2])``) let :class:`VoxelDecoder`
+    and :class:`WaeDecoder` reuse it; ``fc[2]`` is the FC's activation."""
+
+    def __init__(self, cfg: ModelConfig, in_features: int | None = None,
+                 chans: tuple | None = None):
         super().__init__()
         self.compute_dtype = _cd(cfg)
         self.pallas_backward, self.alt_backward = cfg.pallas_backward, cfg.alt_backward
-        self.size0, self.fc_input = cfg.encoder_channels[-1], cfg.fc_input
+        size0 = cfg.encoder_channels[-1]
+        chans = chans or (size0, size0, cfg.decoder_channels[1], cfg.decoder_channels[2])
+        self.size0, self.fc_input = chans[0], cfg.fc_input
         flat = self.fc_input * self.fc_input * self.size0
-        self.fc = nn.Sequential(nn.Linear(cfg.latent_dim, flat, bias=False),
+        self.fc = nn.Sequential(nn.Linear(in_features or cfg.latent_dim, flat, bias=False),
                                 BatchNorm1d(flat), nn.ReLU())
-        chans = (self.size0, self.size0, cfg.decoder_channels[1],
-                 cfg.decoder_channels[2])
         blocks = [DecoderBlock(chans[i], chans[i + 1], cfg.output_pad_dec[i], cfg)
                   for i in range(3)]
         out = nn.Sequential(
@@ -167,7 +177,7 @@ class Decoder(nn.Module):
         pass with each sub-batch's own BatchNorm statistics (train mode)."""
         cd = self.compute_dtype
         x = linear(z, self.fc[0].weight, None, cd)
-        x = torch.relu(self.fc[1](x, vsplit))
+        x = self.fc[2](self.fc[1](x, vsplit))
         # C-major flatten, as the reference's view(B, C, H, W)
         x = x.view(x.shape[0], self.size0, self.fc_input, self.fc_input)
         for blk in self.conv[:3]:
@@ -176,6 +186,104 @@ class Decoder(nn.Module):
         x = conv2d(x, out.weight, 1, 2, cd, self.pallas_backward,
                    self.alt_backward) + out.bias.view(1, -1, 1, 1)
         return torch.tanh(x).permute(0, 2, 3, 1).contiguous()
+
+
+class VoxelDecoder(Decoder):
+    """fMRI voxels [B, V] -> image: the supervised decoder of the
+    ``exp_decoder`` ablation (``fmri_tpu/models/nets.py:287``), a
+    :class:`Decoder` whose FC reads the voxels and whose FC activation is
+    **tanh** (``experiments/exp_decoder.py:172-174``)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg, in_features=cfg.num_voxels)
+        self.fc[2] = nn.Tanh()
+
+
+class WaeDecoder(Decoder):
+    """The wide decoder (``fmri_tpu/models/nets.py:323``; dead code in the
+    reference, ``vae_gan.py:625-655``): FC to ``fc_input^2 * 1024`` + BN +
+    ReLU, blocks 1024 -> 512 -> 256 -> 128, conv to 3 channels, tanh. The FC
+    width follows ``fc_input``, the JAX package's fix of the reference's
+    hard-coded ``16 * 16 * 1024``."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg, chans=(1024, 512, 256, 128))
+
+
+def _same_conv(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    return F.conv2d(same_pad(x, w.shape[-1], stride), w, stride=stride)
+
+
+# ResNetEncoder's two hidden FC widths (the reference's fc_hidden1/2)
+RESNET_FC_HIDDEN = (1024, 768)
+
+
+class _ResBlock(nn.Module):
+    """3x3 conv (stride) + BN + ReLU, 3x3 conv + BN, a 1x1 conv (stride) +
+    BN shortcut where the shape changes, ReLU of the sum
+    (``fmri_tpu/models/nets.py:362``); SAME padding, no bias."""
+
+    def __init__(self, cin: int, cout: int, stride: int):
+        super().__init__()
+        self.stride = stride
+        self.conv1 = nn.Conv2d(cin, cout, 3, bias=False)
+        self.bn1 = BatchNorm2d(cout)
+        self.conv2 = nn.Conv2d(cout, cout, 3, bias=False)
+        self.bn2 = BatchNorm2d(cout)
+        if cin != cout or stride != 1:
+            self.proj = nn.Conv2d(cin, cout, 1, bias=False)
+            self.proj_bn = BatchNorm2d(cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(self.bn1(_same_conv(x, self.conv1.weight, self.stride)))
+        h = self.bn2(_same_conv(h, self.conv2.weight, 1))
+        if hasattr(self, "proj"):
+            x = self.proj_bn(_same_conv(x, self.proj.weight, self.stride))
+        return torch.relu(h + x)
+
+
+class ResNetEncoder(nn.Module):
+    """Image [B, H, W, 3] -> (mu, logvar): the residual VAE encoder
+    (``fmri_tpu/models/nets.py:382``; dead code in the reference,
+    ``vae_gan.py:658-702``). The trunk is the compact one trained from
+    scratch (7x7 stride-2 stem + BN + ReLU, four :class:`_ResBlock`s of
+    64/128/256/512 channels, the spatial mean) or ``trunk``, a frozen module
+    of NHWC images -> [B, ``trunk.out_features``] such as
+    :func:`fmri_tpu_torch.models.resnet152.resnet152_trunk_fn`'s (its
+    weights are buffers outside the state dict). Then ``fc1`` (1024) + BN +
+    ReLU, ``fc2`` (768) + BN + ReLU and the ``fc3_mu`` / ``fc3_logvar``
+    heads, the reference's names. The convs pad as Flax's ``'SAME'``
+    (:func:`~fmri_tpu_torch.ops.conv.same_pad`), fp32 cuDNN calls on the
+    card. The head's widths are :data:`RESNET_FC_HIDDEN`: the JAX module's
+    ``fc_hidden1`` / ``fc_hidden2`` fields, which no caller sets."""
+
+    def __init__(self, cfg: ModelConfig, trunk: nn.Module | None = None):
+        super().__init__()
+        if trunk is None:
+            self.stem = nn.Conv2d(3, 64, 7, bias=False)
+            self.stem_bn = BatchNorm2d(64)
+            self.blocks = nn.Sequential(*[_ResBlock(cin, cout, s) for cin, cout, s in (
+                (64, 64, 1), (64, 128, 2), (128, 256, 2), (256, 512, 2))])
+            features = 512
+        else:
+            self.trunk, features = trunk, trunk.out_features
+        hidden1, hidden2 = RESNET_FC_HIDDEN
+        self.fc1 = nn.Linear(features, hidden1)
+        self.bn1 = BatchNorm1d(hidden1)
+        self.fc2 = nn.Linear(hidden1, hidden2)
+        self.bn2 = BatchNorm1d(hidden2)
+        self.fc3_mu = nn.Linear(hidden2, cfg.latent_dim)
+        self.fc3_logvar = nn.Linear(hidden2, cfg.latent_dim)
+
+    def forward(self, x: torch.Tensor):
+        if hasattr(self, "trunk"):
+            h = self.trunk(x)
+        else:
+            h = torch.relu(self.stem_bn(_same_conv(_nchw(x), self.stem.weight, 2)))
+            h = self.blocks(h).mean(dim=(2, 3))
+        h = torch.relu(self.bn1(self.fc1(h)))
+        h = torch.relu(self.bn2(self.fc2(h)))
+        return self.fc3_mu(h), self.fc3_logvar(h)
 
 
 class ImageDiscriminator(nn.Module):

@@ -225,3 +225,16 @@ def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor, stride: int = 2,
         return _Deconv2dDW.apply(x, weight.detach(), tap, stride, padding,
                                  output_padding, compute_dtype)
     return _deconv(x, weight, stride, padding, output_padding, compute_dtype)
+
+
+def same_pad(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """Zero padding of an NCHW tensor for a k x k, ``stride`` conv as XLA's
+    (and flax's default) ``'SAME'``: ceil(n / stride) outputs, the odd pixel
+    of padding after. At stride 2 and an even size that is one less before
+    than ``nn.Conv2d``'s symmetric ``padding``, which would shift every
+    output."""
+    pads = []
+    for n in (x.shape[3], x.shape[2]):  # F.pad takes the last dimension first
+        total = max((-(-n // stride) - 1) * stride + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)

@@ -10,7 +10,11 @@
 Counterpart of ``fmri_tpu/train/run.py`` with its flags. Families and
 stages map to the reference scripts: ``vgan`` 1/2/3
 (``train_vgan_stage{1,2,3}.py``), ``wae`` 1/2/3 (``train_wae_stage{1,2,3}.py``),
-``wae-vgan`` 1 (``wae_vgan_stage1.py``). ``--prev-ckpt`` and
+``wae-vgan`` 1 (``wae_vgan_stage1.py``), and ``--family exp --exp
+decoder|vae|vgan|dcgan-stage1|dcgan-stage2`` the ablations
+(``experiments/exp_*.py``; ``dcgan-stage1`` trains on images, the others
+on pairs, ``dcgan-stage2`` takes ``--prev-ckpt`` the ``dcgan-stage1``
+run's checkpoints). ``--prev-ckpt`` and
 ``--stage1-ckpt`` take a port run's ``checkpoints`` dir or a
 reference-layout ``.pth``. Runs on ``cuda`` unless ``--device cpu``;
 without a card the default raises.
@@ -32,8 +36,8 @@ Data, as the JAX CLI loads it (``fmri_tpu/train/run.py:182-266``):
 coco_valid, bold_train, bold_valid), which later runs read instead of
 decoding; the JAX CLI reads and writes the same files.
 
-Not in the port yet, and refused with the slice that brings them:
-``--mesh`` (slice 10), ``--family exp`` (slice 9).
+Not in the port yet, and refused with the slice that brings it:
+``--mesh`` (slice 10, parallelism).
 """
 
 from __future__ import annotations
@@ -116,9 +120,6 @@ def _refuse(args) -> None:
     if args.mesh:
         raise SystemExit("--mesh: multi-card training is not in the port yet "
                          "(slice 10, parallelism)")
-    if args.family == "exp":
-        raise SystemExit("--family exp: the ablation experiments are not in the port "
-                         "yet (slice 9, experiments and auxiliaries)")
 
 
 def _open_packed_split(args, cfg, keys):
@@ -256,12 +257,19 @@ def main(argv=None) -> int:
     if args.num_voxels is not None:
         cfg = override_num_voxels(cfg, args.num_voxels)
 
-    if args.family == "wae-vgan" and args.stage != 1:
-        raise SystemExit("wae-vgan has only stage 1 (wae_vgan_stage1.py)")
-    family_key = {"vgan": "vgan", "wae": "wae", "wae-vgan": "wae_vgan"}[args.family]
-    builder_name = f"{family_key}_stage{args.stage}"
+    if args.family == "exp":
+        if not args.exp:
+            raise SystemExit("--family exp needs --exp")
+        builder_name = "exp_" + args.exp.replace("-", "_")
+    else:
+        if args.family == "wae-vgan" and args.stage != 1:
+            raise SystemExit("wae-vgan has only stage 1 (wae_vgan_stage1.py)")
+        family_key = {"vgan": "vgan", "wae": "wae", "wae-vgan": "wae_vgan"}[args.family]
+        builder_name = f"{family_key}_stage{args.stage}"
+    image_data = ((args.stage == 1 and args.family != "exp")
+                  or builder_name == "exp_dcgan_stage1")
 
-    train_data, valid_data = (_load_images if args.stage == 1 else _load_pairs)(args, cfg)
+    train_data, valid_data = (_load_images if image_data else _load_pairs)(args, cfg)
     steps_per_epoch = max(num_examples(train_data) // cfg.train.batch_size, 1)
 
     bkw = dict(steps_per_epoch=steps_per_epoch, seed=cfg.train.seed, device=device)
@@ -269,7 +277,12 @@ def main(argv=None) -> int:
         bkw["mode"] = args.mode
         if args.stage == 2:
             bkw["use_teacher"] = not args.no_teacher
-    if args.stage >= 2:
+    if builder_name == "exp_dcgan_stage2":
+        if not args.prev_ckpt:
+            raise SystemExit("exp dcgan-stage2 needs --prev-ckpt (dcgan stage 1)")
+        bkw["stage1_ckpt"] = args.prev_ckpt
+        bkw["epoch"] = args.load_epoch
+    if args.family != "exp" and args.stage >= 2:
         if not args.prev_ckpt:
             raise SystemExit("stages 2/3 need --prev-ckpt")
         bkw["stage1_ckpt" if args.stage == 2 else "stage2_ckpt"] = args.prev_ckpt

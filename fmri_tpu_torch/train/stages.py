@@ -1,6 +1,6 @@
 """Stage builders: (TrainState, StepFns, Trainer keywords) per stage.
 
-Counterpart of ``fmri_tpu/train/stages.py:52-201``, one builder per
+Counterpart of ``fmri_tpu/train/stages.py:52-313``, one builder per
 reference trainer script:
 
   * ``vgan_stage1`` ``train_vgan_stage1.py`` (Dual-VAE/GAN on images)
@@ -10,6 +10,11 @@ reference trainer script:
   * ``wae_stage2`` ``train_wae_stage2.py`` (cognitive latent alignment)
   * ``wae_stage3`` ``train_wae_stage3.py`` (decoder recon fine-tune)
   * ``wae_vgan_stage1`` ``wae_vgan_stage1.py`` (WAE/Dual-GAN)
+  * ``exp_decoder`` ``experiments/exp_decoder.py`` (supervised decoder)
+  * ``exp_vae``, ``exp_vgan`` ``experiments/exp_vae.py``, ``exp_vgan.py``
+    (cognitive VAE, VAE/GAN from scratch)
+  * ``exp_dcgan_stage1``, ``exp_dcgan_stage2``
+    ``experiments/exp_dcgan_stage{1,2}.py`` (DCGAN, cognitive over it)
 
 Each builds its train module on ``device`` from ``seed`` (the port's own
 reference init, ``train/state.py``), the same trained groups, optimizers
@@ -23,8 +28,8 @@ Later stages read the previous stage's port checkpoint dir (``epoch``,
 default the latest) or a reference-layout ``.pth`` and graft groups as the
 JAX builders do: the stage-II teacher from the stage-I encoder, stage III
 from stage II, the WAE stage-III teacher from stage I, a fresh latent
-discriminator in WAE stages II and III. The ablation builders (``exp_*``)
-are not in the port yet.
+discriminator in WAE stages II and III, the DCGAN stage-2 decoder and
+discriminator from DCGAN stage 1.
 """
 
 from __future__ import annotations
@@ -36,9 +41,14 @@ from fmri_tpu_torch.configs.presets import Config
 from fmri_tpu_torch.device import resolve_device
 from fmri_tpu_torch.train.optim import Adam, RmsProp, exponential_lr, step_lr
 from fmri_tpu_torch.train.state import (
-    GROUPS, WAE_DUAL_GROUPS, WAE_GROUPS, TrainState, VaeGan, VaeGanCognitiveTrain,
-    WaeGan, WaeGanCognitiveTrain, init_cognitive, init_vaegan, init_wae,
-    init_wae_cognitive, init_wae_dual_gan, make_state,
+    GROUPS, WAE_DUAL_GROUPS, WAE_GROUPS, CognitiveVaeGan, DcGan, TrainState, VaeGan,
+    VaeGanCognitiveTrain, WaeGan, WaeGanCognitiveTrain, init_cognitive, init_groups,
+    init_vaegan, init_voxel_decoder, init_wae, init_wae_cognitive, init_wae_dual_gan,
+    make_state,
+)
+from fmri_tpu_torch.train.steps_exp import (
+    make_cognitive_scratch_step, make_dcgan_stage1_step, make_dcgan_stage2_step,
+    make_supervised_decoder_step,
 )
 from fmri_tpu_torch.train.steps_vgan import (
     StepFns, make_vgan_cognitive_step, make_vgan_stage1_step,
@@ -53,6 +63,7 @@ Built = Tuple[TrainState, StepFns, Dict[str, Any]]
 # (fmri_tpu/train/steps_vgan.py:236-238, :545-548; steps_wae.py:63, :492-495)
 VGAN_STAGE1_NOISE = (("eps", 1.0), ("z_p", 1.0))
 VGAN_COGNITIVE_NOISE = (("eps", 1.0), ("eps_t", 1.0), ("z_p", 1.0))
+EXP_NOISE = VGAN_STAGE1_NOISE  # the cognitive ablations (steps_exp.py:110-112, :314-316)
 
 
 def _image_kwargs(uses_gate: bool, eval_sample: bool, noise) -> Dict[str, Any]:
@@ -229,14 +240,85 @@ def wae_vgan_stage1(cfg: Config, *, mode: str = "vae-gan", steps_per_epoch: int,
 # --------------------------- experiments (ablations) ---------------------------
 
 
-def _not_ported(name: str):
-    def builder(cfg: Config, *args, **kwargs) -> Built:
-        raise NotImplementedError(
-            f"the {name} ablation is not in the port yet: slice 9 (experiments and "
-            "auxiliaries) brings fmri_tpu/train/steps_exp.py")
+def exp_decoder(cfg: Config, *, steps_per_epoch: int, seed: int = 8,
+                device: str = "cuda") -> Built:
+    """The supervised decoder ablation: a fresh VoxelDecoder, Adam(0.9,
+    0.999) at lr 0.01 with the per-epoch ExponentialLR (``exp_decoder.py:253``);
+    no gate, no noise, the mean decoded at eval."""
+    step = make_supervised_decoder_step(cfg, lr_schedule=exponential_lr(
+        0.01, cfg.train.decay_lr, steps_per_epoch))
+    state = make_state(init_voxel_decoder(cfg, seed).to(resolve_device(device)),
+                       {"decoder": Adam(b1=0.9, b2=0.999)})
+    steps = StepFns(lambda s, batch, noise: step.train_step(s, batch["fmri"], batch["image"]),
+                    _pair_eval(step), None)
+    return state, steps, _pair_kwargs(cfg, False, False, ())
 
-    builder.__name__ = name
-    return builder
+
+def _exp_pair_steps(step: StepFns) -> StepFns:
+    return StepFns(lambda s, batch, noise, *gate: step.train_step(
+        s, batch["fmri"], batch["image"], noise["eps"], noise["z_p"], *gate),
+        _pair_eval(step), step.generate_step)
+
+
+def _exp_cognitive_scratch(cfg: Config, mode: str, steps_per_epoch: int, seed: int,
+                           device: str) -> Built:
+    """A fresh cognitive encoder, decoder and discriminator, RMSprop clamping
+    to +-1 for each (``fmri_tpu/train/stages.py:228-246``)."""
+    t = cfg.train
+    step = make_cognitive_scratch_step(cfg, mode, lr_schedule=exponential_lr(
+        t.learning_rate, t.decay_lr, steps_per_epoch))
+    opt = RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=1.0)
+    state = make_state(init_groups(CognitiveVaeGan, cfg, seed).to(resolve_device(device)),
+                       {g: opt for g in GROUPS})
+    return state, _exp_pair_steps(step), _pair_kwargs(cfg, True, True, EXP_NOISE)
+
+
+def exp_vae(cfg: Config, *, steps_per_epoch: int, seed: int = 8,
+            device: str = "cuda") -> Built:
+    """The cognitive Dual-VAE without distillation (``exp_vae.py``)."""
+    return _exp_cognitive_scratch(cfg, "vae", steps_per_epoch, seed, device)
+
+
+def exp_vgan(cfg: Config, *, steps_per_epoch: int, seed: int = 8,
+             device: str = "cuda") -> Built:
+    """The Dual-VAE/GAN on BOLD from scratch (``exp_vgan.py``)."""
+    return _exp_cognitive_scratch(cfg, "vae-gan", steps_per_epoch, seed, device)
+
+
+def exp_dcgan_stage1(cfg: Config, *, steps_per_epoch: int, seed: int = 8,
+                     device: str = "cuda") -> Built:
+    """The plain DCGAN on images (``exp_dcgan_stage1.py``): a fresh decoder
+    and discriminator, RMSprop clamping to +-1; the step's noise is z_p,
+    drawn from the step's key unsplit."""
+    t = cfg.train
+    step = make_dcgan_stage1_step(cfg, lr_schedule=exponential_lr(
+        t.learning_rate, t.decay_lr, steps_per_epoch))
+    opt = RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=1.0)
+    state = make_state(init_groups(DcGan, cfg, seed).to(resolve_device(device)),
+                       {g: opt for g in DcGan.PREFIXES})
+    steps = StepFns(lambda s, x, noise, *gate: step.train_step(s, x, noise["z_p"], *gate),
+                    step.eval_step, step.generate_step)
+    return state, steps, _image_kwargs(True, True, (("z_p", 1.0),))
+
+
+def exp_dcgan_stage2(cfg: Config, stage1_ckpt: str, *, steps_per_epoch: int,
+                     seed: int = 8, epoch: Optional[int] = None,
+                     device: str = "cuda") -> Built:
+    """The cognitive encoder over a DCGAN generator (``exp_dcgan_stage2.py``):
+    a fresh encoder from ``seed``, the decoder and discriminator from the
+    DCGAN stage-1 checkpoint (a port run's checkpoint dir or a ``.pth`` in
+    ``DcGan``'s layout); the decoder (no clamp) and the discriminator (clamp
+    +-1) train, the encoder is frozen."""
+    t = cfg.train
+    step = make_dcgan_stage2_step(cfg, lr_schedule=exponential_lr(
+        t.learning_rate, t.decay_lr, steps_per_epoch))
+    nets = graft_groups(init_groups(CognitiveVaeGan, cfg, seed), load_groups(
+        stage1_ckpt, ["decoder", "discriminator"], epoch, prefixes=DcGan.PREFIXES),
+        {"decoder": "decoder", "discriminator": "discriminator"})
+    state = make_state(nets.to(resolve_device(device)), {
+        "decoder": RmsProp(decay=t.rms_decay, eps=t.rms_eps),
+        "discriminator": RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=1.0)})
+    return state, _exp_pair_steps(step), _pair_kwargs(cfg, True, True, EXP_NOISE)
 
 
 BUILDERS = {
@@ -247,6 +329,9 @@ BUILDERS = {
     "wae_stage2": wae_stage2,
     "wae_stage3": wae_stage3,
     "wae_vgan_stage1": wae_vgan_stage1,
-    **{name: _not_ported(name) for name in (
-        "exp_decoder", "exp_vae", "exp_vgan", "exp_dcgan_stage1", "exp_dcgan_stage2")},
+    "exp_decoder": exp_decoder,
+    "exp_vae": exp_vae,
+    "exp_vgan": exp_vgan,
+    "exp_dcgan_stage1": exp_dcgan_stage1,
+    "exp_dcgan_stage2": exp_dcgan_stage2,
 }

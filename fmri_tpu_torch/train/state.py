@@ -23,7 +23,12 @@ running statistics) of
   ``decoder.*``, ``discriminator.*`` the latent discriminator) and the
   frozen stage-I encoder, ``teacher_encoder.*``;
 * :class:`WaeDualGan`, WAE/Dual-GAN: the stage-I triplet's keys and the
-  latent discriminator under ``latent_disc.*``.
+  latent discriminator under ``latent_disc.*``;
+* the ablation experiments' modules (``fmri_tpu/train/stages.py:209-301``):
+  :class:`ExpDecoder` (``decoder.*``, a VoxelDecoder: ``exp_decoder``),
+  :class:`CognitiveVaeGan` (``encoder.*`` cognitive, ``decoder.*``,
+  ``discriminator.*``: ``exp_vae``, ``exp_vgan``, ``exp_dcgan_stage2``) and
+  :class:`DcGan` (``decoder.*``, ``discriminator.*``: ``exp_dcgan_stage1``).
 
 Each loads a reference state dict with ``strict=True`` (the WAE
 cognitive module with the teacher added). Frozen groups are groups without
@@ -41,6 +46,7 @@ from torch import nn
 from fmri_tpu_torch.configs.presets import Config
 from fmri_tpu_torch.models.nets import (
     CognitiveEncoder, Decoder, ImageDiscriminator, LatentDiscriminator, VisualEncoder,
+    VoxelDecoder,
 )
 from fmri_tpu_torch.train.optim import Adam, AdamState, Moments, RmsProp
 
@@ -146,6 +152,40 @@ class WaeDualGan(_Groups):
         self.latent_disc = LatentDiscriminator(cfg.model)
 
 
+class ExpDecoder(_Groups):
+    """The supervised decoder ablation: ``decoder``, a VoxelDecoder."""
+
+    PREFIXES = {"decoder": "decoder."}
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.decoder = VoxelDecoder(cfg.model)
+
+
+class CognitiveVaeGan(_Groups):
+    """The cognitive VAE/GAN without a teacher: ``encoder``
+    (CognitiveEncoder), ``decoder``, ``discriminator``."""
+
+    PREFIXES = {g: g + "." for g in GROUPS}
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.encoder = CognitiveEncoder(cfg.model)
+        self.decoder = Decoder(cfg.model)
+        self.discriminator = ImageDiscriminator(cfg.model)
+
+
+class DcGan(_Groups):
+    """The plain DCGAN: ``decoder`` (the generator) and ``discriminator``."""
+
+    PREFIXES = {"decoder": "decoder.", "discriminator": "discriminator."}
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.decoder = Decoder(cfg.model)
+        self.discriminator = ImageDiscriminator(cfg.model)
+
+
 OptState = Dict[str, Moments | AdamState]
 
 
@@ -175,11 +215,22 @@ def init_parameters(module: nn.Module) -> nn.Module:
     return module
 
 
-def init_vaegan(cfg: Config, seed: int = 0) -> VaeGan:
-    """A freshly initialised stage-I triplet on the CPU, from ``seed``."""
+def init_groups(module: type, cfg: Config, seed: int = 0) -> _Groups:
+    """A freshly initialised ``module(cfg)`` on the CPU, from ``seed``."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        return init_parameters(VaeGan(cfg))
+        return init_parameters(module(cfg))
+
+
+def init_vaegan(cfg: Config, seed: int = 0) -> VaeGan:
+    """A freshly initialised stage-I triplet on the CPU, from ``seed``."""
+    return init_groups(VaeGan, cfg, seed)
+
+
+def init_voxel_decoder(cfg: Config, seed: int = 0) -> ExpDecoder:
+    """A fresh supervised decoder (``fmri_tpu/train/state.py:74``) on the
+    CPU, from ``seed``."""
+    return init_groups(ExpDecoder, cfg, seed)
 
 
 def init_cognitive(cfg: Config, stage1: VaeGan | None = None,

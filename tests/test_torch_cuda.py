@@ -26,7 +26,8 @@ import os
 import numpy as np
 import pytest
 import torch
-from torch_port_helpers import cuda_device, port_model, uniform_pair  # noqa: F401
+from torch_port_helpers import (  # noqa: F401
+    EXP_LAUNCHES, cuda_device, port_model, uniform_pair)
 
 from fmri_tpu_torch.checkpoints.convert import random_groups
 from fmri_tpu_torch.configs import get_config
@@ -902,3 +903,136 @@ def test_inception_v3_on_the_card_matches_the_cpu(cuda_device, tmp_path, monkeyp
     assert card.shape == (4, 1000) and np.isfinite(card).all()
     np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-5)
     assert inception.inception_score(x.to(cuda_device))[2] is False
+
+
+def _exp_run(cfg, name, device, b, flags, ckpt):
+    """One step of an ablation path through its builder (``ckpt``: a DCGAN
+    stage-1 checkpoint dir for stage 2), moments at ones: (state, metrics,
+    launches, start weights)."""
+    import dataclasses
+
+    from fmri_tpu_torch.train.optim import AdamState
+    from fmri_tpu_torch.train.stages import BUILDERS
+
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, pallas_bn=flags, pallas_backward=flags))
+    state, steps, kw = BUILDERS[name](cfg, *([ckpt] if name == "exp_dcgan_stage2" else []),
+                                      steps_per_epoch=4, device=str(device))
+    for m in state.opt_state.values():
+        for v in (m.nu if isinstance(m, AdamState) else m).values():
+            v.fill_(1.0)
+    weights = {k: v.cpu().clone() for k, v in state.nets.state_dict().items()}
+    fmri, image, eps, z_p, _ = _cognitive_inputs(cfg, b, device)
+    batch = image if kw["data_kind"] == "image" else {"fmri": fmri, "image": image}
+    gate = (0.35, 0.68, 1e-6) if kw["uses_gate"] else ()
+    before = _launches()
+    state, m = steps.train_step(state, batch, {"eps": eps, "z_p": z_p}, *gate)
+    torch.cuda.synchronize()
+    return state, m, tuple(a - b for a, b in zip(_launches(), before)), weights
+
+
+@pytest.fixture(scope="module")
+def dcgan1_dirs(tmp_path_factory):
+    """A DCGAN stage-1 checkpoint dir at tiny and at res64 (CPU states)."""
+    from fmri_tpu_torch.checkpoints import store
+    from fmri_tpu_torch.train.stages import exp_dcgan_stage1
+
+    out = {}
+    for preset in ("tiny", "res64"):
+        d = str(tmp_path_factory.mktemp(f"dcgan1_{preset}"))
+        store.save_checkpoint(d, 0, exp_dcgan_stage1(get_config(preset), steps_per_epoch=2,
+                                                     device="cpu")[0])
+        out[preset] = d
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(EXP_LAUNCHES))
+def test_exp_step_kernels_match_the_library_on_the_card(cuda_device, dcgan1_dirs, name):
+    """Each ablation step at tiny with both kernel flags on against the same
+    step with both off, on the card, from the same state and inputs, under
+    the WAE steps' bounds (losses 1e-5 relative; parameters, moments and
+    BN running statistics 1e-3 in L2 per tensor), a parameter whose update
+    is below its fp32 spacing (``exp_vgan``'s FC BatchNorm scales, moved
+    6e-5 in all at lr 1e-4, where flags on and off round one element one
+    unit apart) within 4 units of its own norm; the kernels launched as
+    counted on the CPU."""
+    from fmri_tpu_torch.train.optim import AdamState
+
+    cfg = get_config("tiny")
+    on, m_on, n_on, weights = _exp_run(cfg, name, cuda_device, 8, True, dcgan1_dirs["tiny"])
+    off, m_off, n_off, _ = _exp_run(cfg, name, cuda_device, 8, False, dcgan1_dirs["tiny"])
+    assert n_on == EXP_LAUNCHES[name] and n_off == (0, 0, 0)
+    for k in m_off:
+        assert float(m_on[k]) == pytest.approx(float(m_off[k]), rel=1e-5, abs=1e-7), k
+    sd_on = on.nets.state_dict()
+    for k, ref in off.nets.state_dict().items():
+        got, ref = sd_on[k].cpu(), ref.cpu()
+        if k.endswith("num_batches_tracked"):
+            assert torch.equal(got, ref)
+            continue
+        scale = ref if "running" in k else ref - weights[k]
+        ulps = 4 * torch.finfo(torch.float32).eps * float(ref.norm())
+        assert float((got - ref).norm()) <= max(1e-3 * float(scale.norm()), ulps, 1e-12), k
+    for g, moments in off.opt_state.items():
+        pairs = ([(on.opt_state[g].mu, moments.mu), (on.opt_state[g].nu, moments.nu)]
+                 if isinstance(moments, AdamState) else [(on.opt_state[g], moments)])
+        for got_m, ref_m in pairs:
+            for k, ref in ref_m.items():
+                assert float((got_m[k].cpu() - ref.cpu()).norm()) <= 1e-3 * max(
+                    float(ref.norm()), 1e-12), (g, k)
+
+
+@pytest.mark.parametrize("name", sorted(EXP_LAUNCHES))
+def test_res64_exp_step_launches(cuda_device, dcgan1_dirs, name):
+    """One res64 ablation step at batch 8 launches each kernel as counted on
+    the CPU at tiny."""
+    got = _exp_run(get_config("res64"), name, cuda_device, 8, True, dcgan1_dirs["res64"])[2]
+    assert got == EXP_LAUNCHES[name]
+
+
+def test_wae_decoder_kernels_match_plain(cuda_device):
+    """WaeDecoder at res64 (batch 16, both flags on): its 1024 -> 512 deconv
+    weight grad at 8 -> 16 px and its 512-channel BatchNorm backward, each
+    recorded call against the plain version (weight grad within ``DW_TOL``
+    of the plain result's largest magnitude, BN within 1e-5), and the
+    gradients of the whole decoder within 1e-3 (L2 per tensor) of the
+    library backward's."""
+    import dataclasses
+
+    from fmri_tpu_torch.models.nets import WaeDecoder
+
+    cfg = get_config("res64")
+    grads, calls = {}, {"dw": [], "bn": []}
+    real_dw, real_bn = port_dw.conv2d_transpose_dw, port_bn.bn_bwd_reduce
+    for flags in (False, True):
+        c = dataclasses.replace(cfg.model, pallas_bn=flags, pallas_backward=flags)
+        torch.manual_seed(0)
+        dec = WaeDecoder(c).to(cuda_device)
+        z = torch.randn((16, c.latent_dim), generator=torch.Generator().manual_seed(1)).to(
+            cuda_device)
+        if flags:  # recorders; the wrapper counts its launches by its module name
+            def rec_dw(*a):
+                calls["dw"].append(a)
+                return real_dw(*a)
+
+            def rec_bn(*a):
+                calls["bn"].append(a)
+                return real_bn(*a)
+
+            rec_bn.launches = real_bn.launches
+            port_dw.conv2d_transpose_dw, port_bn.bn_bwd_reduce = rec_dw, rec_bn
+        try:
+            out = dec(z)
+            grads[flags] = torch.autograd.grad((out * out).sum(), list(dec.parameters()))
+        finally:
+            port_dw.conv2d_transpose_dw, port_bn.bn_bwd_reduce = real_dw, real_bn
+    assert [tuple(a[0].shape) for a in calls["dw"]][-1] == (16, 1024, 8, 8)
+    assert any(a[0].shape[1] == 512 for a in calls["bn"])
+    for a in calls["dw"]:
+        got, ref = real_dw(*a), port_dw.conv2d_transpose_dw_plain(*a)
+        assert float((got - ref).abs().max()) <= DW_TOL[torch.float32] * float(ref.abs().max())
+    for a in calls["bn"]:
+        for got_row, ref_row in zip(real_bn(*a), port_bn.bn_bwd_reduce_plain(*a)):
+            assert float((got_row - ref_row).abs().max()) <= 1e-5 * float(ref_row.abs().max())
+    for got, ref in zip(grads[True], grads[False]):
+        assert float((got - ref).norm()) <= 1e-3 * float(ref.norm())

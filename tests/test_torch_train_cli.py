@@ -135,7 +135,7 @@ def test_packed_input(tmp_path):
 
 @pytest.mark.parametrize("args,slice_", [
     (["--family", "vgan", "--mesh", "data=2"], "slice 10"),
-    (["--family", "exp", "--exp", "vae"], "slice 9")])
+    (["--family", "exp", "--exp", "vae", "--mesh", "data=2"], "slice 10")])
 def test_unported_options_name_their_slice(tmp_path, args, slice_):
     with pytest.raises(SystemExit, match=slice_):
         run.main([*BASE, "-o", str(tmp_path), *args])

@@ -190,9 +190,18 @@ def test_builders_match_jax(chain, monkeypatch, name):
 
 @pytest.mark.parametrize("name", ["exp_decoder", "exp_vae", "exp_vgan", "exp_dcgan_stage1",
                                   "exp_dcgan_stage2"])
-def test_ablation_builders_name_their_slice(name):
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        stages.BUILDERS[name](CFG, steps_per_epoch=2)
+def test_ablation_builders_name_their_slice(name, tmp_path):
+    """The ablation builders are in the port (``tests/test_torch_exp_cli.py``
+    holds them against the JAX builders): each builds its state on the CPU,
+    DCGAN stage 2 from a DCGAN stage-1 checkpoint dir."""
+    args = []
+    if name == "exp_dcgan_stage2":
+        store.save_checkpoint(str(tmp_path), 0, stages.exp_dcgan_stage1(
+            CFG, steps_per_epoch=2, device="cpu")[0])
+        args = [str(tmp_path)]
+    state, steps, kw = stages.BUILDERS[name](CFG, *args, steps_per_epoch=2, device="cpu")
+    assert state.opt_state and steps.train_step is not None and kw["data_kind"] in (
+        "image", "pair")
 
 
 def test_a_reference_pth_hands_off_like_a_checkpoint(stage1, tmp_path):

@@ -148,6 +148,15 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+# (bn_bwd_reduce, bn_bwd_apply, weight grads) per step of each ablation path
+# with both kernel flags on: one backward per trained head through the
+# decoder (3 BN, 4 dW a pass) and the discriminator (3 BN, 4 dW; 2 BN from
+# the feature tap). test_torch_exp_cli counts them on the CPU, the cuda
+# tests and chip_smoke.py's phase 16 on the card.
+EXP_LAUNCHES = {"exp_decoder": (3, 3, 4), "exp_vae": (6, 6, 4), "exp_vgan": (17, 17, 12),
+                "exp_dcgan_stage1": (9, 9, 8), "exp_dcgan_stage2": (12, 12, 12)}
+
+
 # the converter kind of each served (family, stage): the groups random_groups
 # draws and from_jax_groups reads
 SERVE_KINDS = {("vgan", 1): "vae-gan", ("vgan", 2): "vae-gan-cognitive-eval",
