@@ -228,6 +228,31 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      taps and the full ResNet-152 trunk over seeded torchvision-layout npz
      weights and every aux loss, card against CPU (``CARD_CPU_TOL``), and
      the two trunks' images/s at 64 px. An ``[exp] numbers`` JSON line.
+  17. mesh (``mesh_phase``): training across ranks (``parallel/mesh.py``).
+     (a) ``python -m fmri_tpu_torch.train.run --mesh data=1`` (res64, stage
+     I, 3 steps on 256 synthetic images): the NCCL group forms (a world of
+     one), and its checkpoint is bitwise the run's without ``--mesh``;
+     (b) ranks sharing the card over gloo (``make_mesh(..., devices=[cuda:0]
+     * k, backend="gloo")``), res64 full width, global batch 64, both kernel
+     flags on, moments warm: stage I at data=2, stage II at data=2 x model=2
+     (fc1 split by voxels), stage III at data=2 x model=2 with the decoder's
+     projection split too, WAE I at data=2. Each: rank 0's gathered state
+     against the single-process step on the card (``check_tensors``:
+     ``STEP_TOL``, or 3x a tensor's own rounding noise), every rank's state
+     bitwise rank 0's, each rank's launches the single-process step's
+     (``MESH_LAUNCHES``), every recorded BatchNorm backward against the plain
+     version with the data group's all-reduce between its passes and every
+     recorded kernel call against its plain version, ``MESH_STEPS`` timed
+     steps (s per step beside the single-process step's) and the bytes each
+     rank all-reduces per step; (c) ``Trainer.fit`` at data=2 over gloo on
+     the card, 2 epochs of 4 steps with a checkpoint per epoch, each rank's
+     validation SSIM over its 32 rows held against plain, the run resumed from
+     its epoch-0 checkpoint bitwise the uninterrupted one, the checkpoint in
+     the single-card inference CLI (4 SSIM); (d) ``dryrun_multichip(4)`` on
+     the card over gloo. ``[mesh]`` lines and a ``[mesh] numbers`` JSON line;
+     gloo's times are of host copies on one card, never NCCL or several
+     cards' times; the ``kernels`` line's ``launches_by_path`` gains each
+     ``mesh_*`` path.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -3365,6 +3390,473 @@ def backbone_checks(dev, cfg, work, b, timed_b, launches_by_path):
     return numbers
 
 
+# phase 17, training across ranks (parallel/mesh.py): (a) the train CLI at
+# --mesh data=1 over NCCL against the run without --mesh; (b) ranks sharing
+# the card over gloo, each path's step against the single-process step;
+# (c) Trainer.fit over gloo at data=2 with a checkpoint and a resume; (d) the
+# dry run over four ranks. gloo copies every collective through the host, so
+# its times show that the paths run and are not NCCL's or several cards'
+MESH_PATHS = {  # path: (kind, (data, model), tensor-parallel flags)
+    "mesh_stage1": ("stage1", (2, 1), {}),
+    "mesh_stage2": ("stage2", (2, 2), {"voxel_tp": True}),
+    "mesh_stage3": ("stage3", (2, 2), {"voxel_tp": True, "decoder_tp": True}),
+    "mesh_wae_stage1": ("wae_stage1", (2, 1), {}),
+}
+# each rank launches the single-process step's kernels: the same BatchNorms
+# and convs run over its rows
+MESH_LAUNCHES = {"stage1": TRAINER_LAUNCHES["trainer_stage1"], "stage2": COGNITIVE_LAUNCHES[2],
+                 "stage3": COGNITIVE_LAUNCHES[3], "wae_stage1": WAE_LAUNCHES["wae_stage1"]}
+MESH_KINDS = {"stage1": "vae-gan", "stage2": "vae-gan-cognitive",
+              "stage3": "vae-gan-cognitive", "wae_stage1": "wae-gan"}
+MESH_STEPS = 3  # timed steps of each (b) path
+MESH_CLI_EXAMPLES = 256  # (a): 192 train examples (3 steps of 64), 64 held out
+MESH_FIT_EXAMPLES, MESH_FIT_EPOCHS = 320, 2  # (c): 4 steps per epoch
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_state(kind, cfg, weights, dev):
+    """A fresh state of a (b) path on ``dev``, moments warm."""
+    from fmri_tpu_torch.train import state as st
+    from fmri_tpu_torch.train.optim import RmsProp
+
+    t = cfg.train
+    module = {"stage1": st.VaeGan, "stage2": st.VaeGanCognitiveTrain,
+              "stage3": st.VaeGanCognitiveTrain, "wae_stage1": st.WaeGan}[kind]
+    nets = module(cfg)
+    nets.load_state_dict(weights, strict=True)
+    nets = nets.to(dev)
+    if kind == "stage1":
+        state = st.make_state(nets, {g: RmsProp(t.rms_decay, t.rms_eps, t.grad_clip)
+                                     for g in st.GROUPS})
+    elif kind == "wae_stage1":
+        state = st.make_wae_state(nets, cfg)
+    else:
+        state = st.make_cognitive_state(nets, cfg, int(kind[-1]))
+    return warm_moments(state)
+
+
+def mesh_step(kind, cfg, mesh=None):
+    from fmri_tpu_torch.train.steps_vgan import make_vgan_cognitive_step, make_vgan_stage1_step
+    from fmri_tpu_torch.train.steps_wae import make_wae_stage1_step
+
+    if kind == "stage1":
+        return make_vgan_stage1_step(cfg, mesh=mesh).train_step
+    if kind == "wae_stage1":
+        return make_wae_stage1_step(cfg, mesh=mesh).train_step
+    return make_vgan_cognitive_step(cfg, int(kind[-1]), mesh=mesh).train_step
+
+
+def mesh_draw(kind, cfg, dev, gen, data):
+    """One global batch's step arguments (the same on every rank: the
+    generator is seeded alike)."""
+    import torch
+
+    t, c = cfg.train, cfg.model
+    b = t.batch_size
+
+    def noise(scale=1.0):
+        return scale * torch.randn((b, c.latent_dim), generator=gen, device=dev)
+
+    gate = (t.margin, t.equilibrium, t.lambda_mse)
+    if kind == "stage1":
+        return (data["image"], noise(), noise(), *gate)
+    if kind == "wae_stage1":
+        return (data["image"], noise(t.wae_sigma))
+    return (data["fmri"], data["image"], noise(), noise(), noise(), *gate)
+
+
+def state_from_tree(state, tree):
+    """``state`` (single-process) holding a host tree's values."""
+    from fmri_tpu_torch.train.optim import AdamState
+
+    for g, sd in tree["groups"].items():
+        state.nets.module(g).load_state_dict(sd, strict=True)
+    for g, m in state.opt_state.items():
+        saved = tree["opt_state"][g]
+        pairs = ([(m.mu, saved["mu"]), (m.nu, saved["nu"])] if isinstance(m, AdamState)
+                 else [(m, saved["sq_avg"])])
+        for dst, src in pairs:
+            for k, v in dst.items():
+                v.copy_(src[k])
+        if isinstance(m, AdamState):
+            m.count.copy_(saved["count"])
+    state.step.copy_(tree["step"])
+    return state
+
+
+def tree_leaves(tree, prefix=""):
+    """[(path, tensor)] of a checkpoint tree (``store.host_tree``), in key
+    order."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return [(prefix, tree)]
+    return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k], f"{prefix}/{k}")]
+
+
+def trees_equal_across_ranks(tree, mesh) -> bool:
+    """Every tensor of this rank's gathered state bitwise rank 0's, on
+    every rank (each tensor broadcast from rank 0)."""
+    import torch
+
+    bad = 0
+    for _, v in tree_leaves(tree):
+        ref = mesh.broadcast(v.clone())
+        bad += int(not torch.equal(ref, v))
+    flag = torch.tensor([float(bad)])
+    torch.distributed.all_reduce(flag)
+    return float(flag.item()) == 0.0
+
+
+def hold_bn_with_allreduce(calls, mesh, path) -> float:
+    """Each recorded BatchNorm backward against the plain version with the
+    data group's all-reduce between its two passes: the plain reduce pass on
+    this rank's rows, summed over the data group, against the sums the
+    kernel's apply pass took, and the plain apply pass on those against the
+    kernel's dx (``TOL`` of the largest plain value). A collective per
+    call: every rank holds its calls in the same order."""
+    from fmri_tpu_torch.ops import bn
+
+    applies = {key[:4]: args for key, (args, _) in calls["bn_bwd_apply"].items()}
+    worst = 0.0
+    for key, (args, _) in calls["bn_bwd_reduce"].items():
+        x, dy, mu, inv = args
+        sums = mesh.data_sum(bn.bn_bwd_reduce_plain(x, dy, mu, inv))
+        a = applies[key]
+        check(len(a) == 9 and a[8] == x.numel() // x.shape[1] * mesh.data,
+              f"{path}: bn_bwd_apply {list(x.shape)} took count {a[8:]}, want the global "
+              f"{x.numel() // x.shape[1] * mesh.data}")
+        err_sums = rel_err(a[5], sums)
+        err_dx = rel_err(bn.bn_bwd_apply(*a), bn.bn_bwd_apply_plain(*a[:5], sums, *a[6:]))
+        check(err_sums <= TOL and err_dx <= TOL,
+              f"{path}: BatchNorm backward {list(x.shape)} with the all-reduce: sums "
+              f"{err_sums}, dx {err_dx} (bound {TOL})")
+        worst = max(worst, err_sums, err_dx)
+    return worst
+
+
+def mesh_rank(rank, world, port, device, preset, paths, out) -> None:
+    """One rank of (b): each path in ``paths`` on a mesh of ranks sharing
+    ``device`` over gloo. Rank 0 also runs the single-process step on the
+    global batch and holds its replica against it."""
+    import torch
+
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups, random_groups
+    from fmri_tpu_torch.checkpoints.store import host_tree
+    from fmri_tpu_torch.configs import get_config
+    from fmri_tpu_torch.data.synthetic import synthetic_pairs
+    from fmri_tpu_torch.device import deterministic_cudnn, resolve_device
+    from fmri_tpu_torch.parallel.mesh import initialize_multihost, make_mesh, shard_state
+
+    dev = resolve_device(device)
+    if dev.type == "cpu":  # a rehearsal off the card
+        torch.cuda.synchronize = lambda *a, **k: None
+    initialize_multihost(f"localhost:{port}", world, rank, backend="gloo")
+    cfg = with_flags(get_config(preset), pallas_bn=True, pallas_backward=True)
+    c = cfg.model
+    raw = synthetic_pairs(cfg.train.batch_size, c.image_size, c.num_voxels, seed=0)
+    data = {"fmri": torch.from_numpy(raw["fmri"]).to(dev),
+            "image": torch.from_numpy(2.0 * raw["image"] - 1.0).to(dev)}
+    results = {}
+    with deterministic_cudnn():
+        for path, (kind, shape, tp) in paths.items():
+            mesh = make_mesh(*shape, devices=[dev] * world, backend="gloo")
+            weights = from_jax_groups(random_groups(cfg, seed=0, kind=MESH_KINDS[kind]), cfg,
+                                      MESH_KINDS[kind])
+            gen = torch.Generator(device=dev).manual_seed(17)
+            args = mesh_draw(kind, cfg, dev, gen, data)
+            res = {}
+            if rank == 0:  # the single-process step on the same card
+                single = mesh_step(kind, cfg)
+                ref = mesh_state(kind, cfg, weights, dev)
+                (ref, m_ref), single_launches, _, _ = record_step(
+                    lambda: single(ref, *args), record=False)
+                rev, _ = single(mesh_state(kind, cfg, weights, dev),
+                                *(reversed_batch(a) for a in args))
+                state1 = mesh_state(kind, cfg, weights, dev)
+                _sync(dev)
+                t0 = time.perf_counter()
+                for _ in range(MESH_STEPS):
+                    state1, _ = single(state1, *mesh_draw(kind, cfg, dev, gen, data))
+                _sync(dev)
+                res["single_s_per_step"] = (time.perf_counter() - t0) / MESH_STEPS
+                del state1
+                gen.manual_seed(17)
+                args = mesh_draw(kind, cfg, dev, gen, data)
+            step = mesh_step(kind, cfg, mesh)
+            state = shard_state(mesh_state(kind, cfg, weights, dev), mesh, **tp)
+            local = [mesh.rows(a) if torch.is_tensor(a) else a for a in args]
+            before = mesh.reduced_bytes
+            (state, m), launches, calls, cold = record_step(lambda: step(state, *local))
+            res["reduced_bytes_per_step"] = mesh.reduced_bytes - before
+            res["launches"] = launches
+            if dev.type == "cuda":
+                check(launches == MESH_LAUNCHES[kind],
+                      f"{path} rank {rank}: launches per step {launches}, want "
+                      f"{MESH_LAUNCHES[kind]}, the single-process step's")
+            tree = host_tree(state)
+            res["replicas_bitwise_equal"] = trees_equal_across_ranks(tree, mesh)
+            check(res["replicas_bitwise_equal"], f"{path}: the ranks' states differ")
+            if rank == 0:
+                if dev.type == "cuda":
+                    check(single_launches == launches,
+                          f"{path}: single-process launches {single_launches}, rank 0's "
+                          f"{launches}")
+                full = state_from_tree(mesh_state(kind, cfg, weights, dev), tree)
+                check_tensors(f"{path} data={shape[0]} model={shape[1]} vs the single-process "
+                              f"step", full, m, ref, m_ref, weights, STEP_TOL,
+                              tensor_gaps(rev, ref, weights))
+                del full, ref, rev
+            res["bn_allreduce_err"] = hold_bn_with_allreduce(calls, mesh, path)
+            hold_against_plain(calls, f"{path} rank {rank}", timed=False)
+            del calls
+            _sync(dev)
+            t0 = time.perf_counter()
+            before = mesh.reduced_bytes
+            for _ in range(MESH_STEPS):
+                state, m = step(state, *(mesh.rows(a) if torch.is_tensor(a) else a
+                                         for a in mesh_draw(kind, cfg, dev, gen, data)))
+            _sync(dev)
+            res["s_per_step"] = (time.perf_counter() - t0) / MESH_STEPS
+            res["timed_reduced_bytes_per_step"] = (mesh.reduced_bytes - before) / MESH_STEPS
+            res["first_step_s"] = cold
+            check(all(torch.isfinite(v).all() for v in m.values()),
+                  f"{path}: non-finite metrics {m}")
+            results[path] = res
+            del state
+            if rank == 0:
+                print(f"[mesh] (b) {path} data={shape[0]} model={shape[1]} {tp or ''} over "
+                      f"gloo, {world} ranks sharing {dev}: {res['s_per_step']:.4f} s per step "
+                      f"(single-process {res['single_s_per_step']:.4f} s), "
+                      f"{res['reduced_bytes_per_step'] / 2**20:.2f} MiB all-reduced per step "
+                      f"and rank, launches {launches}, replicas bitwise equal, BatchNorm "
+                      f"backward with the all-reduce vs plain {res['bn_allreduce_err']:.3g}",
+                      flush=True)
+    out.put((rank, results))
+    mesh.close()
+
+
+def mesh_fit_rank(rank, world, port, device, preset, work, out) -> None:
+    """One rank of (c): ``Trainer.fit`` at data=2 over gloo, then the same
+    run resumed from its epoch-0 checkpoint."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from fmri_tpu_torch.checkpoints.store import host_tree
+    from fmri_tpu_torch.configs import get_config
+    from fmri_tpu_torch.data.synthetic import synthetic_images
+    from fmri_tpu_torch.device import resolve_device
+    from fmri_tpu_torch.ops import ssim as ssim_ops
+    from fmri_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+    from fmri_tpu_torch.train.stages import BUILDERS
+    from fmri_tpu_torch.train.trainer import Trainer
+
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        torch.cuda.synchronize = lambda *a, **k: None
+    initialize_multihost(f"localhost:{port}", world, rank, backend="gloo")
+    mesh = make_mesh(world, 1, devices=[dev] * world, backend="gloo")
+    cfg = with_flags(get_config(preset), pallas_bn=True, pallas_backward=True)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, ckpt_every=1))
+    b = cfg.train.batch_size
+    imgs = synthetic_images(MESH_FIT_EXAMPLES, cfg.model.image_size, seed=0)[0]
+    train, valid = imgs[b:], imgs[:b]
+    spe = len(train) // b
+
+    def trainer(run_dir):
+        os.makedirs(run_dir, exist_ok=True)
+        state, steps, kw = BUILDERS["vgan_stage1"](cfg, steps_per_epoch=spe, device=dev,
+                                                   mesh=mesh)
+        return state, Trainer(cfg, steps, run_dir, mesh=mesh, tensorboard=False, **kw)
+
+    res = {}
+    state, tr = trainer(os.path.join(work, "fit"))
+    calls = {}
+    recorder = Recorder(ssim_ops, "ssim_plane_sums", calls)
+    set_launches(0)
+    _sync(dev)
+    t0 = time.perf_counter()
+    state = tr.fit(state, train, valid, n_epochs=MESH_FIT_EPOCHS)
+    _sync(dev)
+    res["fit_s"] = time.perf_counter() - t0
+    res["launches"] = set_launches(0)
+    recorder.restore()
+    for (a, b_, *rest), _ in calls.values():
+        check(a.shape[0] == b // world, f"(c) rank {rank}: SSIM over {a.shape[0]} images, "
+                                        f"want its {b // world} validation rows")
+        hold_ssim_call(a, b_, rest)
+    full = host_tree(state)
+    resumed_dir = os.path.join(work, "fit_resumed")
+    if rank == 0:
+        shutil.copytree(os.path.join(work, "fit", "checkpoints", "ckpt_00000"),
+                        os.path.join(resumed_dir, "checkpoints", "ckpt_00000"))
+    mesh.barrier()
+    state, tr = trainer(resumed_dir)
+    state, start = tr.resume(state)
+    check(start == 1, f"(c) resumed at epoch {start}")
+    state = tr.fit(state, train, valid, n_epochs=MESH_FIT_EPOCHS, start_epoch=start)
+    again = host_tree(state)
+    res["resume_bitwise"] = all(torch.equal(u, v) for (_, u), (_, v) in zip(
+        tree_leaves(full), tree_leaves(again)))
+    check(res["resume_bitwise"], f"(c) rank {rank}: the resumed epoch differs from the "
+                                 f"uninterrupted run's")
+    res["replicas_bitwise_equal"] = trees_equal_across_ranks(full, mesh)
+    check(res["replicas_bitwise_equal"], "(c) the ranks' states differ")
+    out.put((rank, res))
+    mesh.close()
+
+
+def spawn_ranks(fn, world, *args) -> dict:
+    """``fn(rank, world, port, *args, out)`` on ``world`` spawned processes;
+    {rank: what it put}. A rank that fails fails the run."""
+    import torch.multiprocessing as mp
+
+    from fmri_tpu_torch.parallel.mesh import free_port
+
+    out = mp.get_context("spawn").SimpleQueue()
+    try:
+        mp.spawn(fn, args=(world, free_port(), *args, out), nprocs=world, join=True)
+    except Exception as e:  # the rank printed its own FAIL line
+        fail(f"{fn.__name__} over {world} ranks: {e}")
+    return dict(out.get() for _ in range(world))
+
+
+def mesh_phase(dev, cfg, preset="res64", cli_args=()):
+    """Phase 17. Returns ({path: launches per rank and step (per epoch for
+    the trainer)}, numbers)."""
+    import os
+    import shutil
+
+    import torch
+
+    from fmri_tpu_torch.eval import inference
+    from fmri_tpu_torch.parallel import dryrun
+    from fmri_tpu_torch.parallel import mesh as mesh_mod
+    from fmri_tpu_torch.train import run
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_runs", "mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    numbers, launches_by_path, wall = {}, {}, {}
+
+    # (a) the train CLI at --mesh data=1: the NCCL group forms, and the run
+    # equals the run without --mesh
+    t0 = time.perf_counter()
+    made = []
+    real = mesh_mod.make_mesh
+
+    def spy(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+
+    argv = ["--family", "vgan", "--stage", "1", "--preset", preset, "--dataset", "synthetic",
+            "--synthetic-n", str(MESH_CLI_EXAMPLES), "--epochs", "1", *cli_args]
+    states = {}
+    for name, extra in (("plain", []), ("mesh", ["--mesh", "data=1"])):
+        set_launches(0)
+        mesh_mod.make_mesh = spy
+        try:
+            check(run.main([*argv, "-o", os.path.join(work, name), *extra]) == 0,
+                  f"(a) the train CLI {extra} failed")
+        finally:
+            mesh_mod.make_mesh = real
+        launches_by_path[f"mesh_cli_{name}"] = set_launches(0)
+        (run_dir,) = [os.path.join(work, name, "vgan_stage1", d)
+                      for d in os.listdir(os.path.join(work, name, "vgan_stage1"))]
+        states[name] = torch.load(os.path.join(run_dir, "checkpoints", "ckpt_00000",
+                                                "state.pt"), weights_only=True)
+    want_backend = "nccl" if dev.type == "cuda" else "gloo"
+    check(len(made) == 1 and made[0].backend == want_backend and made[0].world == 1,
+          f"(a) --mesh data=1 made {made}, want one {want_backend} mesh of one rank")
+    check(launches_by_path["mesh_cli_mesh"] == launches_by_path["mesh_cli_plain"],
+          f"(a) launches {launches_by_path['mesh_cli_mesh']} vs without --mesh "
+          f"{launches_by_path['mesh_cli_plain']}")
+
+    pairs = list(zip(tree_leaves(states["mesh"]), tree_leaves(states["plain"])))
+    check([k for (k, _), _ in pairs] == [k for _, (k, _) in pairs], "(a) checkpoint keys differ")
+    bitwise = all(torch.equal(u, v) for (_, u), (_, v) in pairs)
+    worst = max(float((u.double() - v.double()).abs().max()) if u.numel() else 0.0
+                for (_, u), (_, v) in pairs)
+    check(bitwise, f"(a) --mesh data=1 differs from the run without it by {worst}")
+    wall["a"] = time.perf_counter() - t0
+    numbers["a"] = {"backend": made[0].backend, "bitwise_equal": bitwise, "max_abs_gap": worst}
+    print(f"[mesh] (a) train CLI --mesh data=1 over {made[0].backend} (world 1): its "
+          f"checkpoint bitwise the run's without --mesh ({bitwise}); launches "
+          f"{launches_by_path['mesh_cli_mesh']}; {wall['a']:.1f} s for both runs", flush=True)
+    del states, made
+
+    # (b) ranks sharing the card over gloo
+    t0 = time.perf_counter()
+    numbers["b"] = {}
+    for world, names in ((2, ("mesh_stage1", "mesh_wae_stage1")),
+                         (4, ("mesh_stage2", "mesh_stage3"))):
+        print(f"[mesh] (b) {world} ranks on {dev} over gloo (a shared card, asked for by "
+              f"name): {names}", flush=True)
+        got = spawn_ranks(mesh_rank, world, str(dev), preset,
+                          {n: MESH_PATHS[n] for n in names})
+        for name in names:
+            per_rank = [got[r][name] for r in range(world)]
+            check(all(r["launches"] == per_rank[0]["launches"] for r in per_rank),
+                  f"{name}: ranks launched {[r['launches'] for r in per_rank]}")
+            launches_by_path[name] = per_rank[0]["launches"]
+            numbers["b"][name] = {k: per_rank[0][k] for k in (
+                "s_per_step", "single_s_per_step", "reduced_bytes_per_step",
+                "timed_reduced_bytes_per_step", "first_step_s", "bn_allreduce_err")}
+            numbers["b"][name]["mesh"] = list(MESH_PATHS[name][1])
+    wall["b"] = time.perf_counter() - t0
+
+    # (c) Trainer.fit at data=2, a checkpoint and a resume; the checkpoint in
+    # the single-card inference CLI
+    t0 = time.perf_counter()
+    got = spawn_ranks(mesh_fit_rank, 2, str(dev), preset, work)
+    check(got[0]["launches"] == got[1]["launches"], f"(c) ranks launched {got}")
+    per_epoch = {k: v // MESH_FIT_EPOCHS for k, v in got[0]["launches"].items()}
+    launches_by_path["mesh_trainer"] = per_epoch
+    if dev.type == "cuda":
+        steps = (MESH_FIT_EXAMPLES - cfg.train.batch_size) // cfg.train.batch_size
+        want = {k: steps * v for k, v in TRAINER_LAUNCHES["trainer_stage1"].items()}
+        want["ssim"] = SSIM_LAUNCHES_PER_EPOCH
+        check(per_epoch == want, f"(c) launches per rank and epoch {per_epoch}, want {want}")
+    set_launches(0)
+    check(inference.main(["--family", "vgan", "--stage", "1", "--preset", preset,
+                          "--dataset", "synthetic", "--synthetic-n", str(MESH_FIT_EXAMPLES),
+                          "--no-is", "--ckpt", os.path.join(work, "fit", "checkpoints"),
+                          "-o", os.path.join(work, "inference"), *cli_args]) == 0,
+          "(c) the inference CLI failed on the mesh run's checkpoint")
+    launches_by_path["mesh_inference"] = set_launches(0)
+    if dev.type == "cuda":
+        check(launches_by_path["mesh_inference"]["ssim"] == SSIM_LAUNCHES_PER_RUN,
+              f"(c) inference: {launches_by_path['mesh_inference']}")
+    wall["c"] = time.perf_counter() - t0
+    numbers["c"] = {"fit_s": got[0]["fit_s"], "epochs": MESH_FIT_EPOCHS,
+                    "resume_bitwise": got[0]["resume_bitwise"] and got[1]["resume_bitwise"]}
+    print(f"[mesh] (c) Trainer.fit at data=2 over gloo on {dev}: {MESH_FIT_EPOCHS} epochs in "
+          f"{got[0]['fit_s']:.2f} s; launches per rank and epoch {per_epoch}; the run resumed "
+          f"from epoch 0 bitwise the uninterrupted one; its checkpoint in the single-card "
+          f"inference CLI ({launches_by_path['mesh_inference']['ssim']} SSIM)", flush=True)
+
+    # (d) the dry run over four ranks
+    t0 = time.perf_counter()
+    dev_kind = "cuda" if dev.type == "cuda" else "cpu"
+    dry = dryrun.dryrun_multichip(4, device=dev_kind, share_card=dev_kind == "cuda")
+    wall["d"] = time.perf_counter() - t0
+    numbers["d"] = {p: r["loss"] for p, r in dry.items() if p != "fullbrain"}
+    numbers["d"]["fullbrain"] = dry["fullbrain"]
+    print(f"[mesh] (d) dryrun_multichip(4) on {dev} over gloo: {len(numbers['d']) - 1} paths, "
+          f"fullbrain fc1 {dry['fullbrain']}; {wall['d']:.1f} s", flush=True)
+    numbers["wall_s"] = wall
+    shutil.rmtree(work, ignore_errors=True)
+    return launches_by_path, numbers
+
+
 def main() -> None:
     import os
 
@@ -3649,6 +4141,15 @@ def main() -> None:
             {path: counts[entry["name"]] for path, counts in exp_launches.items()
              if not path.startswith("exp_cli_")})
 
+    # 17. training across ranks: the CLI over NCCL at data=1, ranks sharing the
+    #     card over gloo, Trainer.fit with a resume, the dry run
+    t0 = time.perf_counter()
+    mesh_launches, mesh_numbers = mesh_phase(dev, cfg)
+    mesh_numbers["phase_s"] = time.perf_counter() - t0
+    for entry in train_kernels:
+        entry["launches_by_path"].update(
+            {path: counts[entry["name"]] for path, counts in mesh_launches.items()})
+
     # 8. kernels line; ssim at every shape the inference run gave it, each
     #    held against the plain version, times summed over the run's launches
     ssim_tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "flops": 0.0,
@@ -3697,7 +4198,9 @@ def main() -> None:
                                  trainer_launches["inference_trained_run"]["ssim"],
                              "serve": served["launches"]["ssim"],
                              **{path: counts["ssim"]
-                                for path, counts in data_launches.items()}},
+                                for path, counts in data_launches.items()},
+                             **{path: counts["ssim"] for path, counts in mesh_launches.items()
+                                if "ssim" in counts}},
         "max_abs_err": max_err,
         "ms": ssim_tot["ms"],
         "device_ms": ssim_tot["device_ms"],
@@ -3725,6 +4228,11 @@ def main() -> None:
           f"{cfg.train.batch_size}, both kernel flags on (host clock, warm): "
           f"{json.dumps(exp_numbers['s_per_step'])}; device busy share of a profiled step: "
           f"{json.dumps(exp_numbers['busy_share'])}", flush=True)
+    print(f"[mesh] phase 17: {mesh_numbers['phase_s']:.1f} s. (b)'s times are of ranks "
+          f"sharing one card over gloo, whose collectives go through the host: they show "
+          f"the paths run and are not NCCL or several-card times", flush=True)
+    print(f"[mesh] numbers (host clock; gloo, one shared card): {json.dumps(mesh_numbers)}",
+          flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,14 @@ parameters, the BatchNorm running statistics and ``num_batches_tracked``,
 under the submodule's own keys. Nothing but tensors, dicts and ints is
 pickled, so ``torch.load(..., weights_only=True)`` reads the file.
 
+A state placed on a mesh (``parallel.mesh.shard_state``) is written as the
+same file: each sharded weight and its moments are gathered over the
+model group (a collective: every rank takes part), rank 0 alone copies the
+tree to host memory and writes it, and the other ranks wait at a barrier. So a mesh run's checkpoint
+loads in a single-card run and in the inference CLI, and the other way
+round; :func:`restore_checkpoint` into a placed state takes this rank's
+columns of the full tensors.
+
 The stage handoff goes by group name (``encoder``, ``decoder``,
 ``discriminator``, ``latent_disc``, ``teacher_encoder``):
 :func:`load_groups` reads named groups from a port checkpoint dir or from
@@ -86,20 +94,40 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
-def host_tree(state: "TrainState") -> Dict[str, Any]:
-    """A complete host copy of ``state`` in the checkpoint layout."""
+def _gathered(state: "TrainState") -> Dict[str, Any]:
+    """``state`` in the checkpoint layout on its device, the sharded
+    tensors gathered whole (a collective: every rank of a mesh calls it);
+    the other entries are the live tensors."""
     nets = state.nets
-    groups = {g: {k: _host(v) for k, v in nets.module(g).state_dict().items()}
-              for g in nets.PREFIXES}
+
+    def full(g: str, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: state.mesh.gather_model(v, dim=1) if (g, k) in state.shards else v
+                for k, v in tensors.items()}
+
+    groups = {g: full(g, nets.module(g).state_dict()) for g in nets.PREFIXES}
     opt: Dict[str, Any] = {}
     for g, m in state.opt_state.items():
         if isinstance(m, AdamState):
-            opt[g] = {"mu": {k: _host(v) for k, v in m.mu.items()},
-                      "nu": {k: _host(v) for k, v in m.nu.items()},
-                      "count": _host(m.count)}
+            opt[g] = {"mu": full(g, m.mu), "nu": full(g, m.nu), "count": m.count}
         else:
-            opt[g] = {"sq_avg": {k: _host(v) for k, v in m.items()}}
-    return {"groups": groups, "opt_state": opt, "step": _host(state.step)}
+            opt[g] = {"sq_avg": full(g, m)}
+    return {"groups": groups, "opt_state": opt, "step": state.step}
+
+
+def _host_copy(tree: Any) -> Any:
+    return ({k: _host_copy(v) for k, v in tree.items()} if isinstance(tree, dict)
+            else _host(tree))
+
+
+def host_tree(state: "TrainState") -> Dict[str, Any]:
+    """A complete host copy of ``state`` in the checkpoint layout, the
+    sharded tensors gathered whole (on every rank of a mesh)."""
+    return _host_copy(_gathered(state))
+
+
+def _writes(state: "TrainState") -> bool:
+    """Whether this rank writes the state's files (rank 0 of a mesh)."""
+    return state.mesh is None or state.mesh.is_writer
 
 
 def _write_checkpoint(ckpt_dir: str, epoch: int, tree: Dict[str, Any],
@@ -122,8 +150,14 @@ def _write_checkpoint(ckpt_dir: str, epoch: int, tree: Dict[str, Any],
 def save_checkpoint(ckpt_dir: str, epoch: int, state: "TrainState",
                     meta: Optional[Mapping[str, Any]] = None) -> str:
     """Write ``ckpt_dir/ckpt_<epoch>`` with the full train state and
-    ``meta``; returns its path."""
-    return _write_checkpoint(ckpt_dir, epoch, host_tree(state), dict(meta or {}))
+    ``meta``; returns its path. On a mesh every rank calls it, rank 0
+    writes and every rank returns once the file is complete."""
+    tree = _gathered(state)  # every rank; the writer alone copies it to the host
+    path = (_write_checkpoint(ckpt_dir, epoch, _host_copy(tree), dict(meta or {}))
+            if _writes(state) else _ckpt_path(ckpt_dir, epoch))
+    if state.mesh is not None:
+        state.mesh.barrier()
+    return path
 
 
 def _read(ckpt_dir: str, epoch: Optional[int]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
@@ -148,14 +182,24 @@ def restore_checkpoint(ckpt_dir: str, template: "TrainState",
                        epoch: Optional[int] = None
                        ) -> "Tuple[TrainState, Dict[str, Any]]":
     """Restore a checkpoint (the latest when ``epoch`` is None) into
-    ``template``, a state of the same stage on any device: its modules,
-    moments and step are overwritten in place, bitwise, and it is returned
-    with the checkpoint's metadata."""
+    ``template``, a state of the same stage on any device (placed on a mesh
+    or not): its modules, moments and step are overwritten in place,
+    bitwise, and it is returned with the checkpoint's metadata."""
     tree, meta = _read(ckpt_dir, epoch)
     nets = template.nets
     if set(tree["groups"]) != set(nets.PREFIXES):
         raise KeyError(f"checkpoint groups {sorted(tree['groups'])} are not "
                        f"{type(nets).__name__}'s {sorted(nets.PREFIXES)}")
+    if template.shards:  # this rank's columns of the sharded tensors
+        from fmri_tpu_torch.parallel.mesh import shard_params
+
+        for g in tree["groups"]:
+            specs = {k: spec for (sg, k), spec in template.shards.items() if sg == g}
+            tree["groups"][g] = shard_params(tree["groups"][g], template.mesh, specs)
+            saved = tree["opt_state"].get(g, {})
+            for name in ("mu", "nu", "sq_avg"):
+                if name in saved:
+                    saved[name] = shard_params(saved[name], template.mesh, specs)
     for g, sd in tree["groups"].items():
         nets.module(g).load_state_dict(sd, strict=True)
     if set(tree["opt_state"]) != set(template.opt_state):
@@ -281,8 +325,12 @@ class AsyncCheckpointWriter:
     def save(self, ckpt_dir: str, epoch: int, state: "TrainState",
              meta: Optional[Mapping[str, Any]] = None, *,
              prune: Optional[Mapping[str, Any]] = None) -> None:
+        """On a mesh every rank calls it (the gather); rank 0 writes."""
         self.wait()
-        tree, meta = host_tree(state), dict(meta or {})
+        tree = _gathered(state)  # every rank; the writer alone copies it to the host
+        if not _writes(state):
+            return
+        tree, meta = _host_copy(tree), dict(meta or {})
 
         def work() -> None:
             try:

@@ -13,7 +13,10 @@ Counterpart of ``fmri_tpu/data/pipeline.py:73-166``:
   the next batch's mapped rows get a ``madvise(WILLNEED)`` read-ahead;
 * :func:`device_iterator` stages batches ahead on a producer thread; on
   CUDA each copy goes from pinned host memory with ``non_blocking=True``,
-  so the transfer of batch N+1 overlaps the step on batch N.
+  so the transfer of batch N+1 overlaps the step on batch N;
+* ``shard=(d, D)``: rank d of a mesh's data axis gathers only rows
+  ``[d * b / D, (d + 1) * b / D)`` of each global batch, from the same
+  epoch permutation on every rank.
 """
 
 from __future__ import annotations
@@ -67,10 +70,15 @@ class Batches:
 
     ``shuffle=True`` reshuffles every epoch from ``seed`` and the epoch
     counter, which advances on each ``__iter__`` (set ``epoch`` to resume).
-    ``transform`` is applied to each host batch after indexing."""
+    ``transform`` is applied to each host batch after indexing. ``shard=(d,
+    D)`` yields data rank d's rows of each batch of ``batch_size``."""
 
     def __init__(self, data: Batch, batch_size: int, *, shuffle: bool = False,
-                 seed: int = 0, drop_last: bool = True, transform=None):
+                 seed: int = 0, drop_last: bool = True, transform=None,
+                 shard: tuple = (0, 1)):
+        if batch_size % shard[1]:
+            raise ValueError(f"batch of {batch_size} does not split over {shard[1]} ranks")
+        self.shard = shard
         self.data = data
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -94,10 +102,16 @@ class Batches:
             order = np.arange(n)
         self.epoch += 1
         bs = self.batch_size
+        d, count = self.shard
+        lo, hi = d * bs // count, (d + 1) * bs // count
+
+        def rows(b: int) -> np.ndarray:
+            return order[b * bs:(b + 1) * bs][lo:hi]
+
         for b in range(self.num_batches):
-            batch = _index(self.data, order[b * bs:(b + 1) * bs])
+            batch = _index(self.data, rows(b))
             if b + 1 < self.num_batches:  # read ahead one batch
-                _prefetch_rows(self.data, order[(b + 1) * bs:(b + 2) * bs])
+                _prefetch_rows(self.data, rows(b + 1))
             yield self.transform(batch) if self.transform is not None else batch
 
 

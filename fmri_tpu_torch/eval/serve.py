@@ -59,9 +59,9 @@ key ``"image"``, a flat HWC float list in [0, 1].
 
 ``--ckpt`` is a port training run's checkpoint dir (``--load-epoch``,
 default the latest) or a reference-layout ``.pth`` of the family and stage.
-Runs on ``cuda`` unless ``--device cpu``. Not in this port yet (slice 10,
-parallelism): the JAX module's ``--data-parallel`` and ``--mesh`` serving
-over several cards.
+Runs on ``cuda`` unless ``--device cpu``. Not in this port yet (slice 10b,
+the serving mesh): the JAX module's ``--data-parallel`` and ``--mesh``
+serving over several cards.
 """
 
 from __future__ import annotations
@@ -627,7 +627,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.mesh or args.data_parallel:
         raise SystemExit("--mesh / --data-parallel: serving over several cards is "
-                         "not in the port yet (slice 10, parallelism)")
+                         "not in the port yet (slice 10b, the serving mesh)")
     device = resolve_device(args.device)
     model = ServingModel.from_checkpoint(
         args.ckpt, args.family, args.stage, args.preset,

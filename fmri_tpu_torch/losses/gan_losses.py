@@ -78,15 +78,18 @@ def combine_mode(terms: VaeGanTerms, mode: str, *, lambda_mse,
 
 
 def equilibrium_gate(terms: VaeGanTerms, equilibrium, margin,
-                     init_dec: bool = True, init_dis: bool = True):
+                     init_dec: bool = True, init_dis: bool = True, means=None):
     """``(train_dec, train_dis)`` as device booleans: skip D if the mean
     bce_orig or bce_pred is below ``equilibrium - margin``, skip G if either
     is above ``equilibrium + margin``, train both if both end up skipped.
     ``init_dec``/``init_dis`` are the mode's pre-gate defaults ('vae' sets
     ``train_dis = False`` before the gate, which the both-off rule can
-    override)."""
-    m_orig = torch.mean(terms.bce_dis_original)
-    m_pred = torch.mean(terms.bce_dis_predicted)
+    override). ``means``, where given, replaces the batch's ``(mean
+    bce_orig, mean bce_pred)``: a step on a mesh passes the global batch's,
+    since a rank that gated on its own rows could update while another
+    skips, and the replicas would part."""
+    m_orig, m_pred = means if means is not None else (
+        torch.mean(terms.bce_dis_original), torch.mean(terms.bce_dis_predicted))
     dis_low = (m_orig < equilibrium - margin) | (m_pred < equilibrium - margin)
     dec_high = (m_orig > equilibrium + margin) | (m_pred > equilibrium + margin)
     train_dis = ~dis_low & init_dis

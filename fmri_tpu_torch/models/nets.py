@@ -32,6 +32,12 @@ apply (``ops/conv.py``).
 Modules compute in NCHW. Images cross their boundary in NHWC, the public
 layout: ``VisualEncoder`` and ``ImageDiscriminator`` take NHWC and
 ``Decoder`` returns NHWC.
+
+``CognitiveEncoder.fc1`` and ``Decoder``'s projection ``fc.0`` are
+row-parallel once ``parallel.mesh.shard_state`` sets ``tp`` (the mesh):
+the weight holds this model rank's input columns under its usual key, and
+:func:`~fmri_tpu_torch.parallel.mesh.row_parallel_linear` sums the partial
+products over the model group before the BatchNorm.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from torch import nn
 from fmri_tpu_torch.configs.presets import ModelConfig
 from fmri_tpu_torch.models.norm import BatchNorm1d, BatchNorm2d
 from fmri_tpu_torch.ops.conv import conv2d, conv2d_transpose, linear, same_pad
+from fmri_tpu_torch.parallel.mesh import row_parallel_linear
 
 
 def _cd(cfg: ModelConfig) -> str | None:
@@ -51,6 +58,11 @@ def _cd(cfg: ModelConfig) -> str | None:
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).contiguous()
+
+
+def _projection(x: torch.Tensor, weight: torch.Tensor, cd: str | None, tp) -> torch.Tensor:
+    """The bias-free FC that a mesh's ``model`` axis may split by rows."""
+    return linear(x, weight, None, cd) if tp is None else row_parallel_linear(x, weight, tp, cd)
 
 
 class EncoderBlock(nn.Module):
@@ -125,7 +137,9 @@ class VisualEncoder(nn.Module):
 
 class CognitiveEncoder(nn.Module):
     """fMRI voxels [B, V] -> (mu, logvar) [B, latent]
-    (reference ``vae_gan.py:190-232``)."""
+    (reference ``vae_gan.py:190-232``); ``fc1`` row-parallel under ``tp``."""
+
+    tp = None
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -138,7 +152,7 @@ class CognitiveEncoder(nn.Module):
 
     def forward(self, v: torch.Tensor):
         cd = self.compute_dtype
-        x = linear(v, self.fc1[0].weight, None, cd)
+        x = _projection(v, self.fc1[0].weight, cd, self.tp)
         x = torch.relu(self.fc1[1](x))
         mu = linear(x, self.l_mu.weight, self.l_mu.bias, cd)
         logvar = linear(x, self.l_var.weight, self.l_var.bias, cd)
@@ -153,7 +167,10 @@ class Decoder(nn.Module):
     ``in_features`` (default ``latent_dim``) and ``chans`` (the FC's
     channels, then each block's; default ``(size0, size0,
     decoder_channels[1], decoder_channels[2])``) let :class:`VoxelDecoder`
-    and :class:`WaeDecoder` reuse it; ``fc[2]`` is the FC's activation."""
+    and :class:`WaeDecoder` reuse it; ``fc[2]`` is the FC's activation.
+    The FC is row-parallel under ``tp``."""
+
+    tp = None
 
     def __init__(self, cfg: ModelConfig, in_features: int | None = None,
                  chans: tuple | None = None):
@@ -176,7 +193,7 @@ class Decoder(nn.Module):
         """``vsplit=k``: z holds k back-to-back latent batches, decoded in one
         pass with each sub-batch's own BatchNorm statistics (train mode)."""
         cd = self.compute_dtype
-        x = linear(z, self.fc[0].weight, None, cd)
+        x = _projection(z, self.fc[0].weight, cd, self.tp)
         x = self.fc[2](self.fc[1](x, vsplit))
         # C-major flatten, as the reference's view(B, C, H, W)
         x = x.view(x.shape[0], self.size0, self.fc_input, self.fc_input)

@@ -24,6 +24,17 @@ not torch's two-pass variance: outputs and gradients agree with k
 sequential calls to fp32 rounding (within 1e-5 on inputs of scale 1-2,
 ``tests/test_torch_modes.py``). ``vsplit > 1`` with ``pallas=True``
 raises; eval mode ignores ``vsplit``.
+
+Under a mesh (:func:`attach_mesh`, which ``parallel.mesh.shard_state``
+calls) train mode normalises with the **global** batch's statistics, summed
+over the mesh's data group only (the model group's ranks hold the same
+rows: counting them would double every count), and ticks the running
+statistics with the global count, so they stay equal on every rank and to
+the single-process run's. Every path takes it: ``pallas=True`` through the
+kernels with an all-reduce between them, ``pallas=False`` and the FC
+BatchNorms through the same Function's plain versions
+(``torch.nn.SyncBatchNorm`` refuses CPU tensors), and ``vsplit``. A data
+axis of 1 keeps the single-process path.
 """
 
 from __future__ import annotations
@@ -52,31 +63,65 @@ def _tick(bn: nn.modules.batchnorm._BatchNorm, mu: torch.Tensor,
     bn.num_batches_tracked.data.add_(1)
 
 
+def _data_mesh(bn: nn.modules.batchnorm._BatchNorm):
+    """The module's mesh where its data axis is over 1, else None."""
+    mesh = getattr(bn, "mesh", None)
+    return mesh if mesh is not None and mesh.data > 1 else None
+
+
+def attach_mesh(module: nn.Module, mesh) -> None:
+    """Every BatchNorm in ``module`` normalises over ``mesh``'s data group."""
+    for m in module.modules():
+        if isinstance(m, (BatchNorm1d, BatchNorm2d)):
+            m.mesh = mesh
+
+
 def _vsplit_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
                   k: int) -> torch.Tensor:
     """Train-mode BatchNorm of x [k * B, C, ...] with per-sub-batch
-    statistics, in the JAX class's order of operations."""
+    statistics, in the JAX class's order of operations (under a mesh, each
+    sub-batch's global sums over its global count)."""
     if x.shape[0] % k:
         raise ValueError(f"BatchNorm(vsplit={k}): leading dim {x.shape[0]} "
                          "not divisible")
     c = x.shape[1]
     xs = x.reshape(k, x.shape[0] // k, *x.shape[1:]).float()
     dims = [1] + list(range(3, xs.dim()))
-    mu = xs.mean(dims)                                          # [k, C]
-    var = ((xs * xs).mean(dims) - mu * mu).clamp_min(0.0)      # biased
+    n = x.numel() // (k * c)
+    mesh = _data_mesh(bn)
+    if mesh is None:
+        mu = xs.mean(dims)                                      # [k, C]
+        var = ((xs * xs).mean(dims) - mu * mu).clamp_min(0.0)  # biased
+    else:
+        from fmri_tpu_torch.parallel.mesh import sync_data_sum
+
+        n *= mesh.data
+        s1, s2 = sync_data_sum(torch.stack([xs.sum(dims), (xs * xs).sum(dims)]), mesh)
+        mu = s1 / n
+        var = (s2 / n - mu * mu).clamp_min(0.0)
     shape = [k, 1, c] + [1] * (x.dim() - 2)
     mul = torch.rsqrt(var.view(shape) + bn.eps) * bn.weight.view(shape[1:])
     y = (xs - mu.view(shape)) * mul + bn.bias.view(shape[1:])
-    n = x.numel() // (k * c)
     for i in range(k):  # sequential ticks, reference order
         _tick(bn, mu[i], var[i], n)
     return y.reshape(x.shape).to(x.dtype)
+
+
+def _train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor, mesh,
+           plain: bool) -> torch.Tensor:
+    """Train mode through :func:`batch_norm_train` (over ``mesh``'s data
+    group where given), and the tick with the count the statistics took."""
+    y, mu, var = batch_norm_train(x, bn.weight, bn.bias, bn.eps, mesh, plain)
+    _tick(bn, mu, var, x.numel() // x.shape[1] * (mesh.data if mesh is not None else 1))
+    return y
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d(c, eps=1e-5, momentum=0.9)``; ``pallas=True`` routes
     train mode through the hand-written backward. Same parameters, buffers
     and state-dict keys either way."""
+
+    mesh = None  # attach_mesh
 
     def __init__(self, num_features: int, pallas: bool = False):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -89,16 +134,17 @@ class BatchNorm2d(nn.BatchNorm2d):
             if self.pallas:
                 raise ValueError("BatchNorm: vsplit>1 + pallas is unsupported")
             return _vsplit_train(self, x, vsplit)
-        if not self.pallas:
+        mesh = _data_mesh(self)
+        if not self.pallas and mesh is None:
             return super().forward(x)
-        y, mu, var = batch_norm_train(x, self.weight, self.bias, self.eps)
-        _tick(self, mu, var, x.numel() // x.shape[1])
-        return y
+        return _train(self, x, mesh, plain=not self.pallas)
 
 
 class BatchNorm1d(nn.BatchNorm1d):
     """``nn.BatchNorm1d(c, eps=1e-5, momentum=0.9)`` over [N, C], with
     ``vsplit``."""
+
+    mesh = None  # attach_mesh
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -106,4 +152,7 @@ class BatchNorm1d(nn.BatchNorm1d):
     def forward(self, x: torch.Tensor, vsplit: int = 1) -> torch.Tensor:
         if self.training and vsplit > 1:
             return _vsplit_train(self, x, vsplit)
+        mesh = _data_mesh(self)
+        if self.training and mesh is not None:
+            return _train(self, x, mesh, plain=True)
         return super().forward(x)

@@ -13,7 +13,10 @@ Counterpart of ``fmri_tpu/ops/pallas_bn.py``:
 * :class:`BatchNormTrain` (``batch_norm_train`` :140-196): returns
   ``(y, mu, biased var)``; its backward takes cotangents on all three and
   folds those of mu and var into ``a0 = ct_mu / M`` and
-  ``a1 = 2 * ct_var / (M * inv)``.
+  ``a1 = 2 * ct_var / (M * inv)``. Given a mesh (``parallel/mesh.py``) it
+  normalises with the global batch's statistics over the mesh's data
+  group: the same two kernels, with one all-reduce of the reduce pass's
+  sums between them and M the global count.
 
 Tensors are ``[B, C, *spatial]`` (NCHW, or ``[N, C]``), reduced over every
 axis but 1; M is the number of elements per channel. A CUDA tensor launches
@@ -58,10 +61,10 @@ def bn_bwd_reduce_plain(x: torch.Tensor, dy: torch.Tensor, mu: torch.Tensor,
 def bn_bwd_apply_plain(x: torch.Tensor, dy: torch.Tensor, mu: torch.Tensor,
                        inv: torch.Tensor, gamma: torch.Tensor,
                        sums: torch.Tensor, a0: torch.Tensor,
-                       a1: torch.Tensor) -> torch.Tensor:
-    """fp32 dx of the shape of x."""
+                       a1: torch.Tensor, count: int | None = None) -> torch.Tensor:
+    """fp32 dx of the shape of x; ``count`` is M (default x's own count)."""
     bs = _bshape(x)
-    m = _count(x)
+    m = count or _count(x)
     xhat = (x.float() - mu.view(bs)) * inv.view(bs)
     coef = (gamma * inv / m).view(bs)
     return (coef * (m * dy.float() - sums[0].view(bs) - xhat * sums[1].view(bs))
@@ -168,10 +171,12 @@ def apply_plan(c: int, s: int, runs: int, elem_bytes: int, aligned: bool):
 
 def bn_bwd_apply(x: torch.Tensor, dy: torch.Tensor, mu: torch.Tensor,
                  inv: torch.Tensor, gamma: torch.Tensor, sums: torch.Tensor,
-                 a0: torch.Tensor, a1: torch.Tensor) -> torch.Tensor:
-    """fp32 dx = gamma*inv/M * (M*dy - sum dy - xhat*sum dy*xhat) + a0 + a1*xhat."""
+                 a0: torch.Tensor, a1: torch.Tensor, count: int | None = None
+                 ) -> torch.Tensor:
+    """fp32 dx = gamma*inv/M * (M*dy - sum dy - xhat*sum dy*xhat) + a0 + a1*xhat,
+    M = ``count`` (the global count under a mesh; default x's own)."""
     if _check(x, dy, mu, inv, gamma, sums, a0, a1) == "cpu":
-        return bn_bwd_apply_plain(x, dy, mu, inv, gamma, sums, a0, a1)
+        return bn_bwd_apply_plain(x, dy, mu, inv, gamma, sums, a0, a1, count)
     dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     total = x.numel()
     if total == 0:
@@ -185,7 +190,8 @@ def bn_bwd_apply(x: torch.Tensor, dy: torch.Tensor, mu: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = _lib().bn_bwd_apply(px, pd, mu.data_ptr(), inv.data_ptr(), gamma.data_ptr(),
                                  sums.data_ptr(), a0.data_ptr(), a1.data_ptr(), po,
-                                 KERNEL_DTYPES[x.dtype], c, s, runs, float(total // c),
+                                 KERNEL_DTYPES[x.dtype], c, s, runs,
+                                 float(count or total // c),
                                  int(vec > 1), log2, bx, by,
                                  torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -205,34 +211,59 @@ class BatchNormTrain(torch.autograd.Function):
 
     The variance is two-pass, ``mean((x - mu)^2)``, as ``jnp.var`` in the JAX
     kernel's forward; torch's native BatchNorm uses Welford on CUDA and flax's
-    stock path ``E[x^2] - E[x]^2``, so the three agree to fp32 rounding."""
+    stock path ``E[x^2] - E[x]^2``, so the three agree to fp32 rounding.
+
+    ``mesh`` (a ``parallel.mesh.Mesh`` with a data axis over 1) makes the
+    statistics the global batch's: mu the data group's all-reduced sum over
+    the global count M, the variance an all-reduced sum of (x - mu)^2. The
+    backward all-reduces the reduce pass's ``(sum dy, sum dy * xhat)``, with
+    the cotangents of mu and var, between the two passes and applies with M
+    global. dgamma and dbeta stay this rank's own sums: the step sums every
+    weight gradient over the data group afterwards, and global ones would be
+    counted D times. ``plain`` takes the plain versions of both passes (the
+    FC BatchNorms and ``pallas_bn`` off under a mesh)."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps: float):
-        bs = _bshape(x)
+    def forward(ctx, x, gamma, beta, eps: float, mesh=None, plain: bool = False):
+        bs, dims = _bshape(x), _dims(x)
         xf = x.float()
-        mu = xf.mean(_dims(x))
-        var = (xf - mu.view(bs)).square().mean(_dims(x))
+        if mesh is None:
+            mu = xf.mean(dims)
+            var = (xf - mu.view(bs)).square().mean(dims)
+            m = _count(x)
+        else:
+            m = _count(x) * mesh.data
+            mu = mesh.data_sum(xf.sum(dims)) / m
+            var = mesh.data_sum((xf - mu.view(bs)).square().sum(dims)) / m
         inv = torch.rsqrt(var + eps)
         y = (xf - mu.view(bs)) * inv.view(bs) * gamma.view(bs) + beta.view(bs)
         ctx.save_for_backward(x, gamma, mu, inv)
+        ctx.mesh, ctx.plain, ctx.m = mesh, plain, m
         ctx.set_materialize_grads(True)
         return y, mu, var
 
     @staticmethod
     def backward(ctx, dy, ct_mu, ct_var):
         x, gamma, mu, inv = ctx.saved_tensors
-        m = _count(x)
+        m, mesh = ctx.m, ctx.mesh
+        reduce, apply = ((bn_bwd_reduce_plain, bn_bwd_apply_plain) if ctx.plain
+                         else (bn_bwd_reduce, bn_bwd_apply))
+        x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
+        local = reduce(x, dy, mu, inv)
+        sums = local
+        if mesh is not None:  # one all-reduce between the two passes
+            packed = mesh.data_sum(torch.cat([local, ct_mu.float().view(1, -1),
+                                              ct_var.float().view(1, -1)]))
+            sums, ct_mu, ct_var = packed[:2].contiguous(), packed[2], packed[3]
         # d mu/dx = 1/M and d var/dx = 2 (x - mu) / M = 2 xhat / (inv M)
         a0 = (ct_mu / m).float().contiguous()
         a1 = (2.0 * ct_var / (m * inv)).float().contiguous()
-        x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
-        sums = bn_bwd_reduce(x, dy, mu, inv)
-        dx = bn_bwd_apply(x, dy, mu, inv, gamma, sums, a0, a1)
-        return dx.to(x.dtype), sums[1], sums[0], None
+        global_count = (m,) if mesh is not None else ()
+        dx = apply(x, dy, mu, inv, gamma, sums, a0, a1, *global_count)
+        return dx.to(x.dtype), local[1], local[0], None, None, None
 
 
 def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                     eps: float = 1e-5):
+                     eps: float = 1e-5, mesh=None, plain: bool = False):
     """``(y, mu, var)`` of train-mode BatchNorm; see :class:`BatchNormTrain`."""
-    return BatchNormTrain.apply(x, gamma, beta, eps)
+    return BatchNormTrain.apply(x, gamma, beta, eps, mesh, plain)

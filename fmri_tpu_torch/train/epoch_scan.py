@@ -29,14 +29,17 @@ def epoch_permutation(n: int, batch_size: int, seed: int, epoch: int) -> np.ndar
     return rng.permutation(n)[: nb * batch_size].astype(np.int32)
 
 
-def device_epoch(data: DeviceData, perm: torch.Tensor,
-                 batch_size: int) -> Iterator[DeviceData]:
+def device_epoch(data: DeviceData, perm: torch.Tensor, batch_size: int,
+                 shard: tuple = (0, 1)) -> Iterator[DeviceData]:
     """The epoch's batches of the device-resident ``data``: rows
     ``perm[b * batch_size:(b + 1) * batch_size]`` of every array, gathered
-    on the device."""
+    on the device; with ``shard=(d, D)`` data rank d's part of each (every
+    rank keeps the whole set and the same permutation, as ``Batches``)."""
     idx = perm.long()
+    d, count = shard
+    lo, hi = d * batch_size // count, (d + 1) * batch_size // count
     for b in range(len(idx) // batch_size):
-        rows = idx[b * batch_size:(b + 1) * batch_size]
+        rows = idx[b * batch_size:(b + 1) * batch_size][lo:hi]
         if isinstance(data, dict):
             yield {k: v.index_select(0, rows) for k, v in data.items()}
         else:

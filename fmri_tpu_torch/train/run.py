@@ -36,8 +36,14 @@ Data, as the JAX CLI loads it (``fmri_tpu/train/run.py:182-266``):
 coco_valid, bold_train, bold_valid), which later runs read instead of
 decoding; the JAX CLI reads and writes the same files.
 
-Not in the port yet, and refused with the slice that brings it:
-``--mesh`` (slice 10, parallelism).
+``--mesh data=N[,model=M]`` trains over N x M ranks (``parallel/mesh.py``):
+data parallelism over N, and for stages 2 and 3 the cognitive encoder's
+``fc1`` split by voxels over M. Under torchrun (``WORLD_SIZE`` set) each
+process is one rank and the world must be N x M; otherwise the CLI starts
+the N x M processes itself (``torch.multiprocessing``, spawn), one per card
+with NCCL, or with ``--device cpu`` on the CPU over gloo. On CUDA with fewer
+cards than ranks it raises; it never shares a card. ``data=1`` runs in this
+process. The batch size must split over N. Rank 0 writes the run dir.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import json
 import os
 import pickle
 import sys
+import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -99,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true",
                    help="torch.profiler trace of the run's second epoch")
     p.add_argument("--mesh", default=None,
-                   help="'data=N[,model=M]' multi-card mesh (not in the port yet)")
+                   help="'data=N[,model=M]': train over N x M ranks (data parallel, "
+                        "voxel tensor parallel for stages 2/3)")
     p.add_argument("--cache-dir", default=None,
                    help="where to cache the raw loaders' packed arrays (.npz)")
     p.add_argument("--synthetic-n", type=int, default=None,
@@ -116,10 +124,82 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse(args) -> None:
-    if args.mesh:
-        raise SystemExit("--mesh: multi-card training is not in the port yet "
-                         "(slice 10, parallelism)")
+def _parse_mesh(spec: str):
+    """``'data=N[,model=M]'`` -> (N or None, M)."""
+    try:
+        kv = dict(part.split("=") for part in spec.split(","))
+        if not kv or set(kv) - {"data", "model"}:
+            raise ValueError(spec)
+        data = int(kv["data"]) if "data" in kv else None
+        model = int(kv.get("model", 1))
+        if model < 1 or (data is not None and data < 1):
+            raise ValueError(spec)
+    except ValueError:
+        raise SystemExit(f"--mesh {spec!r}: expected 'data=N[,model=M]' with "
+                         f"positive integers") from None
+    return data, model
+
+
+def _config(args):
+    from fmri_tpu_torch.configs.presets import get_config, override_num_voxels
+
+    cfg = get_config(args.preset)
+    overrides = {}
+    for flag, field in (("epochs", "n_epochs"), ("batch_size", "batch_size"),
+                        ("lr", "learning_rate"), ("lam", "wae_vgan_lam"), ("seed", "seed")):
+        if getattr(args, flag) is not None:
+            overrides[field] = getattr(args, flag)
+    if overrides:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, **overrides))
+    if args.num_voxels is not None:
+        cfg = override_num_voxels(cfg, args.num_voxels)
+    return cfg
+
+
+def _rank_main(rank: int, argv, world: int, port: int) -> None:
+    """One spawned rank: torchrun's environment, then the CLI."""
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank))
+    main(argv)
+
+
+def _mesh_main(args, argv) -> int:
+    """``--mesh``: check the shape against the batch and the cards, then
+    run as this process's rank (torchrun, or ``data=1``) or start the ranks."""
+    import torch
+
+    from fmri_tpu_torch.device import resolve_device
+    from fmri_tpu_torch.parallel.mesh import check_batch, free_port
+
+    data, model = _parse_mesh(args.mesh)
+    device = resolve_device(args.device)
+    launched = "WORLD_SIZE" in os.environ
+    if data is None:
+        if launched:
+            world = int(os.environ["WORLD_SIZE"])
+        elif device.type == "cuda":
+            world = torch.cuda.device_count()
+        else:
+            raise SystemExit("--mesh with --device cpu needs data=N")
+        if world % model:
+            raise SystemExit(f"--mesh: {world} ranks not divisible by model={model}")
+        data = world // model
+    check_batch(_config(args).train.batch_size, data)
+    world = data * model
+    if launched:
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise SystemExit(f"--mesh {args.mesh}: {world} ranks, but the launcher "
+                             f"started WORLD_SIZE={os.environ['WORLD_SIZE']}")
+        return _run(args, (data, model))
+    if device.type == "cuda" and torch.cuda.device_count() < world:
+        raise SystemExit(f"--mesh {args.mesh}: {world} ranks need {world} cards, one "
+                         f"each; this machine has {torch.cuda.device_count()}")
+    if world == 1:
+        return _run(args, (1, 1))
+    import torch.multiprocessing as mp
+
+    mp.spawn(_rank_main, args=(list(argv), world, free_port()), nprocs=world, join=True)
+    return 0
 
 
 def _open_packed_split(args, cfg, keys):
@@ -235,27 +315,42 @@ def _load_pairs(args, cfg):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    _refuse(args)
+    if args.mesh:
+        return _mesh_main(args, argv)
+    return _run(args)
 
-    from fmri_tpu_torch.configs.presets import get_config, override_num_voxels
-    from fmri_tpu_torch.data.pipeline import Batches, num_examples
+
+def _run(args, mesh_shape=None) -> int:
+    """The run, on this process's rank of a ``mesh_shape`` (data, model)
+    mesh where given."""
     from fmri_tpu_torch.device import resolve_device
+
+    device = resolve_device(args.device)
+    mesh = None
+    if mesh_shape is not None:
+        from fmri_tpu_torch.parallel.mesh import make_mesh
+
+        data, model = mesh_shape
+        mesh = make_mesh(data, model, devices=None if device.type == "cuda"
+                         else [device] * (data * model))
+        device = mesh.device
+    try:
+        return _train(args, device, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _train(args, device, mesh) -> int:
+    from fmri_tpu_torch.data.pipeline import Batches, num_examples
     from fmri_tpu_torch.train.stages import BUILDERS
     from fmri_tpu_torch.train.trainer import Draws, Trainer
     from fmri_tpu_torch.utils.runlog import create_run_dir
 
-    device = resolve_device(args.device)
-    cfg = get_config(args.preset)
-    overrides = {}
-    for flag, field in (("epochs", "n_epochs"), ("batch_size", "batch_size"),
-                        ("lr", "learning_rate"), ("lam", "wae_vgan_lam"), ("seed", "seed")):
-        if getattr(args, flag) is not None:
-            overrides[field] = getattr(args, flag)
-    if overrides:
-        cfg = cfg.replace(train=dataclasses.replace(cfg.train, **overrides))
-    if args.num_voxels is not None:
-        cfg = override_num_voxels(cfg, args.num_voxels)
+    cfg = _config(args)
+    writes = mesh is None or mesh.is_writer
 
     if args.family == "exp":
         if not args.exp:
@@ -272,7 +367,8 @@ def main(argv=None) -> int:
     train_data, valid_data = (_load_images if image_data else _load_pairs)(args, cfg)
     steps_per_epoch = max(num_examples(train_data) // cfg.train.batch_size, 1)
 
-    bkw = dict(steps_per_epoch=steps_per_epoch, seed=cfg.train.seed, device=device)
+    bkw = dict(steps_per_epoch=steps_per_epoch, seed=cfg.train.seed, device=device,
+               mesh=mesh)
     if args.family in ("vgan", "wae-vgan"):
         bkw["mode"] = args.mode
         if args.stage == 2:
@@ -294,12 +390,19 @@ def main(argv=None) -> int:
 
     state, steps, tkw = BUILDERS[builder_name](cfg, **bkw)
 
-    run_dir = args.resume_dir or create_run_dir(args.output, builder_name, debug=args.debug)
+    run_dir = args.resume_dir
+    if run_dir is None:  # one name on every rank: rank 0's clock
+        now = int(time.time()) if mesh is None else mesh.broadcast_int(int(time.time()))
+        run_dir = create_run_dir(args.output, builder_name, debug=args.debug,
+                                 timestamp=time.strftime("%Y%m%d-%H%M%S", time.localtime(now)))
     retention = None
     if args.keep_last or args.keep_best:
         retention = dict(keep_last=args.keep_last, keep_best=args.keep_best)
-    trainer = Trainer(cfg, steps, run_dir, debug=args.debug, profile=args.profile,
-                      async_ckpt=args.async_ckpt, ckpt_retention=retention, **tkw)
+    # voxel tensor parallelism for the cognitive stages (fmri_tpu/train/run.py:357)
+    voxel_tp = mesh is not None and mesh.model > 1 and args.stage >= 2
+    trainer = Trainer(cfg, steps, run_dir, mesh=mesh, voxel_tp=voxel_tp, debug=args.debug,
+                      profile=args.profile, async_ckpt=args.async_ckpt,
+                      ckpt_retention=retention, **tkw)
 
     start_epoch = 0
     if args.resume_dir:
@@ -307,14 +410,16 @@ def main(argv=None) -> int:
 
     if args.evaluate:
         vm = trainer.evaluate_batches(
-            state, iter(Batches(valid_data, cfg.train.batch_size)),
+            state, iter(Batches(valid_data, cfg.train.batch_size, shard=trainer._shard())),
             Draws(cfg.train.seed).eval(0, 0, device), max_batches=0)
-        print(json.dumps({f"valid_{k}": v for k, v in vm.items()}, indent=2))
+        if writes:
+            print(json.dumps({f"valid_{k}": v for k, v in vm.items()}, indent=2))
         return 0
 
     trainer.fit(state, train_data, valid_data, start_epoch=start_epoch,
                 eval_batches=args.eval_batches, on_device=args.on_device_epochs)
-    print(f"run artifacts: {run_dir}")
+    if writes:
+        print(f"run artifacts: {run_dir}")
     return 0
 
 

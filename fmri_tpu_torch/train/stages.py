@@ -30,6 +30,9 @@ JAX builders do: the stage-II teacher from the stage-I encoder, stage III
 from stage II, the WAE stage-III teacher from stage I, a fresh latent
 discriminator in WAE stages II and III, the DCGAN stage-2 decoder and
 discriminator from DCGAN stage 1.
+
+``mesh``: the step of a multi-rank run (``parallel/mesh.py``); the
+``Trainer`` of the same mesh places the state.
 """
 
 from __future__ import annotations
@@ -84,12 +87,13 @@ def _pair_eval(step: StepFns):
 
 
 def vgan_stage1(cfg: Config, *, mode: str = "vae-gan", steps_per_epoch: int,
-                seed: int = 8, device: str = "cuda") -> Built:
+                seed: int = 8, device: str = "cuda",
+                mesh=None) -> Built:
     """Stage-I VAE/GAN: a fresh triplet, RMSprop for each group, per-epoch
     ExponentialLR (``train_vgan_stage1.py:237,275-283``)."""
     t = cfg.train
     step = make_vgan_stage1_step(cfg, mode, lr_schedule=exponential_lr(
-        t.learning_rate, t.decay_lr, steps_per_epoch))
+        t.learning_rate, t.decay_lr, steps_per_epoch), mesh=mesh)
     nets = init_vaegan(cfg, seed).to(resolve_device(device))
     opt = RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=t.grad_clip)
     state = make_state(nets, {g: opt for g in GROUPS})
@@ -106,7 +110,8 @@ def _cognitive_steps(step: StepFns) -> StepFns:
 
 def vgan_stage2(cfg: Config, stage1_ckpt: str, *, mode: str = "vae-gan",
                 use_teacher: bool = True, steps_per_epoch: int, seed: int = 8,
-                epoch: Optional[int] = None, device: str = "cuda") -> Built:
+                epoch: Optional[int] = None, device: str = "cuda",
+                mesh=None) -> Built:
     """Stage-II cognitive: a fresh CognitiveEncoder; the decoder, the
     discriminator and the teacher encoder from the stage-I checkpoint;
     decoder and teacher frozen; gradients clamped to +-1
@@ -115,7 +120,8 @@ def vgan_stage2(cfg: Config, stage1_ckpt: str, *, mode: str = "vae-gan",
     t = cfg.train
     step = make_vgan_cognitive_step(cfg, 2, mode, use_teacher=use_teacher,
                                     lr_schedule=exponential_lr(
-                                        t.learning_rate, t.decay_lr, steps_per_epoch))
+                                        t.learning_rate, t.decay_lr, steps_per_epoch),
+                                    mesh=mesh)
     nets = init_cognitive(cfg, seed=seed)
     loaded = load_groups(stage1_ckpt, ["encoder", "decoder", "discriminator"], epoch,
                          prefixes=VaeGan.PREFIXES)
@@ -129,7 +135,7 @@ def vgan_stage2(cfg: Config, stage1_ckpt: str, *, mode: str = "vae-gan",
 
 def vgan_stage3(cfg: Config, stage2_ckpt: str, *, mode: str = "vae-gan",
                 steps_per_epoch: int, seed: int = 8, epoch: Optional[int] = None,
-                device: str = "cuda") -> Built:
+                device: str = "cuda", mesh=None) -> Built:
     """Stage III: the whole stage-II module reloaded; the cognitive encoder
     frozen; decoder and discriminator trained under the equilibrium gate
     (``train_vgan_stage3.py:241-245,329-334,382-388``). ``seed`` is unused,
@@ -137,7 +143,8 @@ def vgan_stage3(cfg: Config, stage2_ckpt: str, *, mode: str = "vae-gan",
     t = cfg.train
     step = make_vgan_cognitive_step(cfg, 3, mode, use_teacher=False,
                                     lr_schedule=exponential_lr(
-                                        t.learning_rate, t.decay_lr, steps_per_epoch))
+                                        t.learning_rate, t.decay_lr, steps_per_epoch),
+                                    mesh=mesh)
     names = ["encoder", "decoder", "discriminator", "teacher_encoder"]
     nets = graft_groups(VaeGanCognitiveTrain(cfg), load_groups(
         stage2_ckpt, names, epoch, prefixes=VaeGanCognitiveTrain.PREFIXES),
@@ -152,14 +159,14 @@ def vgan_stage3(cfg: Config, stage2_ckpt: str, *, mode: str = "vae-gan",
 
 
 def wae_stage1(cfg: Config, *, steps_per_epoch: int, seed: int = 8,
-               device: str = "cuda") -> Built:
+               device: str = "cuda", mesh=None) -> Built:
     """Stage-I WAE/GAN: fresh encoder, decoder and latent D, Adam(b1, b2)
     with the D at 0.5x lr, StepLR(30, 0.5) (``train_wae_stage1.py:221-228``).
     The step's noise is z_fake ~ N(0, wae_sigma^2), drawn from the step's
     key unsplit."""
     t = cfg.train
     step = make_wae_stage1_step(cfg, lr_schedule=step_lr(
-        t.learning_rate, t.step_size, t.step_gamma, steps_per_epoch))
+        t.learning_rate, t.step_size, t.step_gamma, steps_per_epoch), mesh=mesh)
     nets = init_wae(cfg, seed).to(resolve_device(device))
     opt = Adam(b1=t.adam_b1, b2=t.adam_b2)
     state = make_state(nets, {g: opt for g in WAE_GROUPS})
@@ -168,7 +175,8 @@ def wae_stage1(cfg: Config, *, steps_per_epoch: int, seed: int = 8,
     return state, steps, _image_kwargs(False, False, (("z_fake", t.wae_sigma),))
 
 
-def _wae_cognitive_step(cfg: Config, stage: int, steps_per_epoch: int) -> StepFns:
+def _wae_cognitive_step(cfg: Config, stage: int, steps_per_epoch: int,
+                        mesh=None) -> StepFns:
     """The stage-II/III step with the reference's hard-coded lrs, 1e-3
     (encoder, decoder) and 5e-4 (latent D), StepLR(30, 0.5)
     (``train_wae_stage2.py:237-243``)."""
@@ -176,13 +184,14 @@ def _wae_cognitive_step(cfg: Config, stage: int, steps_per_epoch: int) -> StepFn
         cfg, stage,
         lr_schedule_enc=step_lr(1e-3, 30, 0.5, steps_per_epoch),
         lr_schedule_dec=step_lr(1e-3, 30, 0.5, steps_per_epoch),
-        lr_schedule_disc=step_lr(5e-4, 30, 0.5, steps_per_epoch))
+        lr_schedule_disc=step_lr(5e-4, 30, 0.5, steps_per_epoch), mesh=mesh)
     return StepFns(lambda s, batch, noise: step.train_step(s, batch["fmri"], batch["image"]),
                    _pair_eval(step), step.generate_step)
 
 
 def wae_stage2(cfg: Config, stage1_ckpt: str, *, steps_per_epoch: int, seed: int = 8,
-               epoch: Optional[int] = None, device: str = "cuda") -> Built:
+               epoch: Optional[int] = None, device: str = "cuda",
+               mesh=None) -> Built:
     """Stage-II cognitive WAE: a fresh CognitiveEncoder and latent D
     ("normal" init); the stage-I encoder becomes the frozen teacher and the
     stage-I decoder is shared frozen (``train_wae_stage2.py:196-202``)."""
@@ -193,12 +202,13 @@ def wae_stage2(cfg: Config, stage1_ckpt: str, *, steps_per_epoch: int, seed: int
     opt = Adam(b1=0.5, b2=0.999)
     state = make_state(nets.to(resolve_device(device)),
                        {"encoder": opt, "latent_disc": opt})
-    return (state, _wae_cognitive_step(cfg, 2, steps_per_epoch),
+    return (state, _wae_cognitive_step(cfg, 2, steps_per_epoch, mesh),
             _pair_kwargs(cfg, False, False, ()))
 
 
 def wae_stage3(cfg: Config, stage2_ckpt: str, stage1_ckpt: str, *, steps_per_epoch: int,
-               seed: int = 8, epoch: Optional[int] = None, device: str = "cuda") -> Built:
+               seed: int = 8, epoch: Optional[int] = None, device: str = "cuda",
+               mesh=None) -> Built:
     """Stage-III WAE: the cognitive encoder (frozen) and decoder from stage
     II, the teacher encoder from stage I (its latest checkpoint), a fresh
     latent D (the reference rebuilds ``WaeGanCognitive``, whose ctor makes a
@@ -213,7 +223,7 @@ def wae_stage3(cfg: Config, stage2_ckpt: str, stage1_ckpt: str, *, steps_per_epo
     opt = Adam(b1=0.5, b2=0.999)
     state = make_state(nets.to(resolve_device(device)),
                        {"decoder": opt, "latent_disc": opt})
-    return (state, _wae_cognitive_step(cfg, 3, steps_per_epoch),
+    return (state, _wae_cognitive_step(cfg, 3, steps_per_epoch, mesh),
             _pair_kwargs(cfg, False, False, ()))
 
 
@@ -221,12 +231,13 @@ def wae_stage3(cfg: Config, stage2_ckpt: str, stage1_ckpt: str, *, steps_per_epo
 
 
 def wae_vgan_stage1(cfg: Config, *, mode: str = "vae-gan", steps_per_epoch: int,
-                    seed: int = 8, device: str = "cuda") -> Built:
+                    seed: int = 8, device: str = "cuda",
+                    mesh=None) -> Built:
     """Stage-I WAE/Dual-GAN: the VAE/GAN triplet and a latent discriminator,
     all RMSprop (``wae_vgan_stage1.py:199-200,243-250``)."""
     t = cfg.train
     step = make_wae_vgan_step(cfg, mode, lr_schedule=exponential_lr(
-        t.learning_rate, t.decay_lr, steps_per_epoch))
+        t.learning_rate, t.decay_lr, steps_per_epoch), mesh=mesh)
     nets = init_wae_dual_gan(cfg, seed).to(resolve_device(device))
     opt = RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=t.grad_clip)
     state = make_state(nets, {g: opt for g in WAE_DUAL_GROUPS})
@@ -241,12 +252,12 @@ def wae_vgan_stage1(cfg: Config, *, mode: str = "vae-gan", steps_per_epoch: int,
 
 
 def exp_decoder(cfg: Config, *, steps_per_epoch: int, seed: int = 8,
-                device: str = "cuda") -> Built:
+                device: str = "cuda", mesh=None) -> Built:
     """The supervised decoder ablation: a fresh VoxelDecoder, Adam(0.9,
     0.999) at lr 0.01 with the per-epoch ExponentialLR (``exp_decoder.py:253``);
     no gate, no noise, the mean decoded at eval."""
     step = make_supervised_decoder_step(cfg, lr_schedule=exponential_lr(
-        0.01, cfg.train.decay_lr, steps_per_epoch))
+        0.01, cfg.train.decay_lr, steps_per_epoch), mesh=mesh)
     state = make_state(init_voxel_decoder(cfg, seed).to(resolve_device(device)),
                        {"decoder": Adam(b1=0.9, b2=0.999)})
     steps = StepFns(lambda s, batch, noise: step.train_step(s, batch["fmri"], batch["image"]),
@@ -261,12 +272,12 @@ def _exp_pair_steps(step: StepFns) -> StepFns:
 
 
 def _exp_cognitive_scratch(cfg: Config, mode: str, steps_per_epoch: int, seed: int,
-                           device: str) -> Built:
+                           device: str, mesh=None) -> Built:
     """A fresh cognitive encoder, decoder and discriminator, RMSprop clamping
     to +-1 for each (``fmri_tpu/train/stages.py:228-246``)."""
     t = cfg.train
     step = make_cognitive_scratch_step(cfg, mode, lr_schedule=exponential_lr(
-        t.learning_rate, t.decay_lr, steps_per_epoch))
+        t.learning_rate, t.decay_lr, steps_per_epoch), mesh=mesh)
     opt = RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=1.0)
     state = make_state(init_groups(CognitiveVaeGan, cfg, seed).to(resolve_device(device)),
                        {g: opt for g in GROUPS})
@@ -274,25 +285,25 @@ def _exp_cognitive_scratch(cfg: Config, mode: str, steps_per_epoch: int, seed: i
 
 
 def exp_vae(cfg: Config, *, steps_per_epoch: int, seed: int = 8,
-            device: str = "cuda") -> Built:
+            device: str = "cuda", mesh=None) -> Built:
     """The cognitive Dual-VAE without distillation (``exp_vae.py``)."""
-    return _exp_cognitive_scratch(cfg, "vae", steps_per_epoch, seed, device)
+    return _exp_cognitive_scratch(cfg, "vae", steps_per_epoch, seed, device, mesh)
 
 
 def exp_vgan(cfg: Config, *, steps_per_epoch: int, seed: int = 8,
-             device: str = "cuda") -> Built:
+             device: str = "cuda", mesh=None) -> Built:
     """The Dual-VAE/GAN on BOLD from scratch (``exp_vgan.py``)."""
-    return _exp_cognitive_scratch(cfg, "vae-gan", steps_per_epoch, seed, device)
+    return _exp_cognitive_scratch(cfg, "vae-gan", steps_per_epoch, seed, device, mesh)
 
 
 def exp_dcgan_stage1(cfg: Config, *, steps_per_epoch: int, seed: int = 8,
-                     device: str = "cuda") -> Built:
+                     device: str = "cuda", mesh=None) -> Built:
     """The plain DCGAN on images (``exp_dcgan_stage1.py``): a fresh decoder
     and discriminator, RMSprop clamping to +-1; the step's noise is z_p,
     drawn from the step's key unsplit."""
     t = cfg.train
     step = make_dcgan_stage1_step(cfg, lr_schedule=exponential_lr(
-        t.learning_rate, t.decay_lr, steps_per_epoch))
+        t.learning_rate, t.decay_lr, steps_per_epoch), mesh=mesh)
     opt = RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=1.0)
     state = make_state(init_groups(DcGan, cfg, seed).to(resolve_device(device)),
                        {g: opt for g in DcGan.PREFIXES})
@@ -303,7 +314,7 @@ def exp_dcgan_stage1(cfg: Config, *, steps_per_epoch: int, seed: int = 8,
 
 def exp_dcgan_stage2(cfg: Config, stage1_ckpt: str, *, steps_per_epoch: int,
                      seed: int = 8, epoch: Optional[int] = None,
-                     device: str = "cuda") -> Built:
+                     device: str = "cuda", mesh=None) -> Built:
     """The cognitive encoder over a DCGAN generator (``exp_dcgan_stage2.py``):
     a fresh encoder from ``seed``, the decoder and discriminator from the
     DCGAN stage-1 checkpoint (a port run's checkpoint dir or a ``.pth`` in
@@ -311,7 +322,7 @@ def exp_dcgan_stage2(cfg: Config, stage1_ckpt: str, *, steps_per_epoch: int,
     +-1) train, the encoder is frozen."""
     t = cfg.train
     step = make_dcgan_stage2_step(cfg, lr_schedule=exponential_lr(
-        t.learning_rate, t.decay_lr, steps_per_epoch))
+        t.learning_rate, t.decay_lr, steps_per_epoch), mesh=mesh)
     nets = graft_groups(init_groups(CognitiveVaeGan, cfg, seed), load_groups(
         stage1_ckpt, ["decoder", "discriminator"], epoch, prefixes=DcGan.PREFIXES),
         {"decoder": "decoder", "discriminator": "discriminator"})

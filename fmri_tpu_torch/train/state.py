@@ -38,7 +38,7 @@ an optimizer. The train step updates the modules and moments in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import torch
 from torch import nn
@@ -194,6 +194,10 @@ class TrainState:
     nets: nn.Module       # VaeGan, VaeGanCognitiveTrain, WaeGan, ...
     opt_state: OptState   # {group: {parameter name: sq_avg}, or AdamState}
     step: torch.Tensor    # int64 scalar on the device: applied steps
+    # where parallel.mesh.shard_state placed it: the mesh, and the sharded
+    # (group, parameter name)s with their specs (their moments shard alike)
+    mesh: Any = None
+    shards: Dict[Tuple[str, str], tuple] = dataclasses.field(default_factory=dict)
 
 
 @torch.no_grad()

@@ -39,6 +39,10 @@ package pins (``tests/test_update_parity_exp.py``), are kept:
 Noise comes from the caller as tensors (tests inject the JAX draws). The
 state is updated in place and returned with the metrics, which stay on
 the device under the JAX keys.
+
+``mesh``: as in ``steps_vgan.py`` (the supervised decoder's mean loss is
+pulled back as 1/D of this rank's; the DCGAN stage-1 gate compares the
+global batch's means).
 """
 
 from __future__ import annotations
@@ -56,21 +60,21 @@ from fmri_tpu_torch.train.common import gate_float
 from fmri_tpu_torch.train.optim import Adam, RmsProp
 from fmri_tpu_torch.train.state import TrainState
 from fmri_tpu_torch.train.steps_vgan import (
-    StepFns, _default_lr, _metrics, _named, _scalar, _split_triplet, eval_step,
-    generate_step,
+    StepFns, _data, _data_sums, _default_lr, _head_sums, _metrics, _named, _on_mesh,
+    _reduce_grads, _scalar, _split_triplet, _step_sums, eval_step, generate_step,
 )
 
 SCRATCH_MODES = ("vae", "vae-gan")
 
 
-def _grads(nets, heads, names):
+def _grads(nets, heads, names, mesh=None):
     """{group: gradient of its head} for each (head, group) pair, every
-    gradient from the same forward graph."""
+    gradient from the same forward graph, summed over the data group."""
     out = {}
     for i, (head, name) in enumerate(zip(heads, names)):
         out[name] = _named(nets, name, torch.autograd.grad(
             head, list(nets.group(name).values()), retain_graph=i < len(names) - 1))
-    return out
+    return _reduce_grads(out, mesh)
 
 
 def _update(opt, state: TrainState, name: str, grads, lr, gate=1.0) -> None:
@@ -97,8 +101,8 @@ def _decoder_eval(state: TrainState, fmri: torch.Tensor, eps=None) -> torch.Tens
     return state.nets.decoder(fmri)
 
 
-def make_supervised_decoder_step(cfg: Config, lr_schedule: Callable | None = None
-                                 ) -> StepFns:
+def make_supervised_decoder_step(cfg: Config, lr_schedule: Callable | None = None,
+                                 mesh=None) -> StepFns:
     """``loss = mean((image - VoxelDecoder(fmri))^2)``, Adam(0.9, 0.999) at
     lr 0.01 by default (``exp_decoder.py:213,253-260``). ``train_step(state,
     fmri, image)``; no generate step: the decoder's input is the voxels, not
@@ -107,21 +111,24 @@ def make_supervised_decoder_step(cfg: Config, lr_schedule: Callable | None = Non
     if lr_schedule is None:
         lr_schedule = lambda step: _scalar(0.01, step.device)  # noqa: E731
 
+    data = _data(mesh)
+
     def train_step(state: TrainState, fmri: torch.Tensor, image: torch.Tensor):
         nets = state.nets
         nets.train()
         loss = torch.mean((image - nets.decoder(fmri)) ** 2)
-        grads = _grads(nets, [loss], ["decoder"])
+        grads = _grads(nets, [loss / data if data > 1 else loss], ["decoder"], mesh)
         lr = lr_schedule(state.step)
         _update(opt, state, "decoder", grads, lr)
         state.step += 1
-        return state, {"loss_decoder": loss.detach(), "lr": lr}
+        return state, {"loss_decoder": _data_sums(mesh, loss)[0] / data, "lr": lr}
 
-    return StepFns(train_step, _decoder_eval, None)
+    return StepFns(_on_mesh(train_step, mesh), _decoder_eval, None)
 
 
 def make_cognitive_scratch_step(cfg: Config, mode: str = "vae-gan",
-                                lr_schedule: Callable | None = None) -> StepFns:
+                                lr_schedule: Callable | None = None,
+                                mesh=None) -> StepFns:
     """The cognitive Dual-VAE(/GAN) from scratch on BOLD
     (``VaeGanCognitive(teacher_net=None, stage=3)``, ``exp_vgan.py:165-167``,
     ``exp_vae.py:199-201``) on a
@@ -143,25 +150,27 @@ def make_cognitive_scratch_step(cfg: Config, mode: str = "vae-gan",
         mu, lv, x_tilde, split = _cognitive_forward(nets, fmri, image, eps, z_p, True)
         terms = vaegan_terms(image, x_tilde, *split, mu, lv)
         h = combine_mode(terms, mode, lambda_mse=_scalar(lambda_mse, dev), beta=t.beta,
-                         batch_size=b)
-        grads = _grads(nets, [getattr(h, g) for g in trained], trained)
+                         batch_size=b * _data(mesh))
+        grads = _grads(nets, [getattr(h, g) for g in trained], trained, mesh)
+        means, sums = _head_sums(mesh, terms, h)
         if mode == "vae":  # exp_vae.py:343-352: the gate is commented out
             dec_gate, dis_gate = _scalar(1.0, dev), _scalar(0.0, dev)
         else:
             dec_gate, dis_gate = (gate_float(g) for g in equilibrium_gate(
-                terms, _scalar(equilibrium, dev), _scalar(margin, dev)))
+                terms, _scalar(equilibrium, dev), _scalar(margin, dev), means=means))
         lr = lr_schedule(state.step)
         _update(opt, state, "encoder", grads, lr)
         _update(opt_dec, state, "decoder", grads, lr, dec_gate)
         if mode == "vae-gan":
             _update(opt, state, "discriminator", grads, lr, dis_gate)
         state.step += 1
-        return state, _metrics(h, b, dec_gate, dis_gate, lr)
+        return state, _metrics(sums, b * _data(mesh), dec_gate, dis_gate, lr)
 
-    return StepFns(train_step, eval_step, generate_step)
+    return StepFns(_on_mesh(train_step, mesh), eval_step, generate_step)
 
 
-def make_dcgan_stage1_step(cfg: Config, lr_schedule: Callable | None = None) -> StepFns:
+def make_dcgan_stage1_step(cfg: Config, lr_schedule: Callable | None = None,
+                           mesh=None) -> StepFns:
     """Plain DCGAN on images (``exp_dcgan_stage1.py``) on a
     :class:`~fmri_tpu_torch.train.state.DcGan`: ``L_D = sum -log(D(x) + e)
     + sum -log(1 - D(x_tilde) + e)``, ``L_G = sum -log(D(x_tilde) + e)``
@@ -186,29 +195,31 @@ def make_dcgan_stage1_step(cfg: Config, lr_schedule: Callable | None = None) -> 
         bce_pred = -torch.log(sp + LOG_EPS)  # the generator fools D
         loss_dis = torch.sum(bce_orig) + torch.sum(-torch.log(1.0 - ss + LOG_EPS))
         loss_dec = torch.sum(bce_pred)
-        m_orig, m_pred = bce_orig.detach().mean(), bce_pred.detach().mean()
+        (m_orig, m_pred), (dec, dis) = _step_sums(mesh, bce_orig, bce_pred, loss_dec,
+                                                  loss_dis)
         eq, mg = _scalar(equilibrium, dev), _scalar(margin, dev)
         train_dis = ~((m_orig < eq - mg) | (m_pred < eq - mg))
         train_dec = ~((m_orig > eq + mg) | (m_pred > eq + mg))
         both_off = ~train_dis & ~train_dec
         dis_gate, dec_gate = gate_float(train_dis | both_off), gate_float(train_dec | both_off)
         grads = _grads(nets, [loss_dis, loss_dec + dis_gate * loss_dis],
-                       ["discriminator", "decoder"])
+                       ["discriminator", "decoder"], mesh)
         lr = lr_schedule(state.step)
         _update(opt, state, "discriminator", grads, lr, dis_gate)
         _update(opt, state, "decoder", grads, lr, dec_gate)
         state.step += 1
-        return state, {"loss_decoder": loss_dec.detach() / b,
-                       "loss_discriminator": loss_dis.detach() / b,
+        n = b * _data(mesh)
+        return state, {"loss_decoder": dec / n, "loss_discriminator": dis / n,
                        "train_dec": dec_gate, "train_dis": dis_gate, "lr": lr}
 
     def dcgan_eval(state: TrainState, x, eps: torch.Tensor) -> torch.Tensor:
         return generate_step(state, eps)
 
-    return StepFns(train_step, dcgan_eval, generate_step)
+    return StepFns(_on_mesh(train_step, mesh), dcgan_eval, generate_step)
 
 
-def make_dcgan_stage2_step(cfg: Config, lr_schedule: Callable | None = None) -> StepFns:
+def make_dcgan_stage2_step(cfg: Config, lr_schedule: Callable | None = None,
+                           mesh=None) -> StepFns:
     """The cognitive graph over a stage-1 DCGAN generator
     (``exp_dcgan_stage2.py``) on a
     :class:`~fmri_tpu_torch.train.state.CognitiveVaeGan`: the ``'vae-gan'``
@@ -230,14 +241,16 @@ def make_dcgan_stage2_step(cfg: Config, lr_schedule: Callable | None = None) -> 
         mu, lv, x_tilde, split = _cognitive_forward(nets, fmri, image, eps, z_p, False)
         terms = vaegan_terms(image, x_tilde, *split, mu, lv)
         h = combine_mode(terms, "vae-gan", lambda_mse=_scalar(lambda_mse, dev),
-                         beta=t.beta, batch_size=b)
-        grads = _grads(nets, [h.decoder, h.discriminator], ["decoder", "discriminator"])
+                         beta=t.beta, batch_size=b * _data(mesh))
+        grads = _grads(nets, [h.decoder, h.discriminator], ["decoder", "discriminator"],
+                       mesh)
+        means, sums = _head_sums(mesh, terms, h)
         dec_gate, dis_gate = (gate_float(g) for g in equilibrium_gate(
-            terms, _scalar(equilibrium, dev), _scalar(margin, dev)))
+            terms, _scalar(equilibrium, dev), _scalar(margin, dev), means=means))
         lr = lr_schedule(state.step)
         _update(opt_dec, state, "decoder", grads, lr, dec_gate)
         _update(opt_dis, state, "discriminator", grads, lr, dis_gate)
         state.step += 1
-        return state, _metrics(h, b, dec_gate, dis_gate, lr)
+        return state, _metrics(sums, b * _data(mesh), dec_gate, dis_gate, lr)
 
-    return StepFns(train_step, eval_step, generate_step)
+    return StepFns(_on_mesh(train_step, mesh), eval_step, generate_step)

@@ -48,6 +48,16 @@ launches no weight grad, as XLA's DCE prunes that work in the JAX step.
 Noise comes from the caller (eps, eps_t, z_p as tensors), so tests inject
 the JAX draws. The state is updated in place and returned with the
 metrics, which stay on the device under the JAX keys.
+
+``mesh`` (``parallel/mesh.py``): the step runs on this rank's rows of the
+global batch, with a state placed on the same mesh
+(``parallel.mesh.shard_state``). Its BatchNorms take the global batch's
+statistics; the losses are batch sums, so each rank's pullback is its part
+of the global loss, and every trained group's gradient is summed over the
+data group after the last ``torch.autograd.grad``, before the optimizer;
+the gate and the metrics take the global batch's means. RMSprop's clamp is
+elementwise and needs no global norm. With a model axis the step runs
+cuDNN's deterministic algorithms (``_on_mesh``).
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ from typing import Callable, Dict, List, NamedTuple
 import torch
 
 from fmri_tpu_torch.configs.presets import Config
+from fmri_tpu_torch.device import deterministic_cudnn
 from fmri_tpu_torch.losses.gan_losses import (
     LOG_EPS, combine_mode, equilibrium_gate, vaegan_terms,
 )
@@ -101,7 +112,8 @@ def _decode(decoder, zs: List[torch.Tensor], fused: bool) -> List[torch.Tensor]:
 def _cot_c(score: torch.Tensor, b: int, uses_b: bool) -> torch.Tensor:
     """d/d score of the GAN base loss C = sum -log(D(x) + e) +
     sum -log(1 - D(x_p) + e), plus sum -log(1 - D(x_tilde) + e) where the
-    mode's discriminator loss has the predicted term."""
+    mode's discriminator loss has the predicted term. ``b`` is this rank's
+    rows (the local third of the 3b concat), under a mesh too."""
     s = score.detach()
     pred = 1.0 / (1.0 - s[b:2 * b] + LOG_EPS) if uses_b else torch.zeros_like(s[b:2 * b])
     return torch.cat([-1.0 / (s[:b] + LOG_EPS), pred, 1.0 / (1.0 - s[2 * b:] + LOG_EPS)])
@@ -109,7 +121,7 @@ def _cot_c(score: torch.Tensor, b: int, uses_b: bool) -> torch.Tensor:
 
 def _cot_b(feats: torch.Tensor, b: int) -> torch.Tensor:
     """d/d feats of the feature-matching base loss
-    B = sum 0.5 * (f_real - f_tilde)^2."""
+    B = sum 0.5 * (f_real - f_tilde)^2; ``b`` local, as in :func:`_cot_c`."""
     d = (feats[:b] - feats[b:2 * b]).detach()
     return torch.cat([d, -d, torch.zeros_like(feats[2 * b:])])
 
@@ -133,11 +145,72 @@ def _apply_updates(opt, state: TrainState, grads, lr, gates) -> None:
         opt.update(g, state.opt_state[name], state.nets.group(name), lr, gates[name])
 
 
-def _metrics(h, b, dec_gate, dis_gate, lr) -> Dict[str, torch.Tensor]:
-    return {"loss_encoder": h.encoder.detach() / b,
-            "loss_decoder": h.decoder.detach() / b,
-            "loss_discriminator": h.discriminator.detach() / b,
-            "loss_reconstruction": h.nle_sum.detach() / b,
+def _data(mesh) -> int:
+    """The data axis's size (1 without a mesh)."""
+    return 1 if mesh is None else mesh.data
+
+
+def _on_mesh(train_step: Callable, mesh) -> Callable:
+    """``train_step`` checking that its state sits on the step's ``mesh``
+    (None: not placed). With a model axis over 1 it runs cuDNN's
+    deterministic algorithms: the model group's ranks compute the
+    replicated layers redundantly, and stay bitwise equal only if each
+    computes them alike (the ``Trainer`` runs them always)."""
+    tp = mesh is not None and mesh.model > 1
+
+    def step(state: TrainState, *args):
+        if state.mesh is not mesh:
+            raise ValueError(f"the step was made for {mesh} and the state is placed on "
+                             f"{state.mesh}: place it with parallel.mesh.shard_state(state, "
+                             f"mesh) and make the step with the same mesh")
+        if not tp:
+            return train_step(state, *args)
+        with deterministic_cudnn():
+            return train_step(state, *args)
+
+    return step
+
+
+def _data_sums(mesh, *values: torch.Tensor):
+    """``values`` (detached scalars) summed over the data group: the
+    global batch's sums."""
+    values = tuple(v.detach() for v in values)
+    if _data(mesh) == 1:
+        return values
+    return tuple(mesh.data_sum(torch.stack(values)).unbind(0))
+
+
+def _step_sums(mesh, bce_orig: torch.Tensor, bce_pred: torch.Tensor,
+               *values: torch.Tensor):
+    """``((mean bce_orig, mean bce_pred), values)``: the equilibrium gate's
+    two means over the global batch and ``values`` (detached scalars)
+    summed over the data group, from one all-reduce per step."""
+    o, p = bce_orig.detach(), bce_pred.detach()
+    if _data(mesh) == 1:
+        return (torch.mean(o), torch.mean(p)), tuple(v.detach() for v in values)
+    sums = mesh.data_sum(torch.stack([o.sum(), p.sum(), *(v.detach() for v in values)]))
+    n = o.numel() * mesh.data
+    return (sums[0] / n, sums[1] / n), tuple(sums[2:].unbind(0))
+
+
+def _head_sums(mesh, terms, h, *values: torch.Tensor):
+    """:func:`_step_sums` of a VAE/GAN step: the gate's means, the four
+    head losses' global sums (for :func:`_metrics`), then ``values``'."""
+    return _step_sums(mesh, terms.bce_dis_original, terms.bce_dis_predicted,
+                      h.encoder, h.decoder, h.discriminator, h.nle_sum, *values)
+
+
+def _reduce_grads(grads, mesh):
+    """The gradients summed over the data group (unchanged without a mesh)."""
+    return grads if mesh is None else mesh.sum_grads(grads)
+
+
+def _metrics(sums, n, dec_gate, dis_gate, lr) -> Dict[str, torch.Tensor]:
+    """The JAX keys: the four head losses' global sums (:func:`_head_sums`)
+    over the global batch's size ``n``."""
+    enc, dec, dis, nle = sums[:4]
+    return {"loss_encoder": enc / n, "loss_decoder": dec / n,
+            "loss_discriminator": dis / n, "loss_reconstruction": nle / n,
             "train_dec": dec_gate, "train_dis": dis_gate, "lr": lr}
 
 
@@ -169,10 +242,12 @@ def _default_lr(cfg: Config, lr_schedule: Callable | None) -> Callable:
     return lambda step: _scalar(cfg.train.learning_rate, step.device)
 
 
-def stage1_grads(cfg: Config, mode: str, backward: str) -> Callable:
+def stage1_grads(cfg: Config, mode: str, backward: str, data: int = 1) -> Callable:
     """The stage-I forward and backward: ``grads(nets, x, eps, z_p,
     lambda_mse, mu_cot=None) -> (grads, terms, heads)``, with ``grads``
-    ``{group: {parameter name: gradient}}`` for the groups ``mode`` trains.
+    ``{group: {parameter name: gradient}}`` for the groups ``mode`` trains
+    (this rank's part; ``data`` ranks share the global batch, whose size
+    scales 'beta-vae''s KL term).
     ``mu_cot(mu)``, where given, is called once on the detached mu after the
     forward and returns an extra cotangent at mu for the encoder's
     gradient (the WAE/Dual-GAN penalty): the spliced backward folds it into
@@ -187,7 +262,7 @@ def stage1_grads(cfg: Config, mode: str, backward: str) -> Callable:
         b = x.shape[0]
         terms = vaegan_terms(x, x_tilde, *_split_triplet(feats, score, b), mu, lv)
         return terms, combine_mode(terms, mode, lambda_mse=lambda_mse,
-                                   beta=t.beta, batch_size=b)
+                                   beta=t.beta, batch_size=b * data)
 
     def encode(nets, x, eps):
         with torch.set_grad_enabled(mode != "dcgan"):
@@ -255,7 +330,7 @@ def stage1_grads(cfg: Config, mode: str, backward: str) -> Callable:
             retain_graph=mode != "dcgan"))
         if mode != "dcgan":
             gz, = torch.autograd.grad(x_tilde, z_in, cot_enc_img)
-            k_a = t.beta / b if mode == "beta-vae" else 1.0
+            k_a = t.beta / (b * data) if mode == "beta-vae" else 1.0
             grads["encoder"] = _encoder_grads(nets, z, mu, lv, gz, k_a, gmu)
         return grads, terms, h
 
@@ -264,11 +339,11 @@ def stage1_grads(cfg: Config, mode: str, backward: str) -> Callable:
 
 def make_vgan_stage1_step(cfg: Config, mode: str = "vae-gan",
                           lr_schedule: Callable | None = None,
-                          backward: str = "spliced") -> StepFns:
+                          backward: str = "spliced", mesh=None) -> StepFns:
     """``StepFns(train_step, eval_step, generate_step)`` of the stage-I step.
     ``lr_schedule(step) -> lr`` defaults to the constant
     ``cfg.train.learning_rate``."""
-    grads_fn = stage1_grads(cfg, mode, backward)
+    grads_fn = stage1_grads(cfg, mode, backward, _data(mesh))
     t = cfg.train
     opt = RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=t.grad_clip)
     lr_schedule = _default_lr(cfg, lr_schedule)
@@ -282,22 +357,24 @@ def make_vgan_stage1_step(cfg: Config, mode: str = "vae-gan",
         nets.train()
         dev = x.device
         grads, terms, h = grads_fn(nets, x, eps, z_p, _scalar(lambda_mse, dev))
+        grads = _reduce_grads(grads, mesh)
+        means, sums = _head_sums(mesh, terms, h)
         dec_gate, dis_gate = (gate_float(g) for g in equilibrium_gate(
             terms, _scalar(equilibrium, dev), _scalar(margin, dev),
-            init_dis=(mode != "vae")))
+            init_dis=(mode != "vae"), means=means))
         lr = lr_schedule(state.step)
         _apply_updates(opt, state, grads, lr, {"encoder": 1.0, "decoder": dec_gate,
                                                "discriminator": dis_gate})
         state.step += 1
-        return state, _metrics(h, x.shape[0], dec_gate, dis_gate, lr)
+        return state, _metrics(sums, x.shape[0] * _data(mesh), dec_gate, dis_gate, lr)
 
-    return StepFns(train_step, eval_step, generate_step)
+    return StepFns(_on_mesh(train_step, mesh), eval_step, generate_step)
 
 
 def make_vgan_cognitive_step(cfg: Config, stage: int, mode: str = "vae-gan",
                              use_teacher: bool = True,
                              lr_schedule: Callable | None = None,
-                             backward: str = "spliced") -> StepFns:
+                             backward: str = "spliced", mesh=None) -> StepFns:
     """``StepFns(train_step, eval_step, generate_step)`` of the stage-II or
     stage-III step on a :class:`~fmri_tpu_torch.train.state.VaeGanCognitiveTrain`
     (with ``teacher_net`` for stage II with ``use_teacher``). Its state
@@ -316,6 +393,7 @@ def make_vgan_cognitive_step(cfg: Config, stage: int, mode: str = "vae-gan",
     uses_b = mode in ("vae-gan", "beta-vae")
     spliced = backward == "spliced"
     trained = COGNITIVE_TRAINED[stage]
+    data = _data(mesh)
 
     def cut(a):  # where the spliced backward cuts the graph
         return a.detach().requires_grad_() if spliced else a
@@ -353,7 +431,7 @@ def make_vgan_cognitive_step(cfg: Config, stage: int, mode: str = "vae-gan",
         terms = vaegan_terms(f["gt_x"], f["x_tilde"],
                              *_split_triplet(f["feats"], f["score"], b), f["mu"], f["lv"])
         return terms, combine_mode(terms, mode, lambda_mse=lambda_mse,
-                                   beta=t.beta, batch_size=b)
+                                   beta=t.beta, batch_size=b * data)
 
     def grads_naive(nets, f, lambda_mse):
         terms, h = heads(f, lambda_mse)
@@ -384,7 +462,7 @@ def make_vgan_cognitive_step(cfg: Config, stage: int, mode: str = "vae-gan",
             else:  # 'vae', 'dcgan': L_enc = kld + NLE
                 cot_xt = nle
             gz, = torch.autograd.grad(x_tilde, f["z_in"], cot_xt)
-            k_a = t.beta / b if mode == "beta-vae" else 1.0
+            k_a = t.beta / (b * data) if mode == "beta-vae" else 1.0
             grads["encoder"] = _encoder_grads(nets, f["z"], f["mu"], f["lv"], gz, k_a)
         else:
             if uses_b:
@@ -413,17 +491,19 @@ def make_vgan_cognitive_step(cfg: Config, stage: int, mode: str = "vae-gan",
         dev = fmri.device
         f = forward(nets, fmri, image, eps, eps_t, z_p)
         grads, terms, h = grads_fn(nets, f, _scalar(lambda_mse, dev))
+        grads = _reduce_grads(grads, mesh)
+        means, sums = _head_sums(mesh, terms, h)
         if stage == 2:  # encoder and discriminator always train (:557-565)
             dec_gate, dis_gate = _scalar(0.0, dev), _scalar(1.0, dev)
             gates = {"encoder": 1.0, "discriminator": 1.0}
         else:
             dec_gate, dis_gate = (gate_float(g) for g in equilibrium_gate(
                 terms, _scalar(equilibrium, dev), _scalar(margin, dev),
-                init_dis=(mode != "vae")))
+                init_dis=(mode != "vae"), means=means))
             gates = {"decoder": dec_gate, "discriminator": dis_gate}
         lr = lr_schedule(state.step)
         _apply_updates(opt, state, grads, lr, gates)
         state.step += 1
-        return state, _metrics(h, fmri.shape[0], dec_gate, dis_gate, lr)
+        return state, _metrics(sums, fmri.shape[0] * data, dec_gate, dis_gate, lr)
 
-    return StepFns(train_step, eval_step, generate_step)
+    return StepFns(_on_mesh(train_step, mesh), eval_step, generate_step)

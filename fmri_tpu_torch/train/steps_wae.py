@@ -43,6 +43,11 @@ two real ticks need no replay.
 Noise comes from the caller (``z_fake`` already scaled by sigma, and for
 WAE/Dual-GAN ``eps`` and ``z_p``). The state is updated in place and
 returned with the metrics, which stay on the device under the JAX keys.
+
+``mesh``: as in ``steps_vgan.py``. The latent discriminator's gradient is
+summed over the data group inside phase 1, before its update, which phase
+2 reads; the mean losses of stages II and III (recon, penalty) are pulled
+back as this rank's part of the global mean, 1/D of its own.
 """
 
 from __future__ import annotations
@@ -60,8 +65,8 @@ from fmri_tpu_torch.train.common import bn_extra_ticks, bn_stats, gate_float
 from fmri_tpu_torch.train.optim import Adam, RmsProp
 from fmri_tpu_torch.train.state import TrainState
 from fmri_tpu_torch.train.steps_vgan import (
-    StepFns, _apply_updates, _default_lr, _metrics, _named, _scalar, eval_step,
-    generate_step, stage1_grads,
+    StepFns, _apply_updates, _data, _data_sums, _default_lr, _head_sums, _metrics,
+    _named, _on_mesh, _reduce_grads, _scalar, eval_step, generate_step, stage1_grads,
 )
 
 
@@ -69,14 +74,15 @@ def _params(nets, name: str):
     return list(nets.group(name).values())
 
 
-def _latent_d_step(disc, opt, opt_state, d_real_in, d_fake_in, lam, lr):
+def _latent_d_step(disc, opt, opt_state, d_real_in, d_fake_in, lam, lr, mesh=None):
     """Phase 1: the latent discriminator ``disc``'s two losses on detached
-    inputs, its gradient and its (ungated) update, in place. Returns
-    (loss_fake, loss_real)."""
+    inputs, its gradient (summed over the data group) and its (ungated)
+    update, in place. Returns (loss_fake, loss_real), this rank's sums."""
     ld = dict(disc.named_parameters())
     loss_fake, loss_real = wae_disc_losses(disc(d_real_in), disc(d_fake_in), lam)
     grads = torch.autograd.grad(loss_fake + loss_real, list(ld.values()))
-    opt.update(dict(zip(ld, grads)), opt_state, ld, lr, 1.0)
+    grads = _reduce_grads({"d": dict(zip(ld, grads))}, mesh)["d"]
+    opt.update(grads, opt_state, ld, lr, 1.0)
     return loss_fake.detach(), loss_real.detach()
 
 
@@ -90,7 +96,7 @@ def wae_eval_step(state: TrainState, x: torch.Tensor,
 
 
 def make_wae_stage1_step(cfg: Config, lr_schedule: Callable | None = None,
-                         backward: str = "spliced") -> StepFns:
+                         backward: str = "spliced", mesh=None) -> StepFns:
     """``StepFns`` of WAE/GAN stage I on a
     :class:`~fmri_tpu_torch.train.state.WaeGan` with Adam moments
     (:func:`~fmri_tpu_torch.train.state.make_wae_state`).
@@ -117,7 +123,7 @@ def make_wae_stage1_step(cfg: Config, lr_schedule: Callable | None = None,
             mu, _ = nets.encoder(x)
         loss_fake, loss_real = _latent_d_step(
             nets.discriminator, opt, state.opt_state["latent_disc"], mu.detach(), z_fake,
-            lam, 0.5 * lr)
+            lam, 0.5 * lr, mesh)
 
         # phase 2: encoder and decoder against the updated D
         if spliced:
@@ -140,24 +146,26 @@ def make_wae_stage1_step(cfg: Config, lr_schedule: Callable | None = None,
                                     materialize_grads=True)
             g_enc, g_dec = g[:len(enc_p)], g[len(enc_p):]
 
-        _apply_updates(opt, state, {"encoder": _named(nets, "encoder", g_enc),
-                                    "decoder": _named(nets, "decoder", g_dec)},
-                       lr, {"encoder": 1.0, "decoder": 1.0})
+        grads = _reduce_grads({"encoder": _named(nets, "encoder", g_enc),
+                               "decoder": _named(nets, "decoder", g_dec)}, mesh)
+        _apply_updates(opt, state, grads, lr, {"encoder": 1.0, "decoder": 1.0})
         if spliced:  # the reference's phase-2 recompute ticks the encoder again
             bn_extra_ticks(nets.encoder, before, 1)
         state.step += 1
-        return state, {"loss_reconstruction": loss_recon.detach() / b,
-                       "loss_penalty": loss_pen.detach() / b,
-                       "loss_discriminator_fake": loss_fake / b,
-                       "loss_discriminator_real": loss_real / b, "lr": lr}
+        rec, pen, fake, real = _data_sums(mesh, loss_recon, loss_pen, loss_fake, loss_real)
+        n = b * _data(mesh)
+        return state, {"loss_reconstruction": rec / n, "loss_penalty": pen / n,
+                       "loss_discriminator_fake": fake / n,
+                       "loss_discriminator_real": real / n, "lr": lr}
 
-    return StepFns(train_step, wae_eval_step, generate_step)
+    return StepFns(_on_mesh(train_step, mesh), wae_eval_step, generate_step)
 
 
 def make_wae_cognitive_step(cfg: Config, stage: int,
                             lr_schedule_enc: Callable | None = None,
                             lr_schedule_dec: Callable | None = None,
-                            lr_schedule_disc: Callable | None = None) -> StepFns:
+                            lr_schedule_disc: Callable | None = None,
+                            mesh=None) -> StepFns:
     """``StepFns`` of the cognitive WAE stage 2 or 3 on a
     :class:`~fmri_tpu_torch.train.state.WaeGanCognitiveTrain`
     (:func:`~fmri_tpu_torch.train.state.make_wae_cognitive_state`).
@@ -177,6 +185,8 @@ def make_wae_cognitive_step(cfg: Config, stage: int,
     lr_dec = lr_schedule_dec or constant(1e-3)
     lr_disc = lr_schedule_disc or constant(5e-4)
 
+    data = _data(mesh)
+
     def train_step(state: TrainState, fmri: torch.Tensor, image: torch.Tensor):
         nets = state.nets
         nets.train()
@@ -192,9 +202,10 @@ def make_wae_cognitive_step(cfg: Config, stage: int,
         # phase 1: teacher latents "real", cognitive latents "fake"
         loss_fake, loss_real = _latent_d_step(
             nets.discriminator, opt, state.opt_state["latent_disc"], mu_teacher,
-            mu.detach(), lam, lr_disc(state.step))
+            mu.detach(), lam, lr_disc(state.step), mesh)
 
-        # phase 2 against the updated D
+        # phase 2 against the updated D; each mean is this rank's rows', and
+        # 1/D of it is this rank's part of the global batch's mean
         loss_recon = wae_recon_mean(nets.decoder(mu), image)
         if stage == 2:
             loss_pen = wae_penalty_mean(nets.discriminator(mu), lam)
@@ -203,28 +214,31 @@ def make_wae_cognitive_step(cfg: Config, stage: int,
             with torch.no_grad():  # logged only (train_wae_stage3.py:344)
                 loss_pen = wae_penalty_mean(nets.discriminator(mu), lam)
             name, lr, loss = "decoder", lr_dec(state.step), loss_recon
+        if data > 1:
+            loss = loss / data
         grads = torch.autograd.grad(loss, _params(nets, name), materialize_grads=True)
-        opt.update(_named(nets, name, grads), state.opt_state[name], nets.group(name), lr)
+        grads = _reduce_grads({name: _named(nets, name, grads)}, mesh)[name]
+        opt.update(grads, state.opt_state[name], nets.group(name), lr)
         bn_extra_ticks(nets.encoder, before, 1)  # the phase-2 recompute's tick
         state.step += 1
-        return state, {"loss_reconstruction": loss_recon.detach(),
-                       "loss_penalty": loss_pen.detach(),
-                       "loss_discriminator_fake": loss_fake / b,
-                       "loss_discriminator_real": loss_real / b}
+        rec, pen, fake, real = _data_sums(mesh, loss_recon, loss_pen, loss_fake, loss_real)
+        return state, {"loss_reconstruction": rec / data, "loss_penalty": pen / data,
+                       "loss_discriminator_fake": fake / (b * data),
+                       "loss_discriminator_real": real / (b * data)}
 
-    return StepFns(train_step, wae_eval_step, generate_step)
+    return StepFns(_on_mesh(train_step, mesh), wae_eval_step, generate_step)
 
 
 def make_wae_vgan_step(cfg: Config, mode: str = "vae-gan",
                        lr_schedule: Callable | None = None,
-                       backward: str = "spliced") -> StepFns:
+                       backward: str = "spliced", mesh=None) -> StepFns:
     """``StepFns`` of WAE/Dual-GAN on a
     :class:`~fmri_tpu_torch.train.state.WaeDualGan` with RMSprop moments
     (:func:`~fmri_tpu_torch.train.state.make_wae_dual_gan_state`).
     ``train_step(state, x, eps, z_p, z_fake, margin, equilibrium,
     lambda_mse)``: NHWC images in [-1, 1], the reparameterisation noise, the
     prior draws and z_fake ~ N(0, ``wae_sigma``^2), each [B, latent]."""
-    grads_fn = stage1_grads(cfg, mode, backward)
+    grads_fn = stage1_grads(cfg, mode, backward, _data(mesh))
     t = cfg.train
     opt = RmsProp(decay=t.rms_decay, eps=t.rms_eps, clip=t.grad_clip)
     lr_schedule = _default_lr(cfg, lr_schedule)
@@ -247,7 +261,8 @@ def make_wae_vgan_step(cfg: Config, mode: str = "vae-gan",
             updated D and its cotangent at mu."""
             out["mu"] = mu
             out["fake"], out["real"] = _latent_d_step(
-                nets.latent_disc, opt, state.opt_state["latent_disc"], mu, z_fake, lam, lr)
+                nets.latent_disc, opt, state.opt_state["latent_disc"], mu, z_fake, lam, lr,
+                mesh)
             mu_p = mu.requires_grad_()
             loss_pen = wae_penalty_sum(nets.latent_disc(mu_p), lam)
             out["pen"] = loss_pen.detach()
@@ -255,23 +270,26 @@ def make_wae_vgan_step(cfg: Config, mode: str = "vae-gan",
 
         grads, terms, h = grads_fn(nets, x, eps, z_p, _scalar(lambda_mse, dev),
                                    penalty_cot)
+        grads = _reduce_grads(grads, mesh)
         with torch.no_grad():  # the penalty phase's decode of mu: a third tick
             nets.decoder(out["mu"].detach())
         # the reference's optimizer_decoder.step() with zero grads (:417)
         dec = nets.group("decoder")
         opt.update({k: torch.zeros_like(p) for k, p in dec.items()},
                    state.opt_state["decoder"], dec, lr, 1.0)
+        means, sums = _head_sums(mesh, terms, h, out["pen"], out["fake"], out["real"])
         dec_gate, dis_gate = (gate_float(g) for g in equilibrium_gate(
             terms, _scalar(equilibrium, dev), _scalar(margin, dev),
-            init_dis=(mode != "vae")))
+            init_dis=(mode != "vae"), means=means))
         _apply_updates(opt, state, grads, lr, {"encoder": 1.0, "decoder": dec_gate,
                                                "discriminator": dis_gate})
         bn_extra_ticks(nets.encoder, before, 2)  # the D and penalty phases' ticks
         state.step += 1
-        metrics = _metrics(h, b, dec_gate, dis_gate, lr)
-        metrics.update(loss_penalty=out["pen"] / b,
-                       loss_discriminator_fake=out["fake"] / b,
-                       loss_discriminator_real=out["real"] / b)
+        n = b * _data(mesh)
+        metrics = _metrics(sums, n, dec_gate, dis_gate, lr)
+        pen, fake, real = sums[4:]
+        metrics.update(loss_penalty=pen / n, loss_discriminator_fake=fake / n,
+                       loss_discriminator_real=real / n)
         return state, metrics
 
-    return StepFns(train_step, eval_step, generate_step)
+    return StepFns(_on_mesh(train_step, mesh), eval_step, generate_step)

@@ -21,7 +21,17 @@ steps and the trainer's keywords per stage):
   summarized by ``python -m fmri_tpu_torch.utils.profile_report``;
 * cuDNN's deterministic algorithms (``device.deterministic_cudnn``) inside
   ``fit`` and ``evaluate_batches``, so a seed gives one run and a resumed
-  run equals the uninterrupted one, as in the JAX trainer.
+  run equals the uninterrupted one, as in the JAX trainer;
+* ``mesh`` (``parallel/mesh.py``): every rank runs ``fit`` on its rows of
+  each global batch (the same permutation and draws everywhere, each rank
+  taking its rows), with the state placed by ``shard_state`` (``voxel_tp``
+  for the cognitive encoder's ``fc1``). Validation evaluates each rank's
+  rows and gathers the reconstructions for MSE, PCC and the grids, and sums
+  the per-rank SSIM, so every rank holds the same metrics; the stop
+  decisions are rank 0's, broadcast; rank 0 alone writes ``results.csv``,
+  TensorBoard, the grids, the log and the checkpoints. A D-way run equals
+  the single-process run of the same seed, as the JAX mesh run equals its
+  single-device run.
 
 Randomness comes from a draws object (:class:`Draws` by default) asked per
 (epoch, batch) for the flip mask, the shifts and the step's noise, and per
@@ -34,6 +44,7 @@ replay through this interface.
 
 from __future__ import annotations
 
+import logging
 import math
 import os
 from typing import Any, Callable, Dict, Iterable, Mapping, NamedTuple, Optional, Sequence
@@ -49,6 +60,7 @@ from fmri_tpu_torch.data.pipeline import Batches, device_iterator, num_examples,
 from fmri_tpu_torch.data.transforms import denormalize, train_augment
 from fmri_tpu_torch.device import deterministic_cudnn
 from fmri_tpu_torch.metrics.quality import mse, pearson_correlation, ssim
+from fmri_tpu_torch.parallel.mesh import check_batch, shard_state
 from fmri_tpu_torch.train.epoch_scan import device_epoch, epoch_permutation
 from fmri_tpu_torch.train.state import TrainState
 from fmri_tpu_torch.utils.runlog import (
@@ -191,7 +203,9 @@ class Trainer:
       augment: dict(flip=, max_shift=) of the train-time augmentation.
       eval_sample: reparameterize at eval (the VAE/GAN families sample in
         eval, ``vae_gan.py:288-297``; WAE decodes the mean).
-      mesh / voxel_tp: multi-card runs; not in the port yet (raise).
+      mesh: a ``parallel.mesh.Mesh``, this rank's place in a multi-rank
+        run (the batch size must split over its data axis); voxel_tp: shard
+        the cognitive encoder's ``fc1`` over its model axis.
       draws: where the randomness comes from (default :class:`Draws` of
         the fit's seed).
     """
@@ -203,10 +217,10 @@ class Trainer:
                  debug: bool = False, tensorboard: bool = True,
                  profile: bool = False, async_ckpt: bool = False,
                  ckpt_retention: Optional[Mapping[str, Any]] = None, draws=None):
-        if mesh is not None or voxel_tp:
-            raise NotImplementedError(
-                "multi-card training (mesh, voxel_tp) is not in the port yet: "
-                "slice 10 (parallelism) brings it")
+        if mesh is not None:
+            check_batch(cfg.train.batch_size, mesh.data)
+        self.mesh, self.voxel_tp = mesh, voxel_tp
+        self._writes = mesh is None or mesh.is_writer
         self.cfg = cfg
         self.steps = steps
         self.run_dir = run_dir
@@ -217,9 +231,17 @@ class Trainer:
         self.debug = debug
         self.profile = profile
         self.draws = draws
-        self.logger = setup_logging(run_dir)
-        self.results = ResultsCSV(os.path.join(run_dir, "results.csv"))
-        self.tb = TensorBoard(run_dir, enabled=tensorboard)
+        if self._writes:
+            self.logger = setup_logging(run_dir)
+        else:
+            # the other ranks log nowhere: rank 0's log is the run's
+            self.logger = logging.getLogger(f"fmri_tpu_torch.train.{run_dir}.rank{mesh.rank}")
+            self.logger.propagate = False
+            if not self.logger.handlers:
+                self.logger.addHandler(logging.NullHandler())
+        self.results = ResultsCSV(os.path.join(run_dir, "results.csv") if self._writes
+                                  else None)
+        self.tb = TensorBoard(run_dir, enabled=tensorboard and self._writes)
         self.ckpt_dir = os.path.join(run_dir, "checkpoints")
         self._ckpt_retention = dict(ckpt_retention) if ckpt_retention else None
         self._ckpt_writer = AsyncCheckpointWriter() if async_ckpt else None
@@ -239,6 +261,18 @@ class Trainer:
 
     def _eval_input(self, batch):
         return batch if self.data_kind == "pair" else self._target_of(batch)
+
+    def _place(self, state: TrainState) -> TrainState:
+        if self.mesh is None:
+            return state
+        return shard_state(state, self.mesh, voxel_tp=self.voxel_tp)
+
+    def _shard(self) -> tuple:
+        """(data index, data size) of this rank: its rows of each batch."""
+        return (0, 1) if self.mesh is None else (self.mesh.data_index, self.mesh.data)
+
+    def _rows(self, t):
+        return t if self.mesh is None else self.mesh.rows(t)
 
     def _spec(self, device: torch.device) -> DrawSpec:
         aug = self._augment_cfg
@@ -261,38 +295,53 @@ class Trainer:
         The reference evaluates one batch per epoch
         (``train_vgan_stage1.py:594``). With ``save_images_to`` the last
         batch's reconstructions, originals and a generated panel are written
-        as PNG grids and to TensorBoard."""
+        as PNG grids and to TensorBoard. Under a mesh ``batches`` are this
+        rank's rows (``Batches(shard=...)``); every rank returns the same
+        metrics."""
+        state = self._place(state)
         device = _device_of(state)
         latent = self.cfg.model.latent_dim
+        data = 1 if self.mesh is None else self.mesh.data
         rows, last = [], None
         for i, batch in enumerate(batches):
             if max_batches and i >= max_batches:
                 break
             batch = self._augment(to_device(batch, device), None, None)
             target = self._target_of(batch)
-            eps = draws.eps(len(target), latent)
+            eps = self._rows(draws.eps(len(target) * data, latent))
             recon = self.steps.eval_step(state, self._eval_input(batch),
                                          eps if self.eval_sample else None)
+            # SSIM over this rank's rows; MSE and PCC, a global correlation,
+            # over the data group's reconstructions gathered
+            rank_ssim = ssim(denormalize(recon, self._mean, self._std),
+                             denormalize(target, self._mean, self._std))
+            if data > 1:
+                recon, target = self.mesh.gather_data(torch.stack([recon, target], 1)).unbind(1)
             r = denormalize(recon, self._mean, self._std)
             t = denormalize(target, self._mean, self._std)
             rows.append(torch.stack([mse(recon, target), pearson_correlation(r, t),
-                                     ssim(r, t)]))
+                                     rank_ssim]))
             last = (r, t)
         if not rows:
             return {}
+        table = torch.stack(rows)
+        if data > 1:  # the mean of the ranks' SSIMs over equal row counts
+            table[:, 2] = self.mesh.data_sum(table[:, 2]) / data
         sums = [0.0, 0.0, 0.0]
-        for row in torch.stack(rows).tolist():  # one transfer per pass
+        for row in table.tolist():  # one transfer per pass
             sums = [s + v for s, v in zip(sums, row)]
         if save_images_to and last is not None:
             r, t = (a[: nrow * 2].cpu().numpy() for a in last)
             step = int(state.step)
-            save_image_grid(r, save_images_to, nrow=nrow)
             base, ext = os.path.splitext(save_images_to)
-            save_image_grid(t, f"{base}_original{ext}", nrow=nrow)
+            if self._writes:
+                save_image_grid(r, save_images_to, nrow=nrow)
+                save_image_grid(t, f"{base}_original{ext}", nrow=nrow)
             if self.steps.generate_step is not None:
                 gen = self.steps.generate_step(state, draws.z_p(nrow * 2, latent))
                 g = denormalize(gen, self._mean, self._std).cpu().numpy()
-                save_image_grid(g, f"{base}_generated{ext}", nrow=nrow)
+                if self._writes:
+                    save_image_grid(g, f"{base}_generated{ext}", nrow=nrow)
                 self.tb.image_grid("generated", g, step, nrow=nrow)
             self.tb.image_grid("reconstructed", r, step, nrow=nrow)
             self.tb.image_grid("original", t, step, nrow=nrow)
@@ -303,9 +352,11 @@ class Trainer:
         acc: Dict[str, torch.Tensor] = {}
         nb = 0
         for b_idx, batch in enumerate(batches):
+            # drawn for the global batch; this rank takes its rows
             flip, shifts, noise = draws.train(epoch, b_idx, spec)
-            state, m = self.steps.train_step(state, self._augment(batch, flip, shifts),
-                                             noise, *gate)
+            noise = {k: self._rows(v) for k, v in noise.items()}
+            state, m = self.steps.train_step(
+                state, self._augment(batch, self._rows(flip), self._rows(shifts)), noise, *gate)
             for key, v in m.items():  # summed on the device: no host sync here
                 acc[key] = v if key not in acc else acc[key] + v
             nb += 1
@@ -336,16 +387,22 @@ class Trainer:
         t = cfg.train
         n_epochs = n_epochs if n_epochs is not None else t.n_epochs
         seed = seed if seed is not None else t.seed
-        dump_config(self.run_dir, cfg, extra={
-            "data_kind": self.data_kind, "seed": seed, "on_device": on_device,
-            "start_epoch": start_epoch, "n_epochs": n_epochs})
+        if self._writes:
+            extra = {"data_kind": self.data_kind, "seed": seed, "on_device": on_device,
+                     "start_epoch": start_epoch, "n_epochs": n_epochs}
+            if self.mesh is not None:
+                extra["mesh"] = dict(self.mesh.shape, voxel_tp=self.voxel_tp)
+            dump_config(self.run_dir, cfg, extra=extra)
+        state = self._place(state)
         device = _device_of(state)
         draws = self.draws if self.draws is not None else Draws(seed)
         spec = self._spec(device)
 
-        train_batches = Batches(train_data, t.batch_size, shuffle=True, seed=seed)
+        shard = self._shard()
+        train_batches = Batches(train_data, t.batch_size, shuffle=True, seed=seed,
+                                shard=shard)
         train_batches.epoch = start_epoch
-        valid_batches = (Batches(valid_data, t.batch_size, shuffle=False)
+        valid_batches = (Batches(valid_data, t.batch_size, shuffle=False, shard=shard)
                          if valid_data is not None else None)
         device_data = to_device(train_data, device) if on_device else None
 
@@ -361,13 +418,13 @@ class Trainer:
             for epoch in range(start_epoch, n_epochs):
                 final_epoch = epoch
                 prof = None
-                if self.profile and epoch == start_epoch + 1:
+                if self.profile and epoch == start_epoch + 1 and self._writes:
                     prof = self._profiler(device)
                     prof.__enter__()
                 if device_data is not None:
                     perm = torch.from_numpy(epoch_permutation(
                         num_examples(train_data), t.batch_size, seed, epoch)).to(device)
-                    batches = device_epoch(device_data, perm, t.batch_size)
+                    batches = device_epoch(device_data, perm, t.batch_size, shard)
                 else:
                     batches = device_iterator(iter(train_batches), device)
                 gate = sched.args(device) if self.uses_gate else ()
@@ -396,7 +453,7 @@ class Trainer:
                     # train-batch metrics, the reference's train_* columns
                     # (train_vgan_stage1.py:583-618)
                     tm = self.evaluate_batches(
-                        state, iter(Batches(train_data, t.batch_size)),
+                        state, iter(Batches(train_data, t.batch_size, shard=shard)),
                         draws.eval(epoch, TRAIN_METRICS_STREAM, device),
                         max_batches=max(eval_batches, 1))
                     row.update({f"train_{k}": v for k, v in tm.items()})
@@ -424,13 +481,17 @@ class Trainer:
                     guard = row["valid_PCC"]
                 else:
                     guard = stopper.best if stopper.best is not None else 0.0
-                if stopper.update(guard):
+                stop = stopper.update(guard)
+                if self.mesh is not None:  # one decision: a rank that stops alone hangs
+                    stop = self.mesh.agree(stop)
+                if stop:
                     self.logger.info("early stop at epoch %d", epoch)
                     break
         except KeyboardInterrupt:  # the reference saves its plots on interrupt
             self.logger.info("interrupted; saving plots")
         finally:
-            save_loss_plots(self.results, self.run_dir, self.logger)
+            if self._writes:
+                save_loss_plots(self.results, self.run_dir, self.logger)
             self.tb.close()
             # drain an in-flight background write even on the exception path
             # (a daemon thread killed mid-write would leave a half checkpoint);
@@ -459,5 +520,5 @@ class Trainer:
                                    prune=self._ckpt_retention)
         else:
             save_checkpoint(self.ckpt_dir, epoch, state, meta)
-            if self._ckpt_retention:
+            if self._ckpt_retention and self._writes:
                 prune_checkpoints(self.ckpt_dir, **self._ckpt_retention)

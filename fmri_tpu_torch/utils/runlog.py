@@ -71,13 +71,14 @@ class ResultsCSV:
     """The per-epoch results table (reference ``train_vgan_stage1.py:601-618``).
     The columns are the first row's; a row with new columns rewrites the
     file with their union. An existing file is read back, so a resumed run
-    appends to it."""
+    appends to it. ``path=None`` keeps the rows in memory (a mesh's ranks
+    other than rank 0)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: Optional[str]):
         self.path = path
         self.rows: List[Dict[str, float]] = []
         self.fields: Optional[List[str]] = None
-        if os.path.exists(path):
+        if path is not None and os.path.exists(path):
             with open(path) as f:
                 reader = csv.DictReader(f)
                 self.fields = list(reader.fieldnames or [])
@@ -95,6 +96,9 @@ class ResultsCSV:
         if self.fields is None:
             self.fields = list(row.keys())
         new_cols = [k for k in row if k not in self.fields]
+        if self.path is None:
+            self.fields = self.fields + new_cols
+            return
         if new_cols:
             self.fields = self.fields + new_cols
             with open(self.path, "w", newline="") as f:

@@ -8,7 +8,11 @@ WAE train steps with the kernels against the library backward, with their
 launches per step, ``alt_backward``'s rewrites against cuDNN's grads, the
 ``Trainer``'s epochs bitwise reproducible with its defaults, the native
 ``Batches`` gather bitwise numpy's on the card's host, and the Inception
-Score's classifiers (the proxy, Inception-v3) on the card against the CPU.
+Score's classifiers (the proxy, Inception-v3) on the card against the CPU,
+and training across ranks: a mesh of one rank over NCCL bitwise the step
+without a mesh, ranks sharing the card over gloo against the single-process
+step on the card (``tests/test_torch_mesh.py``'s workers and checks), and
+the train CLI refusing more ranks than cards.
 
 Imports only torch, numpy and the port, so it runs where the JAX package's
 dependencies are not installed:
@@ -1036,3 +1040,70 @@ def test_wae_decoder_kernels_match_plain(cuda_device):
             assert float((got_row - ref_row).abs().max()) <= 1e-5 * float(ref_row.abs().max())
     for got, ref in zip(grads[True], grads[False]):
         assert float((got - ref).norm()) <= 1e-3 * float(ref.norm())
+
+
+# ------------------------------------------------------------ across ranks
+
+
+def test_nccl_mesh_of_one_rank_is_the_step_without_a_mesh(cuda_device):
+    """A world of one over NCCL on the card: the group forms, and the stage-I
+    step on a state placed on it equals the step without a mesh bit for bit
+    (with cuDNN's deterministic algorithms, as the ``Trainer`` runs)."""
+    from test_torch_mesh import build_state, configs, make_step, stage1_case
+
+    from fmri_tpu_torch.checkpoints.store import host_tree
+    from fmri_tpu_torch.device import deterministic_cudnn
+    from fmri_tpu_torch.parallel.mesh import make_mesh, shard_state
+
+    case = stage1_case(3, 1)
+    cfg = configs(**case["flags"])
+    args = [a.to(cuda_device) if torch.is_tensor(a) else a for a in case["steps"][0]]
+    mesh = make_mesh(1, 1)
+    try:
+        assert mesh.backend == "nccl" and mesh.device == torch.device("cuda", 0)
+        with deterministic_cudnn():
+            on = shard_state(build_state("vgan1", cfg, case["weights"], case["moments"]), mesh)
+            on, m_on = make_step("vgan1", cfg, mesh)(on, *args)
+            off = build_state("vgan1", cfg, case["weights"], case["moments"], cuda_device)
+            off, m_off = make_step("vgan1", cfg)(off, *args)
+        assert {k: float(v) for k, v in m_on.items()} == {k: float(v) for k, v in m_off.items()}
+        a, b = host_tree(on), host_tree(off)
+        for g in b["groups"]:
+            for k, v in b["groups"][g].items():
+                assert torch.equal(a["groups"][g][k], v), (g, k)
+    finally:
+        mesh.close()
+
+
+@pytest.mark.parametrize("names", [("stage1_d2", "wae1_d2")])
+def test_ranks_sharing_the_card_over_gloo_match_the_single_process_step(cuda_device, tmp_path,
+                                                                        names):
+    """Two ranks on one card over gloo (asked for by name): stage I and WAE
+    stage I at data=2, both kernel flags on, against the single-process step
+    on the card (``test_torch_mesh.check_against_single``), replicas bitwise
+    equal."""
+    import test_torch_mesh as tm
+
+    cases = {"stage1_d2": tm.stage1_case(6, 2), "wae1_d2": tm.wae_case("wae1", 8, (2, 1), {})}
+    cases = {n: cases[n] for n in names}
+    procs = tm.start_workers(str(tmp_path), cases, [[((0, 1), tuple(names))]],
+                             device=str(cuda_device), n=2)
+    try:
+        single = {n: tm.run_single(c, device=cuda_device) for n, c in cases.items()}
+        noise = {n: tm.run_single(c, reverse=True, device=cuda_device)[1]
+                 for n, c in cases.items()}
+    finally:
+        results = tm.join_workers(str(tmp_path), procs, timeout=300)
+    runs = dict(cases=cases, results=results, single=single, noise=noise)
+    for n in names:
+        tm.check_against_single(n, runs)
+
+
+def test_train_cli_refuses_more_ranks_than_cards(cuda_device, tmp_path):
+    from fmri_tpu_torch.train import run
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(SystemExit, match=f"{n} ranks need {n} cards"):
+        run.main(["--family", "vgan", "--preset", "tiny", "--dataset", "synthetic",
+                  "--batch-size", str(4 * n), "--mesh", f"data={n}", "-o", str(tmp_path)])
+    assert not os.listdir(tmp_path)

@@ -267,7 +267,7 @@ def test_importing_the_port_loads_no_jax():
             " fmri_tpu_torch.utils.profile_report, fmri_tpu_torch.data.prepare,"
             " fmri_tpu_torch.data.etl, fmri_tpu_torch.metrics.inception,"
             " fmri_tpu_torch.metrics.inception_v3, fmri_tpu_torch.eval.parity,"
-            " fmri_tpu_torch.eval.user_study;"
+            " fmri_tpu_torch.eval.user_study, fmri_tpu_torch.parallel.dryrun;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r);"
             "assert not bad, bad" % (FORBIDDEN,))
     r = _run(["-c", code], REPO)

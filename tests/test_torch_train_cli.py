@@ -133,12 +133,19 @@ def test_packed_input(tmp_path):
         run.main([*BASE, "--family", "vgan", "--input", packed, "--batch-size", "39"])
 
 
-@pytest.mark.parametrize("args,slice_", [
-    (["--family", "vgan", "--mesh", "data=2"], "slice 10"),
-    (["--family", "exp", "--exp", "vae", "--mesh", "data=2"], "slice 10")])
-def test_unported_options_name_their_slice(tmp_path, args, slice_):
-    with pytest.raises(SystemExit, match=slice_):
+@pytest.mark.parametrize("args,error,message", [
+    (["--family", "vgan", "--mesh", "data=3"], ValueError,
+     r"batch_size=8 is not divisible by the mesh data axis \(3 devices\)"),
+    (["--family", "exp", "--exp", "vae", "--mesh", "data=two"], SystemExit,
+     "expected 'data=N"),
+    (["--family", "vgan", "--mesh", "data=2,model"], SystemExit, "expected 'data=N"),
+    (["--family", "vgan", "--mesh", "rows=2"], SystemExit, "expected 'data=N")])
+def test_mesh_errors(tmp_path, args, error, message):
+    """The mesh's own errors, raised before any rank starts: a batch that
+    does not split over the data axis, an unparseable ``--mesh``."""
+    with pytest.raises(error, match=message):
         run.main([*BASE, "-o", str(tmp_path), *args])
+    assert not os.listdir(tmp_path)
 
 
 def test_stage_arguments_are_checked(tmp_path):

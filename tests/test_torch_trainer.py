@@ -21,6 +21,7 @@ bit for bit."""
 import csv
 import dataclasses
 import math
+import types
 
 import numpy as np
 import pytest
@@ -243,8 +244,11 @@ def test_patience_stops_on_valid_pcc(tmp_path):
     assert sorted(store.list_checkpoints(str(tmp_path / "checkpoints"))) == [2]
 
 
-def test_trainer_refuses_a_mesh(tmp_path):
+def test_trainer_batch_must_split_over_the_mesh_data_axis(tmp_path):
+    """The JAX trainer's check (fmri_tpu/train/trainer.py:133-139), before
+    any rank trains: only the mesh's data axis is read."""
     cfg = presets.get_config("tiny")
     _, steps, kw = _stage1(cfg)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        Trainer(cfg, steps, str(tmp_path), mesh=object(), **kw)
+    with pytest.raises(ValueError, match="batch_size=8 is not divisible by the mesh data "
+                                         r"axis \(3 devices\)"):
+        Trainer(cfg, steps, str(tmp_path), mesh=types.SimpleNamespace(data=3, model=1), **kw)
