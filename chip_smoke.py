@@ -252,7 +252,25 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      the card over gloo. ``[mesh]`` lines and a ``[mesh] numbers`` JSON line;
      gloo's times are of host copies on one card, never NCCL or several
      cards' times; the ``kernels`` line's ``launches_by_path`` gains each
-     ``mesh_*`` path.
+     ``mesh_*`` path; (d) now ends with the dry run's serving part;
+  18. serve_mesh (``serve_mesh_phase``): serving over ranks. (a) ranks
+     sharing the card over gloo, uint8 images, max_batch 64: res64 stage III
+     at data=2, at data=2 x model=2 (``voxel_tp``, sampling) and the
+     ``fullbrain`` stage II (98,304 voxels) at data=2 x model=2, random
+     weights from a seed; each against the single-process server's graphs
+     on the card with the same buckets and seed (1 LSB) over requests of
+     1, 5, 64 and 130 rows and ``generate(70)``, ``reload`` in place on
+     every rank (each rank's weights are its columns of the checkpoint), a
+     refused reload that keeps them, every program a graph on every rank,
+     no kernel launched; (b) ms per call at buckets 2, 8 and 64 beside the
+     single-process graph's, MiB broadcast and all-reduced per call,
+     graphs per rank, requests/s of 256 one-row requests through rank 0's
+     ``BatchingServer``, all labelled as ranks sharing one card over gloo;
+     (c) the serve CLI at ``--mesh data=1`` (NCCL) bitwise the CLI without
+     it; (e) (in phase 12's callback) phase 11's stage-I and stage-III
+     checkpoints through the checkpoint CLI's ``--export`` and import,
+     groups and served images bitwise; ``launches_by_path`` gains
+     ``serve_mesh`` (0).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -3848,13 +3866,313 @@ def mesh_phase(dev, cfg, preset="res64", cli_args=()):
     dev_kind = "cuda" if dev.type == "cuda" else "cpu"
     dry = dryrun.dryrun_multichip(4, device=dev_kind, share_card=dev_kind == "cuda")
     wall["d"] = time.perf_counter() - t0
-    numbers["d"] = {p: r["loss"] for p, r in dry.items() if p != "fullbrain"}
+    numbers["d"] = {p: r["loss"] for p, r in dry.items() if "loss" in r}
     numbers["d"]["fullbrain"] = dry["fullbrain"]
-    print(f"[mesh] (d) dryrun_multichip(4) on {dev} over gloo: {len(numbers['d']) - 1} paths, "
-          f"fullbrain fc1 {dry['fullbrain']}; {wall['d']:.1f} s", flush=True)
+    numbers["d"]["serving"] = dry["serving"]
+    print(f"[mesh] (d) dryrun_multichip(4) on {dev} over gloo: {len(numbers['d']) - 2} paths, "
+          f"fullbrain fc1 {dry['fullbrain']}, serving {dry['serving']}; {wall['d']:.1f} s",
+          flush=True)
     numbers["wall_s"] = wall
     shutil.rmtree(work, ignore_errors=True)
     return launches_by_path, numbers
+
+
+# ------------------------------------------------------------------ phase 18
+
+# (a)/(b): {world: [(server, preset, stage, (data, model), sample)]}: ranks
+# sharing the card over gloo
+SERVE_MESH_WORLDS = {
+    2: [("res64_d2", "res64", 3, (2, 1), False)],
+    4: [("res64_d2m2", "res64", 3, (2, 2), True),
+        ("fullbrain_d2m2", "fullbrain", 2, (2, 2), False)],
+}
+SERVE_MESH_SIZES = (1, 5, 64, 130)
+SERVE_MESH_TIMED, SERVE_MESH_CALLS = (2, 8, 64), 20  # buckets timed, calls each
+SERVE_MESH_REQUESTS, SERVE_MESH_THREADS = 256, 16
+SERVE_MESH_LABEL = "ranks sharing one card over gloo (host copies), not NCCL across cards"
+
+
+def _lsb(a, b) -> int:
+    import numpy as np
+
+    check(a.shape == b.shape and a.dtype == b.dtype == np.uint8,
+          f"uint8 images {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+    return int(np.abs(a.astype(int) - b.astype(int)).max())
+
+
+def serve_mesh_rank(rank, world, port, device, work, servers, out) -> None:
+    """One rank of phase 18 (a) and (b): each server of ``servers`` over
+    ranks sharing ``device`` over gloo. Rank 0 calls it, holds every answer
+    against a single-process server on the same card (its graphs, the same
+    buckets and seed) and times both; the other ranks follow. Every rank
+    then holds its weights against its columns of the reloaded checkpoint."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups, random_groups
+    from fmri_tpu_torch.configs import get_config
+    from fmri_tpu_torch.device import resolve_device
+    from fmri_tpu_torch.eval.serve import BatchingServer, ServingModel
+    from fmri_tpu_torch.eval.steps import eval_module
+    from fmri_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+
+    dev = resolve_device(device)
+    if dev.type == "cpu":  # a rehearsal off the card: the ranks share the host's cores
+        torch.cuda.synchronize = lambda *a, **k: None
+        torch.set_num_threads(1)
+    initialize_multihost(f"localhost:{port}", world, rank, backend="gloo")
+    set_launches(0)
+    kind, results = "vae-gan-cognitive-eval", {}
+    for name, preset, stage, (data, model), sample in servers:
+        cfg = get_config(preset)
+        v = cfg.model.num_voxels
+
+        def weights(seed, k=kind):
+            return from_jax_groups(random_groups(cfg, seed=seed, kind=k), cfg, k)
+
+        def build(sd, mesh=None):
+            m = eval_module("vgan", stage)[0](cfg.model)
+            m.load_state_dict(sd, strict=True)
+            return ServingModel(cfg, m, family="vgan", stage=stage, max_batch=SERVE_MAX_BATCH,
+                                min_bucket=data, sample=sample, seed=3, output="uint8",
+                                device=dev, mesh=mesh, voxel_tp=mesh is not None and model > 1)
+
+        mesh = make_mesh(data, model, devices=[dev] * world, backend="gloo")
+        other = os.path.join(work, f"{name}_other.pth")
+        wrong = os.path.join(work, f"{name}_wrong.pth")
+        first = weights(0)
+        served, res = build(first, mesh), {}
+        if rank != 0:
+            del first
+            served.follow()
+        else:
+            single = build(first)
+            del first
+            torch.save(weights(1), other)
+            torch.save(weights(2, "vae-gan"), wrong)  # a stage-I file: other keys
+            t0 = time.perf_counter()
+            served.warmup()
+            res["warmup_s"] = time.perf_counter() - t0
+            single.warmup()
+            rng = np.random.default_rng(7)
+            lsb = max(_lsb(served.reconstruct(x), single.reconstruct(x)) for x in (
+                rng.standard_normal((n, v), dtype=np.float32) for n in SERVE_MESH_SIZES))
+            lsb = max(lsb, _lsb(served.generate(70), single.generate(70)))
+            res["timed"] = {}
+            for b in SERVE_MESH_TIMED:
+                x = rng.standard_normal((b, v), dtype=np.float32)
+                row = {}
+                for who, m in (("mesh", served), ("single", single)):
+                    m.reconstruct(x)
+                    before = mesh.reduced_bytes
+                    t0 = time.perf_counter()
+                    for _ in range(SERVE_MESH_CALLS):
+                        m.reconstruct(x)
+                    row[f"{who}_ms"] = 1e3 * (time.perf_counter() - t0) / SERVE_MESH_CALLS
+                    if who == "mesh":
+                        row["mib_per_call"] = ((mesh.reduced_bytes - before) / SERVE_MESH_CALLS
+                                               / 2**20)
+                res["timed"][b] = row
+            batcher = BatchingServer(served, max_wait_ms=2.0)
+            rows = rng.standard_normal((SERVE_MESH_REQUESTS, v), dtype=np.float32)
+            per = SERVE_MESH_REQUESTS // SERVE_MESH_THREADS
+
+            def client(k):
+                for i in range(k * per, (k + 1) * per):
+                    batcher.submit(rows[i]).result(timeout=120)
+
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(SERVE_MESH_THREADS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            res["requests_per_s"] = SERVE_MESH_REQUESTS / (time.perf_counter() - t0)
+            res["batches"] = batcher.stats()["batches"]
+            batcher.close()
+            x5 = rng.standard_normal((5, v), dtype=np.float32)
+            check(served.reload(other)["reloaded"] == other, f"(a) {name}: reload")
+            single.reload(other)
+            lsb = max(lsb, _lsb(served.reconstruct(x5), single.reconstruct(x5)))
+            try:
+                served.reload(wrong)
+                res["refused"] = False
+            except ValueError:
+                res["refused"] = True
+            lsb = max(lsb, _lsb(served.reconstruct(x5), single.reconstruct(x5)))
+            res["lsb"] = lsb
+            served.stop()
+            del single
+        accepted = torch.load(other, map_location="cpu", weights_only=True)
+        lo, hi = mesh.model_slice(v)
+        res["weights_ok"] = all(torch.equal(t.cpu(), accepted[k][:, lo:hi] if (
+            model > 1 and k == "encoder.fc1.0.weight") else accepted[k])
+            for k, t in served.model.state_dict().items())
+        res.update(graphs=served.graphs, buckets=served.buckets,
+                   shard=list(served.model.encoder.fc1[0].weight.shape))
+        results[name] = res
+        del served, accepted
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    results["launches"] = set_launches(0)
+    out.put((rank, results))
+    mesh.close()
+
+
+def serve_mesh_phase(dev, preset="res64", cli_args=()):
+    """Phase 18. (a) servers over ranks sharing the card over gloo against
+    the single-process server's graphs, ``reload`` in place on every rank
+    and a refused one; (b) their ms per call per bucket beside the
+    single-process graph's, MiB broadcast and all-reduced per call, graphs
+    per rank and requests/s through rank 0's ``BatchingServer``; (c) the
+    serve CLI at ``--mesh data=1`` (NCCL on the card) bitwise the CLI
+    without it. (d), the dry run's serving part, runs in phase 17 (d); (e),
+    the checkpoint CLI's round trip, in phase 12's callback
+    (:func:`ckpt_cli_phase`). Returns (launches per kernel over the phase,
+    numbers)."""
+    import os
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from fmri_tpu_torch.checkpoints.convert import from_jax_groups, random_groups
+    from fmri_tpu_torch.configs import get_config
+    from fmri_tpu_torch.eval.client import ServeClient
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "_smoke_runs", "serve_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    numbers = {"label": SERVE_MESH_LABEL}
+    launches = {k: 0 for k in set_launches(0)}  # this process's and every rank's
+
+    # (a), (b)
+    for world, servers in SERVE_MESH_WORLDS.items():
+        t0 = time.perf_counter()
+        if preset != "res64":  # a rehearsal: the same servers at the preset given
+            servers = [(n, preset, s, shape, sample) for n, _, s, shape, sample in servers]
+        got = spawn_ranks(serve_mesh_rank, world, str(dev), work, servers)
+        for r in range(world):
+            for k, c in got[r].pop("launches").items():
+                launches[k] += c
+        for name, _, _, (data, model), _ in servers:
+            per_rank = [got[r][name] for r in range(world)]
+            res = per_rank[0]
+            want_graphs = 2 * len(res["buckets"]) if dev.type == "cuda" else 0
+            check(all(r["weights_ok"] for r in per_rank),
+                  f"(a) {name}: a rank's weights are not its columns of the reloaded checkpoint")
+            check(all(r["graphs"] == want_graphs for r in per_rank),
+                  f"(a) {name}: graphs per rank {[r['graphs'] for r in per_rank]}, want "
+                  f"{want_graphs}")
+            check(res["lsb"] <= 1 and res["refused"],
+                  f"(a) {name}: {res['lsb']} LSB from the single-process server, refused "
+                  f"reload {res['refused']}")
+            numbers[name] = {k: res[k] for k in ("lsb", "timed", "requests_per_s", "batches",
+                                                 "warmup_s")}
+            numbers[name].update(mesh=[data, model], graphs_per_rank=res["graphs"],
+                                 shard=[r["shard"] for r in per_rank])
+            for b, row in res["timed"].items():
+                print(f"[serve_mesh] (b) {name} data={data} model={model}, bucket {b}: "
+                      f"{row['mesh_ms']:.3f} ms per call (single-process graph "
+                      f"{row['single_ms']:.3f} ms), {row['mib_per_call']:.3f} MiB broadcast "
+                      f"and all-reduced per call on rank 0; {SERVE_MESH_LABEL}", flush=True)
+            print(f"[serve_mesh] (a) {name}: within {res['lsb']} LSB of the single-process "
+                  f"server over {SERVE_MESH_SIZES} rows and generate(70); reload in place on "
+                  f"every rank, a refused one kept the weights; {res['graphs']} graphs per "
+                  f"rank; fc1 per rank {numbers[name]['shard'][0]}; BatchingServer "
+                  f"{res['requests_per_s']:.1f} requests/s ({SERVE_MESH_REQUESTS} one-row "
+                  f"requests, {SERVE_MESH_THREADS} threads)", flush=True)
+        numbers[f"world{world}_s"] = time.perf_counter() - t0
+
+    # (c) the serve CLI at --mesh data=1: its NCCL group forms, and its answers
+    # are the plain CLI's bit for bit (one-row requests in turn: bucket 1 each)
+    t0 = time.perf_counter()
+    cfg = get_config(preset)
+    kind = "vae-gan-cognitive-eval"
+    pth = os.path.join(work, "cli.pth")
+    torch.save(from_jax_groups(random_groups(cfg, seed=4, kind=kind), cfg, kind), pth)
+    procs, answers = {}, {}
+    try:
+        for name, extra in (("plain", []), ("mesh", ["--mesh", "data=1"])):
+            procs[name] = _spawn_server(
+                ["--family", "vgan", "--stage", "3", "--preset", preset, "--ckpt", pth,
+                 "--unix-socket", os.path.join(work, f"{name}.sock"), *cli_args, *extra], root)
+        for name, (_, lines) in procs.items():
+            seen = _wait_serving(f"(c) serve CLI {name}", lines)
+            mesh_line = "over a mesh data=1,model=1" in seen[-1]
+            check(mesh_line == (name == "mesh"), f"(c) {name}: {seen[-1]}")
+        rows = np.random.default_rng(9).standard_normal((8, cfg.model.num_voxels),
+                                                        dtype=np.float32)
+        for name in procs:
+            with ServeClient(unix_path=os.path.join(work, f"{name}.sock"), pool=1) as c:
+                answers[name] = (np.stack([c.reconstruct(r) for r in rows]), c.generate(5))
+        for name, (proc, _) in procs.items():
+            proc.send_signal(signal.SIGINT)
+            check(proc.wait(timeout=120) == 0, f"(c) serve CLI {name} exit {proc.returncode}")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    bitwise = all(np.array_equal(a, b) for a, b in zip(answers["mesh"], answers["plain"]))
+    check(bitwise, "(c) the serve CLI at --mesh data=1 differs from the CLI without it")
+    numbers["cli_data1"] = {"bitwise_equal": bitwise, "s": time.perf_counter() - t0}
+    print(f"[serve_mesh] (c) serve CLI --mesh data=1 ({'NCCL' if dev.type == 'cuda' else 'gloo'}"
+          f", world 1): 8 one-row requests and generate(5) bitwise the CLI without it; "
+          f"{numbers['cli_data1']['s']:.1f} s for both", flush=True)
+    for k, c in set_launches(0).items():
+        launches[k] += c
+    check(not any(launches.values()), f"serving over a mesh launched kernels: {launches}")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, numbers
+
+
+def ckpt_cli_phase(dev, dirs, work, preset="res64"):
+    """Phase 18 (e), in phase 12's callback while phase 11's dirs exist: the
+    stage-I and stage-III checkpoints through the checkpoint CLI's
+    ``--export`` and back through its import; the groups come back bitwise,
+    and the imported dir serves bitwise like the original."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from fmri_tpu_torch.checkpoints import store, torch_import
+    from fmri_tpu_torch.eval.serve import ServingModel
+
+    t0 = time.perf_counter()
+    out = {}
+    for path, kind, stage in (("vgan_stage1", "vae-gan", 1),
+                              ("vgan_stage3", "vae-gan-cognitive", 3)):
+        pth, back = (os.path.join(work, f"{path}{ext}") for ext in (".pth", "_imported"))
+        common = ["--kind", kind, "--preset", preset]
+        check(torch_import.main(["--export", "-i", dirs[path], "-o", pth, *common]) == 0 and
+              torch_import.main(["-i", pth, "-o", back, *common]) == 0,
+              f"(e) {path}: the checkpoint CLI failed")
+        a, b = store.load_eval_state(dirs[path])[0], store.load_eval_state(back)[0]
+        groups_equal = a.keys() == b.keys() and all(
+            torch.equal(a[g][k], v) for g in b for k, v in b[g].items())
+        served = [ServingModel.from_checkpoint(d, "vgan", stage, preset, output="uint8",
+                                               device=dev) for d in (dirs[path], back)]
+        rng = np.random.default_rng(stage)
+        shape = (64, *served[0].sample_shape())
+        x = (rng.uniform(size=shape) if stage == 1 else rng.standard_normal(shape)).astype(
+            np.float32)
+        same = np.array_equal(served[0].reconstruct(x), served[1].reconstruct(x))
+        check(groups_equal and same, f"(e) {path}: groups bitwise {groups_equal}, served "
+                                     f"bitwise {same}")
+        out[path] = {"groups_bitwise": groups_equal, "served_bitwise": same,
+                     "pth_mib": os.path.getsize(pth) / 2**20}
+    out["s"] = time.perf_counter() - t0
+    print(f"[serve_mesh] (e) phase 11's stage-I and stage-III checkpoints through the "
+          f"checkpoint CLI's --export and import: groups and 64 served images bitwise "
+          f"({json.dumps(out)})", flush=True)
+    return out
 
 
 def main() -> None:
@@ -4106,8 +4424,9 @@ def main() -> None:
     served = {}
     trainer_launches, trainer_numbers = trainer_phase(
         dev, cfg, "res64", seconds,
-        then=lambda dirs, work: served.update(zip(("launches", "numbers"),
-                                                  serve_phase(dev, dirs, work))))
+        then=lambda dirs, work: (
+            served.update(zip(("launches", "numbers"), serve_phase(dev, dirs, work))),
+            served.update(ckpt_cli=ckpt_cli_phase(dev, dirs, work))))
     for entry in train_kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in launches_by_path.items()}
@@ -4149,6 +4468,16 @@ def main() -> None:
     for entry in train_kernels:
         entry["launches_by_path"].update(
             {path: counts[entry["name"]] for path, counts in mesh_launches.items()})
+
+    # 18. serving over ranks: ranks sharing the card over gloo against the
+    #     single-process server, the CLI at --mesh data=1 over NCCL
+    t0 = time.perf_counter()
+    serve_mesh_launches, serve_mesh_numbers = serve_mesh_phase(dev)
+    serve_mesh_numbers["ckpt_cli"] = served["ckpt_cli"]
+    serve_mesh_numbers["dryrun_serving"] = mesh_numbers["d"]["serving"]
+    serve_mesh_numbers["phase_s"] = time.perf_counter() - t0
+    for entry in train_kernels:
+        entry["launches_by_path"]["serve_mesh"] = serve_mesh_launches[entry["name"]]
 
     # 8. kernels line; ssim at every shape the inference run gave it, each
     #    held against the plain version, times summed over the run's launches
@@ -4200,7 +4529,8 @@ def main() -> None:
                              **{path: counts["ssim"]
                                 for path, counts in data_launches.items()},
                              **{path: counts["ssim"] for path, counts in mesh_launches.items()
-                                if "ssim" in counts}},
+                                if "ssim" in counts},
+                             "serve_mesh": serve_mesh_launches["ssim"]},
         "max_abs_err": max_err,
         "ms": ssim_tot["ms"],
         "device_ms": ssim_tot["device_ms"],
@@ -4233,6 +4563,8 @@ def main() -> None:
           f"the paths run and are not NCCL or several-card times", flush=True)
     print(f"[mesh] numbers (host clock; gloo, one shared card): {json.dumps(mesh_numbers)}",
           flush=True)
+    print(f"[serve_mesh] phase 18: {serve_mesh_numbers['phase_s']:.1f} s. Numbers (host "
+          f"clock; {SERVE_MESH_LABEL}): {json.dumps(serve_mesh_numbers)}", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -48,7 +48,13 @@ class _EvalVaeGan(nn.Module):
         """The encoder's input -> [B, H, W, 3] in [-1, 1]. z = mu, or
         mu + eps * exp(logvar / 2) when ``eps`` is given and the model
         samples."""
-        mu, logvar = self.encoder(x)
+        return self.decode_posterior(*self.encoder(x), eps)
+
+    @torch.no_grad()
+    def decode_posterior(self, mu: torch.Tensor, logvar: torch.Tensor,
+                         eps: torch.Tensor | None = None) -> torch.Tensor:
+        """The decoder on the encoder's posterior: z = mu, or the
+        reparameterized sample when ``eps`` is given and the model samples."""
         z = mu if eps is None or not self.samples else reparameterize(mu, logvar, eps)
         return self.decoder(z)
 

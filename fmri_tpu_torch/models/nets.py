@@ -151,9 +151,15 @@ class CognitiveEncoder(nn.Module):
         self.l_var = nn.Linear(cfg.cog_hidden, cfg.latent_dim)
 
     def forward(self, v: torch.Tensor):
+        return self.forward_from_fc1(_projection(v, self.fc1[0].weight, self.compute_dtype,
+                                                 self.tp))
+
+    def forward_from_fc1(self, h: torch.Tensor):
+        """(mu, logvar) from ``fc1``'s product [B, hidden], summed over the
+        model group under ``tp``: the rest of :meth:`forward`, which serving
+        over a mesh runs as a CUDA graph once the sum is in."""
         cd = self.compute_dtype
-        x = _projection(v, self.fc1[0].weight, cd, self.tp)
-        x = torch.relu(self.fc1[1](x))
+        x = torch.relu(self.fc1[1](h))
         mu = linear(x, self.l_mu.weight, self.l_mu.bias, cd)
         logvar = linear(x, self.l_var.weight, self.l_var.bias, cd)
         return mu, logvar

@@ -1,10 +1,10 @@
-"""The dry run across ranks, its training half: one real step of every
-training path on a mesh at ``tiny`` shapes.
+"""The dry run across ranks: one real step of every training path on a mesh
+at ``tiny`` shapes, then serving over the mesh from one of the trained
+states.
 
-Counterpart of ``dryrun_multichip`` in ``__graft_entry__.py:62-…``, whose
-serving part comes with the serving mesh. ``n`` ranks are started as
-processes (``torch.multiprocessing``, spawn) and each path's step runs on
-them from one seed:
+Counterpart of ``dryrun_multichip`` in ``__graft_entry__.py:62-305``. ``n``
+ranks are started as processes (``torch.multiprocessing``, spawn) and each
+path's step runs on them from one seed:
 
 * stage I, WAE/GAN stage I, WAE/Dual-GAN and the DCGAN experiments (stage
   1 on images, stage 2 over its generator) data parallel over all ranks;
@@ -15,7 +15,12 @@ them from one seed:
   (the real weight is ~100M parameters), on the ``meta`` device.
 
 Each path's losses must be finite and every rank's replicated parameters
-equal to rank 0's, bit for bit. It runs on the cards, one per rank over
+equal to rank 0's, bit for bit. Then the serving part
+(``__graft_entry__.py:288-305``): stage II's state after its step, gathered
+whole on every rank, is served by ``ServingModel`` over the stage-II mesh
+(``voxel_tp`` where ``model > 1``, uint8 images, ``max_batch = 2n``); rank
+0 reconstructs 3 seeded fMRI rows and generates 3 images, each
+``(3, s, s, 3)``, while the other ranks follow. It runs on the cards, one per rank over
 NCCL, or with ``share_card=True`` all ranks on ``cuda:0`` over gloo, asked
 for by name; ``device="cpu"`` runs over gloo on the CPU.
 
@@ -31,6 +36,7 @@ from typing import Dict
 
 import torch
 
+from fmri_tpu_torch.checkpoints.store import host_tree
 from fmri_tpu_torch.device import resolve_device
 from fmri_tpu_torch.parallel.mesh import (
     cognitive_param_specs, free_port, initialize_multihost, make_mesh, shard_state,
@@ -145,6 +151,38 @@ def fullbrain_geometry(model: int = 4) -> Dict[str, list]:
     return {"fc1": [hidden, voxels], "shard": [hidden, voxels // model]}
 
 
+def serving_part(mesh, groups, n: int) -> Dict[str, float]:
+    """Serve a stage-II state's ``groups`` (its host tree's, whole) over
+    ``mesh``: on rank 0, reconstruct 3 seeded rows and generate 3 images and
+    return their means; on the other ranks, follow rank 0 and return {}."""
+    import numpy as np
+
+    from fmri_tpu_torch.configs import get_config
+    from fmri_tpu_torch.eval.serve import ServingModel
+    from fmri_tpu_torch.eval.steps import VaeGanCognitive
+
+    cfg = get_config("tiny")
+    c = cfg.model
+    model = VaeGanCognitive(c)
+    model.load_state_dict({f"{g}.{k}": v for g in ("encoder", "decoder")
+                           for k, v in groups[g].items()}, strict=True)
+    served = ServingModel(cfg, model, family="vgan", stage=2, max_batch=2 * n, mesh=mesh,
+                          voxel_tp=mesh.model > 1, output="uint8")
+    if mesh.rank != 0:
+        served.follow()
+        return {}
+    try:
+        recon = served.reconstruct(
+            np.random.default_rng(17).standard_normal((3, c.num_voxels), dtype=np.float32))
+        gen = served.generate(3)
+    finally:
+        served.stop()
+    want = (3, c.image_size, c.image_size, 3)
+    if recon.shape != want or gen.shape != want:
+        raise RuntimeError(f"dryrun serving: recon {recon.shape}, gen {gen.shape}, want {want}")
+    return {"recon_mean": float(recon.mean()), "gen_mean": float(gen.mean())}
+
+
 def _rank(rank: int, n: int, port: int, device: str, share_card: bool, out) -> None:
     devices, backend = _devices(n, device, share_card)
     if device == "cpu":  # n ranks share the host's cores
@@ -165,7 +203,13 @@ def _rank(rank: int, n: int, port: int, device: str, share_card: bool, out) -> N
         if rank == 0:
             print(f"dryrun {path} {results[path]['mesh']}: {key}={losses[key]:.3f}"
                   f"{'' if ok else ' FAILED'}", flush=True)
+        if path == "stage2":  # every rank gathers it whole: a collective
+            stage2 = host_tree(state)["groups"]
+    served = serving_part(mesh_tp, stage2, n)
     if rank == 0:
+        results["serving"] = {"mesh": f"dp={mesh_tp.data} tp={mesh_tp.model}", **served}
+        print(f"dryrun serving {results['serving']['mesh']}: recon mean="
+              f"{served['recon_mean']:.1f} gen mean={served['gen_mean']:.1f}", flush=True)
         results["fullbrain"] = fullbrain_geometry(4)
         print(f"dryrun fullbrain fc1 {results['fullbrain']['fc1']} at tp=4: "
               f"{results['fullbrain']['shard']} per rank", flush=True)
@@ -174,16 +218,17 @@ def _rank(rank: int, n: int, port: int, device: str, share_card: bool, out) -> N
 
 
 def dryrun_multichip(n: int, device: str = "cuda", share_card: bool = False) -> dict:
-    """One step of every training path over ``n`` ranks; returns rank 0's
-    ``{path: {"loss", "key", "ok", "mesh"}, "fullbrain": ...}`` and raises
-    if a path failed."""
+    """One step of every training path over ``n`` ranks, then serving;
+    returns rank 0's ``{path: {"loss", "key", "ok", "mesh"}, "serving":
+    {"mesh", "recon_mean", "gen_mean"}, "fullbrain": ...}`` and raises if a
+    path failed."""
     import torch.multiprocessing as mp
 
     _devices(n, device, share_card)  # refuse before starting anything
     out = mp.get_context("spawn").SimpleQueue()
     mp.spawn(_rank, args=(n, free_port(), device, share_card, out), nprocs=n, join=True)
     results = out.get()
-    failed = [p for p, r in results.items() if p != "fullbrain" and not r["ok"]]
+    failed = [p for p, r in results.items() if "ok" in r and not r["ok"]]
     if failed:
         raise RuntimeError(f"dryrun over {n} ranks: {failed} failed (non-finite losses "
                            f"or replicas that differ)")

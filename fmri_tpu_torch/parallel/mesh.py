@@ -1,4 +1,5 @@
-"""Training across ranks: a (data, model) mesh of processes, one per card.
+"""Training and serving across ranks: a (data, model) mesh of processes,
+one per card.
 
 Counterpart of ``fmri_tpu/parallel/mesh.py``. The JAX package places arrays
 on a ``jax.sharding.Mesh`` and XLA's SPMD partitioner writes the
@@ -37,8 +38,15 @@ buffer with this rank's slot written. The autograd-aware helpers are
 all-reduce sums the gradient in its backward too, which multiplies a
 replicated gradient by the group's size.
 
+Serving over a mesh (``eval/serve.py``) adds no collective of its own: rank
+0 broadcasts each command, its requests and its noise, the ranks run the
+same programs on their rows (and, under ``voxel_tp``, their voxel columns
+through :func:`row_parallel_linear`), and :meth:`Mesh.gather_data` brings
+the images back; :meth:`Mesh.broadcast_bytes` carries a reload's path and
+:meth:`Mesh.failing` lets every rank refuse a checkpoint together.
+
 ``Mesh.reduced_bytes`` counts the bytes this rank has all-reduced or
-broadcast, for the per-step numbers of ``chip_smoke.py``.
+broadcast, for the per-step and per-call numbers of ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -184,6 +192,28 @@ class Mesh:
     def broadcast_int(self, value: int) -> int:
         t = torch.tensor([value], dtype=torch.int64, device=self.device)
         return int(self.broadcast(t).item())
+
+    def broadcast_bytes(self, data: Optional[bytes] = None) -> bytes:
+        """Rank 0's ``data`` on every rank (the others pass None): its length,
+        then its bytes."""
+        n = self.broadcast_int(len(data) if self.rank == 0 else 0)
+        if n == 0:
+            return b""
+        t = torch.zeros(n, dtype=torch.uint8, device=self.device)
+        if self.rank == 0:
+            t.copy_(torch.frombuffer(bytearray(data), dtype=torch.uint8))
+        return self.broadcast(t).cpu().numpy().tobytes()
+
+    def failing(self, failed: bool) -> list:
+        """The ranks that pass ``failed=True``, on every rank: an all-reduce
+        of one flag per rank (a decision every rank takes together, such as
+        refusing a checkpoint one of them cannot read)."""
+        t = torch.zeros(self.world, device=self.device)
+        t[self.rank] = float(failed)
+        if self.world > 1:
+            dist.all_reduce(t)
+            self.reduced_bytes += t.numel() * t.element_size()
+        return [r for r, v in enumerate(t.tolist()) if v]
 
     def barrier(self) -> None:
         """Every rank waits here for every other (an all-reduce read on
@@ -434,6 +464,14 @@ def _local(t: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
     return t
 
 
+def shard_layer(module: torch.nn.Module, key: str, mesh: Mesh) -> torch.nn.Parameter:
+    """Replace the weight ``key`` (``"fc1.0.weight"``) of ``module`` by this
+    model rank's input columns, a new parameter under the same name."""
+    layer = module.get_submodule(key.rsplit(".", 1)[0])
+    layer.weight = torch.nn.Parameter(_local(layer.weight.data, (None, MODEL_AXIS), mesh))
+    return layer.weight
+
+
 def shard_params(params: Mapping[str, torch.Tensor], mesh: Mesh,
                  specs: Optional[Mapping[str, tuple]] = None) -> Dict[str, torch.Tensor]:
     """Named tensors on the mesh's device: replicated by default, or this
@@ -468,8 +506,7 @@ def shard_state(state, mesh: Mesh, voxel_tp: bool = False, decoder_tp: bool = Fa
         if not on or group not in nets.PREFIXES or not _tp_module(flag, nets.module(group)):
             continue
         module = nets.module(group)
-        layer = module.get_submodule(key.rsplit(".", 1)[0])
-        layer.weight = torch.nn.Parameter(_local(layer.weight.data, (None, MODEL_AXIS), mesh))
+        shard_layer(module, key, mesh)
         module.tp = mesh
         shards[(group, key)] = (None, MODEL_AXIS)
 

@@ -12,7 +12,9 @@ Score's classifiers (the proxy, Inception-v3) on the card against the CPU,
 and training across ranks: a mesh of one rank over NCCL bitwise the step
 without a mesh, ranks sharing the card over gloo against the single-process
 step on the card (``tests/test_torch_mesh.py``'s workers and checks), and
-the train CLI refusing more ranks than cards.
+the train CLI refusing more ranks than cards; and serving over ranks
+sharing the card against the single-process server's graphs, with no
+collective inside a captured graph.
 
 Imports only torch, numpy and the port, so it runs where the JAX package's
 dependencies are not installed:
@@ -1097,6 +1099,36 @@ def test_ranks_sharing_the_card_over_gloo_match_the_single_process_step(cuda_dev
     runs = dict(cases=cases, results=results, single=single, noise=noise)
     for n in names:
         tm.check_against_single(n, runs)
+
+
+def test_serving_mesh_sharing_the_card_matches_the_single_process_server(cuda_device,
+                                                                         tmp_path):
+    """Four ranks on the card over gloo (asked for by name), res64 stage III
+    at data=2 x model=2 with ``voxel_tp``, sampling, uint8 images, against
+    the single-process server's graphs with the same seed and buckets
+    (``tests/test_torch_serve_mesh.py``'s workers): within 1 LSB, every
+    program a graph on every rank, and no collective inside a capture."""
+    import test_torch_serve_mesh as sm
+
+    v = get_config("res64").model.num_voxels
+    rng = np.random.default_rng(5)
+    fmri = [rng.normal(size=(n, v)).astype(np.float32) for n in (5, 64, 70)]
+    case = sm.make_case("vgan", 3, 6, (2, 2), voxel_tp=True, sample=True, output="uint8",
+                        preset="res64", max_batch=64,
+                        ops=[("reconstruct", x) for x in fmri] + [("generate", 70)])
+    procs = sm.start_workers(str(tmp_path), {"tp": case}, [[((0, 1, 2, 3), ("tp",))]],
+                             device=str(cuda_device))
+    try:
+        want = sm.run_ops(sm.server(case, min_bucket=2, device=cuda_device), case["ops"])
+    finally:
+        results = sm.join_workers(str(tmp_path), procs, timeout=600)
+    got = results[0]["tp"]["answers"]
+    for g, w in zip(got, want):
+        assert g[0] == w[0] == "ok", (g, w)
+        assert np.abs(g[1].astype(int) - w[1].astype(int)).max() <= 1
+    for r in range(4):
+        res = results[r]["tp"]
+        assert res["graphs"] == 2 * len(res["buckets"]) and res["in_capture"] == 0, res
 
 
 def test_train_cli_refuses_more_ranks_than_cards(cuda_device, tmp_path):

@@ -646,6 +646,19 @@ def test_dryrun_runs_on_the_cards_unless_asked_for_the_cpu(monkeypatch):
     assert dryrun._devices(2, "cpu", False) == (["cpu", "cpu"], "gloo")
 
 
+def test_dryrun_serves_over_the_stage2_mesh():
+    """``dryrun_multichip(4, "cpu")``: every training path's step, then the
+    serving part (``__graft_entry__.py:288-305``) from stage II's trained
+    state over its data=2 x model=2 mesh, uint8 images."""
+    from fmri_tpu_torch.parallel import dryrun
+
+    results = dryrun.dryrun_multichip(4, device="cpu")
+    assert all(r["ok"] for r in results.values() if "ok" in r)
+    served = results["serving"]
+    assert served["mesh"] == "dp=2 tp=2"
+    assert 0.0 < served["recon_mean"] < 255.0 and 0.0 < served["gen_mean"] < 255.0
+
+
 def test_mesh_layouts():
     """A rank's rows, columns and specs, from its coordinate alone
     (``model`` innermost): rank 3 of data=2 x model=2 is (1, 1)."""

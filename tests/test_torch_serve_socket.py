@@ -502,10 +502,17 @@ def test_cli_serves_on_the_cpu(ckpts, tmp_path):
 
 
 def test_cli_refuses(ckpts):
-    _, d2, _ = ckpts
+    """A mesh that cannot serve exits with the reason before any rank
+    starts; ``--data-parallel`` spans cards and names ``--mesh`` on the CPU;
+    the default device is the card."""
+    d1, d2, _ = ckpts
     args = ["--stage", "2", "--preset", "tiny", "--ckpt", d2, "--unix-socket", "unused"]
-    for flag in (["--mesh", "data=2"], ["--data-parallel"]):
-        with pytest.raises(SystemExit, match="slice 10"):
+    for flag, match in ((["--mesh", "data=3"], "max_batch=64 not divisible"),
+                        (["--mesh", "data=1,model=3"], "num_voxels=128 not divisible"),
+                        (["--mesh", "data=2,model=2", "--stage", "1", "--ckpt", d1],
+                         "voxel_tp serves cognitive"),
+                        (["--data-parallel"], "on the CPU give --mesh")):
+        with pytest.raises(SystemExit, match=match):
             serve.main(args + flag + ["--device", "cpu"])
     if torch.cuda.is_available():
         pytest.skip("a card is present: without --device the CLI would serve on it")
