@@ -102,8 +102,9 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      bitwise unchanged; per tensor against the library backward and against
      the CPU at batch 8, each within its bound or above its own rounding
      noise (``check_tensors``: the reference on the reversed batch); 5
-     timed and one profiled step; every kernel call against its plain
-     version; then WAE/Dual-GAN with the fused decoder batch (``tap_matmul``
+     timed and one profiled step; every kernel call, at batch 64 and 8,
+     against its plain version, the weight grads' operands fp32
+     (``kernel_path_checks``, shared with phase 19); then WAE/Dual-GAN with the fused decoder batch (``tap_matmul``
      11 per step) against the unfused step;
   11. trainer: the training driver at res64, batch 64, on 640 synthetic
      examples (576 train: 9 steps per epoch; 64 validation), both kernel
@@ -270,7 +271,39 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      it; (e) (in phase 12's callback) phase 11's stage-I and stage-III
      checkpoints through the checkpoint CLI's ``--export`` and import,
      groups and served images bitwise; ``launches_by_path`` gains
-     ``serve_mesh`` (0).
+     ``serve_mesh`` (0);
+  19. suite (``suite_phase``): the JAX package's benchmark suite through the
+     port, one row per entry of ``bench.py``'s ``SUITE`` and the flagship's
+     ``fdb`` variant (``SUITE_ROWS``: the JAX row's name, preset and batch,
+     256 or 1,024), each built from the port's counterpart of the JAX
+     row's step maker with random weights (seed 0) and noise from a
+     ``torch.Generator``, the preset's flags as they are (both kernel flags
+     off). Each train row: ``SUITE_WARMUP`` and ``SUITE_STEPS`` timed steps,
+     finite metrics, trained groups moved (gated ones exactly when their
+     gate was on), frozen groups bitwise, no kernel launched, one ``[suite]
+     <row>`` line with s per step, images/s and peak MiB (above what earlier
+     phases still hold) beside the card's
+     name and power limit. The rows of ``SUITE_LAUNCHES`` (the res64 and
+     res100 bf16 stage I, the fullbrain stage II, WAE I at batch 1,024) run
+     again with both kernel flags on (``kernel_path_checks``): launches per
+     step exactly, the weight grads' operands bf16, every kernel call
+     against its plain version, the step against the flags-off step per
+     tensor (each within ``STEP_TOL`` or 3x its own bf16 rounding, the
+     flags-off step's gap from the fp32 step), ``SUITE_ON_STEPS`` timed
+     steps, one profiled step beside a flags-off one (device ms of
+     ``dw.cu`` and ``bn.cu``, the kernels whose time grew most); the bf16
+     step's losses at least ``BF16_MIN_GAP`` from the fp32 step's (so a
+     step that ran in fp32 fails), within ``BF16_LOSS_TOL`` for the three
+     of res64 and res100 (``SUITE_BF16_FP32``), gates printed; res100: the
+     fp32 step with both flags on, the card against the CPU at batch 4
+     (``CPU_TOL`` or 3x rounding noise). The stage-III eval step in bf16
+     against fp32 (between ``BF16_MIN_GAP`` and ``BF16_EVAL_TOL``); ``ServingModel`` at
+     one bucket of 256 with uint8 output, its CUDA graphs against its eager
+     programs (1 LSB), and ``WaeCognitive`` stages II and III served at
+     res64, max_batch 64, graphs against eager (1e-6). ``launches_by_path``
+     gains ``suite_<row>`` for each flags-on run; a ``[suite] numbers`` JSON
+     line holds every row's figures, and a ``[smoke]`` line each phase's
+     seconds.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``. Without
 a CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -446,6 +479,13 @@ def rel_err(got, ref) -> float:
     """max |got - ref| over max |ref|."""
     ref = ref.float()
     return float((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def max_gap(a, b) -> float:
+    """max |a - b| of two host (numpy) arrays, in float64."""
+    import numpy as np
+
+    return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
 
 
 class Recorder:
@@ -862,6 +902,132 @@ def warm_moments(state):
     return state
 
 
+# the train paths of phases 10, 17 and 19, and the checkpoint kind of each
+# (random_groups, from_jax_groups)
+TRAIN_KINDS = {"vgan_stage1": "vae-gan", "vgan_stage2": "vae-gan-cognitive",
+               "vgan_stage3": "vae-gan-cognitive", "wae_stage1": "wae-gan",
+               "wae_stage2": "wae-gan-cognitive", "wae_stage3": "wae-gan-cognitive",
+               "wae_vgan": "wae-vgan"}
+
+
+def train_path(path):
+    """(nets module, state maker ``(nets, cfg)``, step factory ``(cfg,
+    mesh=None)`` -> train step) of a train path in ``TRAIN_KINDS``."""
+    from fmri_tpu_torch.train import state as st
+    from fmri_tpu_torch.train.optim import RmsProp
+    from fmri_tpu_torch.train.steps_vgan import make_vgan_cognitive_step, make_vgan_stage1_step
+    from fmri_tpu_torch.train.steps_wae import (
+        make_wae_cognitive_step, make_wae_stage1_step, make_wae_vgan_step,
+    )
+
+    def stage1_state(nets, cfg):
+        t = cfg.train
+        return st.make_state(nets, {g: RmsProp(t.rms_decay, t.rms_eps, t.grad_clip)
+                                    for g in st.GROUPS})
+
+    if path == "vgan_stage1":
+        return (st.VaeGan, stage1_state,
+                lambda cfg, mesh=None: make_vgan_stage1_step(cfg, mesh=mesh).train_step)
+    if path == "wae_stage1":
+        return (st.WaeGan, st.make_wae_state,
+                lambda cfg, mesh=None: make_wae_stage1_step(cfg, mesh=mesh).train_step)
+    if path == "wae_vgan":
+        return (st.WaeDualGan, st.make_wae_dual_gan_state,
+                lambda cfg, mesh=None: make_wae_vgan_step(cfg, mesh=mesh).train_step)
+    stage = int(path[-1])
+    if path.startswith("vgan"):
+        return (st.VaeGanCognitiveTrain,
+                lambda nets, cfg: st.make_cognitive_state(nets, cfg, stage),
+                lambda cfg, mesh=None: make_vgan_cognitive_step(cfg, stage,
+                                                                mesh=mesh).train_step)
+    return (st.WaeGanCognitiveTrain,
+            lambda nets, cfg: st.make_wae_cognitive_state(nets, cfg, stage),
+            lambda cfg, mesh=None: make_wae_cognitive_step(cfg, stage, mesh=mesh).train_step)
+
+
+def train_state(path, cfg, weights, device):
+    """A fresh state of a train path holding ``weights``, on ``device``,
+    moments warm."""
+    module, make, _ = train_path(path)
+    nets = module(cfg)
+    nets.load_state_dict(weights, strict=True)
+    return warm_moments(make(nets.to(device), cfg))
+
+
+def train_draw(path, cfg, b, dev, gen, image, fmri):
+    """draw(): one step's arguments after the state at batch ``b``:
+    ``image`` and ``fmri`` as given, noise from ``gen`` drawn fresh by every
+    call, the gate's hyperparameters from ``cfg.train``."""
+    import torch
+
+    t, c = cfg.train, cfg.model
+    hyper = (t.margin, t.equilibrium, t.lambda_mse)
+
+    def noise(scale=1.0):
+        return scale * torch.randn((b, c.latent_dim), generator=gen, device=dev)
+
+    if path == "vgan_stage1":
+        return lambda: (image, noise(), noise(), *hyper)
+    if path == "wae_stage1":
+        return lambda: (image, noise(t.wae_sigma))
+    if path == "wae_vgan":
+        return lambda: (image, noise(), noise(), noise(t.wae_sigma), *hyper)
+    if path.startswith("vgan"):
+        return lambda: (fmri, image, noise(), noise(), noise(), *hyper)
+    return lambda: (fmri, image)
+
+
+def kernel_path_checks(name, dev, path, cfg_on, weights, args, draw, want, reference,
+                       n_steps, cpu=None):
+    """The checks of a train path with both kernel flags on, shared by
+    phases 10 and 19: one step from a fresh state with every call recorded,
+    its launches exactly ``want``, its weight grads' operands in the
+    config's compute dtype, every recorded call against its plain version;
+    the step against ``reference`` = (state, metrics, bounds, per-tensor
+    noise) of the flags-off step from the same state and ``args``
+    (``check_tensors``); with ``cpu`` = (config, batch), that config's step
+    on the card, its calls held against plain, against the CPU at that
+    batch; then ``n_steps`` timed steps, their launches counted. Returns
+    (state, launches per step, seconds per step, the flags-on step)."""
+    import torch
+
+    step = train_path(path)[2](cfg_on)
+    on = train_state(path, cfg_on, weights, dev)
+    (on, m_on), launches, calls, cold = record_step(lambda: step(on, *args))
+    print(f"[{name}] both kernel flags on: first step {cold:.3f} s; launches per step "
+          f"{launches}; metrics { {k: round(float(v), 6) for k, v in m_on.items()} }",
+          flush=True)
+    check(launches == want, f"{name}: launches per step {launches}, want {want}")
+    dtype = torch.bfloat16 if cfg_on.model.compute_dtype == "bfloat16" else torch.float32
+    operands = {a.dtype for entry in ("conv2d_dw", "conv2d_transpose_dw")
+                for call, _ in calls[entry].values() for a in call[:2]}
+    check(operands <= {dtype}, f"{name}: weight-grad operands {operands}, want {dtype}")
+    hold_against_plain(calls, name, timed=False)
+    del calls
+    off, m_off, tol, floor = reference
+    check_tensors(f"{name} kernels vs library backward on the card", on, m_on, off, m_off,
+                  weights, tol, floor)
+    if cpu is not None:
+        cfg_cpu, nb = cpu
+        step_cpu = train_path(path)[2](cfg_cpu)
+        small = [a[:nb] if torch.is_tensor(a) else a for a in args]
+        (card, m_card), _, calls, _ = record_step(
+            lambda: step_cpu(train_state(path, cfg_cpu, weights, dev), *small))
+        hold_against_plain(calls, f"{name} batch {nb}", timed=False)
+        del calls
+        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in small]
+        ref, m_ref = step_cpu(train_state(path, cfg_cpu, weights, "cpu"), *cpu_args)
+        rev, _ = step_cpu(train_state(path, cfg_cpu, weights, "cpu"),
+                          *map(reversed_batch, cpu_args))
+        check_tensors(f"{name} card vs CPU at batch {nb}", card, m_card, ref, m_ref, weights,
+                      CPU_TOL, tensor_gaps(rev, ref, weights))
+    (on, seconds, _), counted, _, _ = record_step(
+        lambda: timed_steps(step, on, n_steps, draw), record=False)
+    check(counted == {k: n_steps * v for k, v in launches.items()},
+          f"{name}: {counted} launches over {n_steps} steps, {launches} per step")
+    return on, launches, seconds, step
+
+
 def train_phase(dev, cfg):
     """Phase 6, stage I; returns (kernels-line entries of the three train
     kernels, launches per step, seconds per step)."""
@@ -1221,60 +1387,39 @@ def wae_phase(dev, cfg):
 
     from fmri_tpu_torch.checkpoints.convert import from_jax_groups, random_groups
     from fmri_tpu_torch.data.synthetic import synthetic_pairs
-    from fmri_tpu_torch.train import state as st
-    from fmri_tpu_torch.train.steps_wae import (
-        make_wae_cognitive_step, make_wae_stage1_step, make_wae_vgan_step,
-    )
 
-    t, c = cfg.train, cfg.model
-    b = t.batch_size
-    data = synthetic_pairs(b, c.image_size, c.num_voxels, seed=0)
+    b = cfg.train.batch_size
+    data = synthetic_pairs(b, cfg.model.image_size, cfg.model.num_voxels, seed=0)
     fmri = torch.from_numpy(data["fmri"]).to(dev)
     image = torch.from_numpy(2.0 * data["image"] - 1.0).to(dev)
     gen = torch.Generator(device=dev).manual_seed(5)
-
-    def noise(scale=1.0):
-        return scale * torch.randn((b, c.latent_dim), generator=gen, device=dev)
-
-    paths = {  # (kind, module, state, step factory, draw, frozen prefixes)
-        "wae_stage1": ("wae-gan", st.WaeGan, st.make_wae_state,
-                       lambda c_: make_wae_stage1_step(c_),
-                       lambda: (image, noise(t.wae_sigma)), ()),
-        "wae_stage2": ("wae-gan-cognitive", st.WaeGanCognitiveTrain,
-                       lambda n, c_: st.make_wae_cognitive_state(n, c_, 2),
-                       lambda c_: make_wae_cognitive_step(c_, 2),
-                       lambda: (fmri, image), ("decoder.", "teacher_encoder.")),
-        "wae_stage3": ("wae-gan-cognitive", st.WaeGanCognitiveTrain,
-                       lambda n, c_: st.make_wae_cognitive_state(n, c_, 3),
-                       lambda c_: make_wae_cognitive_step(c_, 3),
-                       lambda: (fmri, image), ("encoder.", "teacher_encoder.")),
-        "wae_vgan": ("wae-vgan", st.WaeDualGan, st.make_wae_dual_gan_state,
-                     lambda c_: make_wae_vgan_step(c_),
-                     lambda: (image, noise(), noise(), noise(t.wae_sigma), t.margin,
-                              t.equilibrium, t.lambda_mse), ()),
-    }
+    frozen_groups = {"wae_stage1": (), "wae_stage2": ("decoder.", "teacher_encoder."),
+                     "wae_stage3": ("encoder.", "teacher_encoder."), "wae_vgan": ()}
     cfg_on = with_flags(cfg, pallas_bn=True, pallas_backward=True)
     launches_by_path, seconds = {}, {}
-    for path, (kind, module, make, factory, draw, frozen) in paths.items():
+    n_steps = 5
+    for path, frozen in frozen_groups.items():
+        kind = TRAIN_KINDS[path]
         weights = from_jax_groups(random_groups(cfg, seed=0, kind=kind), cfg, kind)
-
-        def new_state(cfg_, device, module=module, make=make, weights=weights):
-            nets = module(cfg_)
-            nets.load_state_dict(weights, strict=True)
-            return warm_moments(make(nets.to(device), cfg_))
-
-        step_on = factory(cfg_on).train_step
+        draw = train_draw(path, cfg, b, dev, gen, image, fmri)
         args = draw()
 
-        # the main path: one step with both flags on, every call recorded
-        on = new_state(cfg_on, dev)
-        (on, m_on), launches, calls, cold = record_step(lambda: step_on(on, *args))
-        print(f"[{path}] {c.image_size} px step, batch {b}, both kernel flags on: first "
-              f"step {cold:.3f} s; launches per step {launches}; metrics "
-              f"{ {k: round(float(v), 6) for k, v in m_on.items()} }", flush=True)
-        check(launches == WAE_LAUNCHES[path],
-              f"{path}: launches per step {launches}, want {WAE_LAUNCHES[path]}")
+        # 1. against the library backward (both flags off) on the card, and
+        # 2. card against the CPU at batch 8; each tensor above its own
+        #    rounding noise (the reference's step on the reversed batch);
+        # 3. five timed steps
+        off_step = train_path(path)[2](cfg)
+        off, m_off = off_step(train_state(path, cfg, weights, dev), *args)
+        rev, _ = off_step(train_state(path, cfg, weights, dev), *map(reversed_batch, args))
+        on, launches, seconds[path], step_on = kernel_path_checks(
+            path, dev, path, cfg_on, weights, args, draw, WAE_LAUNCHES[path],
+            (off, m_off, STEP_TOL, tensor_gaps(rev, off, weights)), n_steps, cpu=(cfg_on, 8))
+        del off, rev
         launches_by_path[path] = launches
+        print(f"[{path}] {n_steps} steps: {seconds[path]:.4f} s per step, "
+              f"{b / seconds[path]:.1f} examples/s (host clock, warm)", flush=True)
+
+        # 4. frozen groups bitwise, BatchNorm ticks over the 1 + n_steps steps
         sd = on.nets.state_dict()
         for k, v in sd.items():
             if k.startswith(frozen) and "running" not in k and "num_batches" not in k:
@@ -1283,64 +1428,32 @@ def wae_phase(dev, cfg):
         got_ticks = {p: {int(v) for k, v in sd.items()
                          if k.startswith(p) and k.endswith("num_batches_tracked")}
                      for p in ("encoder.", "decoder.")}
-        check(got_ticks == {"encoder.": {enc_ticks}, "decoder.": {dec_ticks}},
-              f"{path}: BatchNorm ticks {got_ticks}, want {WAE_TICKS[path]}")
+        check(got_ticks == {"encoder.": {(1 + n_steps) * enc_ticks},
+                            "decoder.": {(1 + n_steps) * dec_ticks}},
+              f"{path}: BatchNorm ticks over {1 + n_steps} steps {got_ticks}, want "
+              f"{WAE_TICKS[path]} per step")
         print(f"[{path}] frozen groups {frozen or 'none'} bitwise unchanged; BatchNorm "
               f"ticks per step: encoder {enc_ticks}, decoder {dec_ticks}", flush=True)
-
-        # 1. against the library backward (both flags off) on the card, and
-        # 2. card against the CPU at batch 8; each tensor above its own
-        #    rounding noise (the reference's step on the reversed batch)
-        off_step = factory(cfg).train_step
-        off, m_off = off_step(new_state(cfg, dev), *args)
-        rev, _ = off_step(new_state(cfg, dev), *map(reversed_batch, args))
-        check_tensors(f"{path} kernels vs library backward on the card", on, m_on, off,
-                      m_off, weights, STEP_TOL, tensor_gaps(rev, off, weights))
-        small = [a[:8] if torch.is_tensor(a) else a for a in args]
-        card, m_card = step_on(new_state(cfg_on, dev), *small)
-        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in small]
-        cpu, m_cpu = step_on(new_state(cfg_on, "cpu"), *cpu_args)
-        rev, _ = step_on(new_state(cfg_on, "cpu"), *map(reversed_batch, cpu_args))
-        check_tensors(f"{path} card vs CPU at batch 8", card, m_card, cpu, m_cpu, weights,
-                      CPU_TOL, tensor_gaps(rev, cpu, weights))
-
-        # 3. five timed steps and a profiled one
-        n_steps = 5
-        (on, seconds[path], _), counted, _, _ = record_step(
-            lambda: timed_steps(step_on, on, n_steps, draw), record=False)
-        print(f"[{path}] {n_steps} steps: {seconds[path]:.4f} s per step, "
-              f"{b / seconds[path]:.1f} examples/s (host clock, warm)", flush=True)
-        for n, count in counted.items():
-            check(count == n_steps * launches[n],
-                  f"{path} {n}: {count} launches over {n_steps} steps, {launches[n]} per step")
         profile_step(lambda: step_on(on, *draw()), path, seconds[path])
-
-        # 4. every kernel call of the step against its plain version
-        hold_against_plain(calls, path, timed=False)
 
     # WAE/Dual-GAN with the fused decoder batch: pallas_bn off (vsplit forbids
     # it), the weight-grad kernel on; held against the unfused step
-    kind = "wae-vgan"
-    weights = from_jax_groups(random_groups(cfg, seed=0, kind=kind), cfg, kind)
-
-    def dual_state(cfg_):
-        nets = st.WaeDualGan(cfg_)
-        nets.load_state_dict(weights, strict=True)
-        return warm_moments(st.make_wae_dual_gan_state(nets.to(dev), cfg_))
-
+    path = "wae_vgan"
+    weights = from_jax_groups(random_groups(cfg, seed=0, kind=TRAIN_KINDS[path]), cfg,
+                              TRAIN_KINDS[path])
     cfg_fused = with_flags(cfg, pallas_backward=True, fused_decoder_batch=True)
     cfg_seq = with_flags(cfg, pallas_backward=True)
-    draw = paths["wae_vgan"][4]
+    draw = train_draw(path, cfg, b, dev, gen, image, fmri)
     args = draw()
-    fused_step = make_wae_vgan_step(cfg_fused).train_step
+    fused_step = train_path(path)[2](cfg_fused)
     (fused, m_fused), launches, calls, _ = record_step(
-        lambda: fused_step(dual_state(cfg_fused), *args))
+        lambda: fused_step(train_state(path, cfg_fused, weights, dev), *args))
     print(f"[wae_vgan_fused] launches per step {launches}", flush=True)
     check(launches == {"bn_bwd_reduce": 0, "bn_bwd_apply": 0,
                        "tap_matmul": WAE_FUSED_DW_LAUNCHES},
           f"wae_vgan_fused: launches per step {launches}")
     launches_by_path["wae_vgan_fused"] = launches
-    seq, m_seq = make_wae_vgan_step(cfg_seq).train_step(dual_state(cfg_seq), *args)
+    seq, m_seq = train_path(path)[2](cfg_seq)(train_state(path, cfg_seq, weights, dev), *args)
     check_step("wae_vgan fused vs unfused decoder batch on the card", fused, m_fused, seq,
                m_seq, weights, STEP_TOL)
     hold_against_plain(calls, "wae_vgan_fused", timed=False)
@@ -1972,6 +2085,19 @@ def _percentiles(ms):
     return {f"p{q}": float(np.percentile(ms, q)) for q in (50, 95, 99)}
 
 
+def eager_programs(served):
+    """``served`` (a ``ServingModel``) running its programs eagerly, with the
+    cuDNN algorithms its graphs would capture."""
+    from fmri_tpu_torch.eval.serve import deterministic_cudnn
+
+    def call(kind, b):
+        with deterministic_cudnn():
+            return served._program(kind, b)
+
+    served._call = call
+    return served
+
+
 def serve_phase(dev, dirs, work, preset="res64", cli_args=()):
     """Phase 12: serving at ``preset`` from phase 11's checkpoint dirs
     (``dirs``: ``vgan_stage1``, ``vgan_stage2``, ``vgan_stage3``,
@@ -2012,19 +2138,6 @@ def serve_phase(dev, dirs, work, preset="res64", cli_args=()):
         return ServingModel.from_checkpoint(dirs[path], family, stage, preset,
                                             max_batch=SERVE_MAX_BATCH, device=dev, **kw)
 
-    def gap(a, b):
-        return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
-
-    def eager(m):
-        """``m`` running its programs eagerly, with the cuDNN algorithms its
-        graphs would capture."""
-        def call(kind, b):
-            with deterministic_cudnn():
-                return m._program(kind, b)
-
-        m._call = call
-        return m
-
     # (a) one graph per (bucket, reconstruct | generate), against the same
     # server with eager programs and timed beside it, and beside eager
     # programs with cuDNN's default algorithms: 50 warm calls per bucket,
@@ -2033,7 +2146,7 @@ def serve_phase(dev, dirs, work, preset="res64", cli_args=()):
     per_bucket = {}
     for output, bound in (("float", 1e-6), ("uint8", 1)):
         served = load("vgan_stage3", "vgan", 3, output=output)
-        eager_served = eager(load("vgan_stage3", "vgan", 3, output=output))
+        eager_served = eager_programs(load("vgan_stage3", "vgan", 3, output=output))
         default = load("vgan_stage3", "vgan", 3, output=output)
         default._call = default._program
         t0 = time.perf_counter()
@@ -2044,8 +2157,8 @@ def serve_phase(dev, dirs, work, preset="res64", cli_args=()):
         worst = 0.0
         for b in served.buckets:
             x = fmri[:b]
-            worst = max(worst, gap(served.reconstruct(x), eager_served.reconstruct(x)))
-            worst = max(worst, gap(served.generate(b), eager_served.generate(b)))
+            worst = max(worst, max_gap(served.reconstruct(x), eager_served.reconstruct(x)))
+            worst = max(worst, max_gap(served.generate(b), eager_served.generate(b)))
             times = {}
             for name, m in (("graph", served), ("eager", eager_served),
                             ("eager_default", default)):
@@ -2060,8 +2173,8 @@ def serve_phase(dev, dirs, work, preset="res64", cli_args=()):
         # the same 64 rows twice: the graphs give the same bits, cuDNN's
         # default algorithms need not (printed, not checked)
         x = fmri[:SERVE_MAX_BATCH]
-        repeat = {"graph": gap(served.reconstruct(x), served.reconstruct(x)),
-                  "eager_default": gap(default.reconstruct(x), default.reconstruct(x))}
+        repeat = {"graph": max_gap(served.reconstruct(x), served.reconstruct(x)),
+                  "eager_default": max_gap(default.reconstruct(x), default.reconstruct(x))}
         check(repeat["graph"] == 0, f"[serve] {output}: a graph replay changed its bits")
         numbers[f"repeat_gap_{output}"] = repeat
         for size in SERVE_SIZES:
@@ -2070,7 +2183,7 @@ def serve_phase(dev, dirs, work, preset="res64", cli_args=()):
             check(out.shape == (size, cfg.data.image_size, cfg.data.image_size, 3)
                   and out.dtype.name == ("uint8" if output == "uint8" else "float32"),
                   f"[serve] request of {size}: {out.shape} {out.dtype}")
-            alone = max(gap(out[i], served.reconstruct(x[i])) for i in range(size))
+            alone = max(max_gap(out[i], served.reconstruct(x[i])) for i in range(size))
             check(alone <= (1e-5 if output == "float" else 1),
                   f"[serve] {output}: a row alone vs inside {size} rows: {alone}")
         stage3[output] = served
@@ -2093,7 +2206,7 @@ def serve_phase(dev, dirs, work, preset="res64", cli_args=()):
     z = torch.randn((4, cfg.model.latent_dim), generator=g, device=dev)
     with deterministic_cudnn():
         want = denormalize(fresh.model.generate(z), mean, std).clamp(0, 1).cpu().numpy()
-    err = gap(out, want)
+    err = max_gap(out, want)
     check(err <= 1e-6, f"[serve] generate(4) vs the decoder on the same draws: {err}")
 
     # (b) image -> image: stage-I VAE/GAN and WAE
@@ -2105,7 +2218,7 @@ def serve_phase(dev, dirs, work, preset="res64", cli_args=()):
             xt = torch.from_numpy(x).to(dev)
             want = denormalize(m.model.reconstruct(eval_preprocess(xt, mean, std)),
                                mean, std).clamp(0, 1).cpu().numpy()
-            err = gap(m.reconstruct(x), want)
+            err = max_gap(m.reconstruct(x), want)
             check(err <= 1e-5, f"[serve] {path}: {n} images vs eager: {err}")
         print(f"[serve] {path} ({family} stage 1, image -> image): requests of 1 and 64 "
               f"images equal the eager reconstruct, preprocess and clip (1e-5)", flush=True)
@@ -2122,7 +2235,7 @@ def serve_phase(dev, dirs, work, preset="res64", cli_args=()):
     check(m.graphs == graphs_per_model, f"[serve] reload re-captured: {m.graphs} graphs")
     check(np.array_equal(after, stage3["float"].reconstruct(x)),
           "[serve] after reload the outputs differ from a fresh stage-III server")
-    check(gap(after, before) > 0, "[serve] reload did not move the outputs")
+    check(max_gap(after, before) > 0, "[serve] reload did not move the outputs")
     try:
         m.reload(dirs["vgan_stage1"])
         fail("[serve] reload of a stage-I dir into a stage-II server was accepted")
@@ -2154,7 +2267,7 @@ def serve_phase(dev, dirs, work, preset="res64", cli_args=()):
     st = batcher.stats()
     batcher.close()
     check(all(r is not None for r in got), "[serve] BatchingServer: a request unanswered")
-    err = gap(np.stack(got), want)
+    err = max_gap(np.stack(got), want)
     check(err <= 1 and st["requests"] == SERVE_REQUESTS and st["shed"] == 0,
           f"[serve] BatchingServer: {err} LSB from reconstruct; stats {st}")
     numbers["in_process"] = {"requests_per_s": SERVE_REQUESTS / wall,
@@ -2197,7 +2310,7 @@ def serve_phase(dev, dirs, work, preset="res64", cli_args=()):
             imgs = c.reconstruct(fmri[:SOCKET_ROWS])
             wall = time.perf_counter() - t0
             c._rpc = rpc
-            err = gap(imgs, np.stack(got[:SOCKET_ROWS]))
+            err = max_gap(imgs, np.stack(got[:SOCKET_ROWS]))
             check(imgs.shape == want[:SOCKET_ROWS].shape and err <= 1,
                   f"[serve] CLI images {imgs.shape}, {err} LSB from in-process")
             check(c.generate(4).shape == (4, *want.shape[1:]), "[serve] CLI generate(4)")
@@ -3414,18 +3527,17 @@ def backbone_checks(dev, cfg, work, b, timed_b, launches_by_path):
 # (c) Trainer.fit over gloo at data=2 with a checkpoint and a resume; (d) the
 # dry run over four ranks. gloo copies every collective through the host, so
 # its times show that the paths run and are not NCCL's or several cards'
-MESH_PATHS = {  # path: (kind, (data, model), tensor-parallel flags)
-    "mesh_stage1": ("stage1", (2, 1), {}),
-    "mesh_stage2": ("stage2", (2, 2), {"voxel_tp": True}),
-    "mesh_stage3": ("stage3", (2, 2), {"voxel_tp": True, "decoder_tp": True}),
+MESH_PATHS = {  # path: (train path, (data, model), tensor-parallel flags)
+    "mesh_stage1": ("vgan_stage1", (2, 1), {}),
+    "mesh_stage2": ("vgan_stage2", (2, 2), {"voxel_tp": True}),
+    "mesh_stage3": ("vgan_stage3", (2, 2), {"voxel_tp": True, "decoder_tp": True}),
     "mesh_wae_stage1": ("wae_stage1", (2, 1), {}),
 }
 # each rank launches the single-process step's kernels: the same BatchNorms
 # and convs run over its rows
-MESH_LAUNCHES = {"stage1": TRAINER_LAUNCHES["trainer_stage1"], "stage2": COGNITIVE_LAUNCHES[2],
-                 "stage3": COGNITIVE_LAUNCHES[3], "wae_stage1": WAE_LAUNCHES["wae_stage1"]}
-MESH_KINDS = {"stage1": "vae-gan", "stage2": "vae-gan-cognitive",
-              "stage3": "vae-gan-cognitive", "wae_stage1": "wae-gan"}
+MESH_LAUNCHES = {"vgan_stage1": TRAINER_LAUNCHES["trainer_stage1"],
+                 "vgan_stage2": COGNITIVE_LAUNCHES[2], "vgan_stage3": COGNITIVE_LAUNCHES[3],
+                 "wae_stage1": WAE_LAUNCHES["wae_stage1"]}
 MESH_STEPS = 3  # timed steps of each (b) path
 MESH_CLI_EXAMPLES = 256  # (a): 192 train examples (3 steps of 64), 64 held out
 MESH_FIT_EXAMPLES, MESH_FIT_EPOCHS = 320, 2  # (c): 4 steps per epoch
@@ -3436,57 +3548,6 @@ def _sync(dev) -> None:
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def mesh_state(kind, cfg, weights, dev):
-    """A fresh state of a (b) path on ``dev``, moments warm."""
-    from fmri_tpu_torch.train import state as st
-    from fmri_tpu_torch.train.optim import RmsProp
-
-    t = cfg.train
-    module = {"stage1": st.VaeGan, "stage2": st.VaeGanCognitiveTrain,
-              "stage3": st.VaeGanCognitiveTrain, "wae_stage1": st.WaeGan}[kind]
-    nets = module(cfg)
-    nets.load_state_dict(weights, strict=True)
-    nets = nets.to(dev)
-    if kind == "stage1":
-        state = st.make_state(nets, {g: RmsProp(t.rms_decay, t.rms_eps, t.grad_clip)
-                                     for g in st.GROUPS})
-    elif kind == "wae_stage1":
-        state = st.make_wae_state(nets, cfg)
-    else:
-        state = st.make_cognitive_state(nets, cfg, int(kind[-1]))
-    return warm_moments(state)
-
-
-def mesh_step(kind, cfg, mesh=None):
-    from fmri_tpu_torch.train.steps_vgan import make_vgan_cognitive_step, make_vgan_stage1_step
-    from fmri_tpu_torch.train.steps_wae import make_wae_stage1_step
-
-    if kind == "stage1":
-        return make_vgan_stage1_step(cfg, mesh=mesh).train_step
-    if kind == "wae_stage1":
-        return make_wae_stage1_step(cfg, mesh=mesh).train_step
-    return make_vgan_cognitive_step(cfg, int(kind[-1]), mesh=mesh).train_step
-
-
-def mesh_draw(kind, cfg, dev, gen, data):
-    """One global batch's step arguments (the same on every rank: the
-    generator is seeded alike)."""
-    import torch
-
-    t, c = cfg.train, cfg.model
-    b = t.batch_size
-
-    def noise(scale=1.0):
-        return scale * torch.randn((b, c.latent_dim), generator=gen, device=dev)
-
-    gate = (t.margin, t.equilibrium, t.lambda_mse)
-    if kind == "stage1":
-        return (data["image"], noise(), noise(), *gate)
-    if kind == "wae_stage1":
-        return (data["image"], noise(t.wae_sigma))
-    return (data["fmri"], data["image"], noise(), noise(), noise(), *gate)
 
 
 def state_from_tree(state, tree):
@@ -3585,30 +3646,34 @@ def mesh_rank(rank, world, port, device, preset, paths, out) -> None:
     with deterministic_cudnn():
         for path, (kind, shape, tp) in paths.items():
             mesh = make_mesh(*shape, devices=[dev] * world, backend="gloo")
-            weights = from_jax_groups(random_groups(cfg, seed=0, kind=MESH_KINDS[kind]), cfg,
-                                      MESH_KINDS[kind])
+            weights = from_jax_groups(random_groups(cfg, seed=0, kind=TRAIN_KINDS[kind]), cfg,
+                                      TRAIN_KINDS[kind])
             gen = torch.Generator(device=dev).manual_seed(17)
-            args = mesh_draw(kind, cfg, dev, gen, data)
+            # one global batch's arguments, the same on every rank (the
+            # generator is seeded alike)
+            draw = train_draw(kind, cfg, cfg.train.batch_size, dev, gen, data["image"],
+                              data["fmri"])
+            args = draw()
             res = {}
             if rank == 0:  # the single-process step on the same card
-                single = mesh_step(kind, cfg)
-                ref = mesh_state(kind, cfg, weights, dev)
+                single = train_path(kind)[2](cfg)
+                ref = train_state(kind, cfg, weights, dev)
                 (ref, m_ref), single_launches, _, _ = record_step(
                     lambda: single(ref, *args), record=False)
-                rev, _ = single(mesh_state(kind, cfg, weights, dev),
+                rev, _ = single(train_state(kind, cfg, weights, dev),
                                 *(reversed_batch(a) for a in args))
-                state1 = mesh_state(kind, cfg, weights, dev)
+                state1 = train_state(kind, cfg, weights, dev)
                 _sync(dev)
                 t0 = time.perf_counter()
                 for _ in range(MESH_STEPS):
-                    state1, _ = single(state1, *mesh_draw(kind, cfg, dev, gen, data))
+                    state1, _ = single(state1, *draw())
                 _sync(dev)
                 res["single_s_per_step"] = (time.perf_counter() - t0) / MESH_STEPS
                 del state1
                 gen.manual_seed(17)
-                args = mesh_draw(kind, cfg, dev, gen, data)
-            step = mesh_step(kind, cfg, mesh)
-            state = shard_state(mesh_state(kind, cfg, weights, dev), mesh, **tp)
+                args = draw()
+            step = train_path(kind)[2](cfg, mesh)
+            state = shard_state(train_state(kind, cfg, weights, dev), mesh, **tp)
             local = [mesh.rows(a) if torch.is_tensor(a) else a for a in args]
             before = mesh.reduced_bytes
             (state, m), launches, calls, cold = record_step(lambda: step(state, *local))
@@ -3626,7 +3691,7 @@ def mesh_rank(rank, world, port, device, preset, paths, out) -> None:
                     check(single_launches == launches,
                           f"{path}: single-process launches {single_launches}, rank 0's "
                           f"{launches}")
-                full = state_from_tree(mesh_state(kind, cfg, weights, dev), tree)
+                full = state_from_tree(train_state(kind, cfg, weights, dev), tree)
                 check_tensors(f"{path} data={shape[0]} model={shape[1]} vs the single-process "
                               f"step", full, m, ref, m_ref, weights, STEP_TOL,
                               tensor_gaps(rev, ref, weights))
@@ -3639,7 +3704,7 @@ def mesh_rank(rank, world, port, device, preset, paths, out) -> None:
             before = mesh.reduced_bytes
             for _ in range(MESH_STEPS):
                 state, m = step(state, *(mesh.rows(a) if torch.is_tensor(a) else a
-                                         for a in mesh_draw(kind, cfg, dev, gen, data)))
+                                         for a in draw()))
             _sync(dev)
             res["s_per_step"] = (time.perf_counter() - t0) / MESH_STEPS
             res["timed_reduced_bytes_per_step"] = (mesh.reduced_bytes - before) / MESH_STEPS
@@ -4175,6 +4240,409 @@ def ckpt_cli_phase(dev, dirs, work, preset="res64"):
     return out
 
 
+# phase 19: the JAX package's benchmark suite (bench.py SUITE, 15 rows, and
+# the flagship's fdb variant, bench.py:96-97) through the port: each row's JAX
+# name, its preset and its batch (bench.py BATCH, or the _b<N> suffix,
+# bench.py:385); tests/test_torch_suite.py holds this table to bench.py's
+SUITE_ROWS = {  # name: (path, preset, batch)
+    "stage1_vgan_res64_bf16": ("vgan_stage1", "res64-bf16", 256),
+    "stage1_vgan_res64_bf16_variant_fdb": ("vgan_stage1_fdb", "res64-bf16", 256),
+    "stage1_wae_res64": ("wae_stage1", "res64", 256),
+    "stage1_wae_res64_bf16": ("wae_stage1", "res64-bf16", 256),
+    "stage1_vgan_res100_bf16": ("vgan_stage1", "res100-bf16", 256),
+    "stage1_wae_vgan_res64_bf16": ("wae_vgan", "res64-bf16", 256),
+    "stage2_vgan_res64_bf16": ("vgan_stage2", "res64-bf16", 256),
+    "stage2_vgan_fullbrain_bf16": ("vgan_stage2", "fullbrain-bf16", 256),
+    "stage3_vgan_res64_bf16": ("vgan_stage3", "res64-bf16", 256),
+    "stage2_wae_res64": ("wae_stage2", "res64", 256),
+    "stage3_wae_res64": ("wae_stage3", "res64", 256),
+    "stage1_wae_res64_bf16_b1024": ("wae_stage1", "res64-bf16", 1024),
+    "stage2_wae_res64_b1024": ("wae_stage2", "res64", 1024),
+    "stage3_wae_res64_b1024": ("wae_stage3", "res64", 1024),
+    "inference_stage3_res64_bf16": ("inference_stage3", "res64-bf16", 256),
+    "serving_pipeline_res64_bf16": ("serving_pipeline", "res64-bf16", 256),
+}
+SUITE_WARMUP, SUITE_STEPS, SUITE_ON_STEPS = 2, 5, 3
+# the rows that run again with both kernel flags on, and their launches per
+# step (tests/test_torch_suite.py counts the wrappers' calls on the CPU at
+# these structures: res100 is res64's layer for layer, fullbrain only widens
+# fc1, and a step's launches do not depend on its batch or dtype)
+SUITE_LAUNCHES = {
+    "stage1_vgan_res64_bf16": TRAINER_LAUNCHES["trainer_stage1"],
+    "stage1_vgan_res100_bf16": TRAINER_LAUNCHES["trainer_stage1"],
+    "stage2_vgan_fullbrain_bf16": COGNITIVE_LAUNCHES[2],
+    "stage1_wae_res64_bf16_b1024": WAE_LAUNCHES["wae_stage1"],
+}
+# the flags-on rows' bf16 step against the fp32 step of its preset: losses
+# within the tiny-bf16 bound of tests/test_torch_train.py's CASES (the rows
+# of res64 and res100), and at least BF16_MIN_GAP apart in every row, so a
+# step that ran in fp32 fails (two fp32 steps of one preset agree to 1e-7)
+SUITE_BF16_FP32 = ("stage1_vgan_res64_bf16", "stage1_vgan_res100_bf16",
+                   "stage1_wae_res64_bf16_b1024")
+BF16_LOSS_TOL = 5e-3
+BF16_MIN_GAP = 1e-6
+# flags on against flags off with bf16 operands, per tensor (check_tensors
+# with STEP_TOL): the library's bf16 weight grad comes back rounded to bf16,
+# the kernel's in fp32, and the kernel path's BatchNorm forward rounds its
+# fp32 output otherwise, which flips the bf16 rounding of some of the next
+# conv's operands; so the two steps differ by bf16 rounding, not by summation
+# order (on an H100 at batch 256: losses 3.4e-5 and 2.4e-4 apart in stage I
+# and the fullbrain stage II, where fp32 steps agree to 1e-7). Each tensor's
+# floor, and the losses', is how far the flags-off bf16 step lies from the
+# fp32 step of the same state and noise: its own bf16 rounding
+# the stage-III eval step with bf16 operands against fp32, relative to the
+# fp32 output's largest magnitude (tests/test_torch_models.py::
+# test_bf16_preset_within_bf16_noise)
+BF16_EVAL_TOL = 2e-2
+
+
+def memory_mark() -> int:
+    """The card's peak-memory counter reset; the bytes allocated now."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_mib(mark: int) -> float:
+    """MiB allocated at the peak since :func:`memory_mark`, beyond the
+    ``mark`` bytes that earlier phases still held then."""
+    import torch
+
+    return (torch.cuda.max_memory_allocated() - mark) / 2**20
+
+
+def suite_weights(path, cfg):
+    """The seeded random weights of a train row (the port's counterparts of
+    the JAX builders' ``init_*``, seed 0; the cognitive nets over them, seed
+    1)."""
+    from fmri_tpu_torch.train import state as st
+
+    if path == "vgan_stage1":
+        nets = st.init_vaegan(cfg, 0)
+    elif path == "wae_stage1":
+        nets = st.init_wae(cfg, 0)
+    elif path == "wae_vgan":
+        nets = st.init_wae_dual_gan(cfg, 0)
+    elif path.startswith("vgan"):
+        nets = st.init_cognitive(cfg, st.init_vaegan(cfg, 0), seed=1)
+    else:
+        nets = st.init_wae_cognitive(cfg, st.init_wae(cfg, 0), seed=1)
+    return nets.state_dict()
+
+
+def suite_data(cfg, b, dev, gen):
+    """(image, fMRI) of a row as bench.py makes them, on the device:
+    uniform images in [-1, 1], standard normal fMRI."""
+    import torch
+
+    s, v = cfg.model.image_size, cfg.model.num_voxels
+    return (2.0 * torch.rand((b, s, s, 3), generator=gen, device=dev) - 1.0,
+            torch.randn((b, v), generator=gen, device=dev))
+
+
+def suite_checks_frozen_and_moved(name, nets, start, opt_state, history):
+    """Frozen groups (no moments) bitwise at their start; each trained group
+    moved exactly when its gate, where the step has one, was on in some step
+    of ``history``."""
+    import torch
+
+    gates = {"decoder": "train_dec", "discriminator": "train_dis"}
+    moved = {}
+    for g in nets.PREFIXES:
+        params = nets.group(g)
+        same = all(torch.equal(v.detach(), start[f"{nets.PREFIXES[g]}{k}"])
+                   for k, v in params.items())
+        if g not in opt_state:
+            check(same, f"[suite] {name}: frozen group {g} moved")
+            continue
+        key = gates.get(g)
+        on = key is None or key not in history[0] or any(float(m[key]) for m in history)
+        check(same != on, f"[suite] {name}: trained group {g} "
+                          f"{'did not move' if on else 'moved with its gate off'}")
+        moved[g] = not same
+    return moved
+
+
+def suite_profile(name, off, on):
+    """Where the flags-on step's device time goes beside the flags-off
+    step's (``profile_step``'s of each): the ms of the port's own kernels
+    (``dw.cu``, ``bn.cu``) and the kernels whose time grew the most."""
+    ours = {"dw.cu": ("dw_wgmma", "dw_finish"),
+            "bn.cu": ("bn_reduce_kernel", "bn_reduce_finish", "bn_apply_runs_kernel",
+                      "bn_apply_channels_kernel")}
+    by_source = {src: sum(ms for k, ms in on["by_kernel"].items()
+                          if any(n in k for n in names))
+                 for src, names in ours.items()}
+    grew = sorted(((on["by_kernel"].get(k, 0.0) - off["by_kernel"].get(k, 0.0), k[:60])
+                   for k in set(on["by_kernel"]) | set(off["by_kernel"])), reverse=True)
+    out = {"device_ms_off": off["device_ms"], "device_ms_on": on["device_ms"],
+           "busy_share_off": off["busy_share"], "busy_share_on": on["busy_share"],
+           "ms_by_source_on": by_source, "grew_most": grew[:4], "shrank_most": grew[-4:]}
+    print(f"[suite] {name}: profiled step, device ms flags off {off['device_ms']:.2f}, on "
+          f"{on['device_ms']:.2f}; in the port's kernels: " + ", ".join(
+              f"{src} {ms:.2f} ms" for src, ms in by_source.items()) + "; grew most: " +
+          "; ".join(f"{k} {ms:+.2f} ms" for ms, k in grew[:4]) + "; shrank most: " +
+          "; ".join(f"{k} {ms:+.2f} ms" for ms, k in grew[-4:]), flush=True)
+    return out
+
+
+def suite_train_row(name, dev, configs, smi, launches_by_path):
+    """One train row of phase 19: ``SUITE_WARMUP`` and ``SUITE_STEPS`` timed
+    steps with the preset's flags (both kernel flags off, as bench.py runs
+    them); with ``SUITE_LAUNCHES``, the same step with both flags on, and
+    the bf16 step against the fp32 step of its preset."""
+    import torch
+
+    path, preset, b = SUITE_ROWS[name]
+    cfg = configs(preset)
+    if path == "vgan_stage1_fdb":  # bench.py's 'fdb' variant: one decoder pass over both
+        path, cfg = "vgan_stage1", with_flags(cfg, fused_decoder_batch=True)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    draw = train_draw(path, cfg, b, dev, gen, *suite_data(cfg, b, dev, gen))
+    weights = suite_weights(path, cfg)
+
+    mark = memory_mark()
+    step = train_path(path)[2](cfg)
+    state = train_state(path, cfg, weights, dev)
+    start = {k: v.clone() for k, v in state.nets.state_dict().items()}
+    set_launches(0)
+    history = []
+    for _ in range(SUITE_WARMUP):
+        state, m = step(state, *draw())
+        history.append(m)
+    state, seconds, timed = timed_steps(step, state, SUITE_STEPS, draw)
+    launches = set_launches(0)
+    peak = peak_mib(mark)
+    check(not any(launches.values()), f"[suite] {name}: kernels launched with both flags "
+                                      f"off: {launches}")
+    moved = suite_checks_frozen_and_moved(name, state.nets, start, state.opt_state,
+                                          history + timed)
+    out = {"path": SUITE_ROWS[name][0], "preset": preset, "batch": b, "s_per_step": seconds,
+           "images_per_s": b / seconds, "peak_mib": peak, "moved": moved, "launches": launches,
+           "gates_last": {k: float(timed[-1][k]) for k in ("train_dec", "train_dis")
+                          if k in timed[-1]}}
+    print(f"[suite] {name}: {preset}, batch {b}, kernel flags off: {seconds:.4f} s per "
+          f"step, {b / seconds:.1f} images/s, peak {peak:.1f} MiB above the "
+          f"{mark / 2**20:.1f} MiB held before (host clock, "
+          f"{SUITE_WARMUP} warm-up and {SUITE_STEPS} timed steps; {smi})", flush=True)
+    del start
+    if name not in SUITE_LAUNCHES:
+        return out
+    prof_off = profile_step(lambda: step(state, *draw()), f"suite {name} flags off", seconds)
+    del state
+
+    # the flags-off step against the fp32 step of its preset from the same
+    # state and noise: bf16's own gap, the floor of flags on against off
+    check(cfg.model.compute_dtype == "bfloat16", f"[suite] {name}: not a bf16 row")
+    args = draw()
+    off, m_off = step(train_state(path, cfg, weights, dev), *args)
+    cfg32 = configs(preset.replace("-bf16", ""))
+    f32, m32 = train_path(path)[2](cfg32)(train_state(path, cfg32, weights, dev), *args)
+    bf16 = compare_steps(off, m_off, f32, m32, weights)
+    floor = tensor_gaps(f32, off, weights)
+    gates = {p: {k: float(m[k]) for k in ("train_dec", "train_dis") if k in m}
+             for p, m in (("bf16", m_off), ("fp32", m32))}
+    del f32
+    print(f"[suite] {name}: bf16 vs fp32 step: losses {bf16['loss']:.3g} relative (bounds "
+          f"{BF16_MIN_GAP} to {BF16_LOSS_TOL}); gates {gates}", flush=True)
+    check(bf16["loss"] >= BF16_MIN_GAP, f"[suite] {name}: bf16 vs fp32 losses "
+                                        f"{bf16['loss']}: the step did not run in bf16")
+    if name in SUITE_BF16_FP32:
+        check(bf16["loss"] <= BF16_LOSS_TOL, f"[suite] {name}: bf16 vs fp32 losses "
+                                             f"{bf16['loss']}")
+    out["bf16_vs_fp32"] = {"loss_rel": bf16["loss"], "gates": gates}
+
+    # both kernel flags on: launches, bf16 operands, every kernel call against
+    # its plain version, the step against the flags-off step; res100 fp32
+    # with both flags, the card against the CPU at batch 4
+    cfg_on = with_flags(cfg, pallas_bn=True, pallas_backward=True)
+    cpu = ((with_flags(configs("res100"), pallas_bn=True, pallas_backward=True), 4)
+           if preset.startswith("res100") else None)
+    on, launches, out["flags_on_s_per_step"], step_on = kernel_path_checks(
+        f"suite_{name}", dev, path, cfg_on, weights, args, draw, SUITE_LAUNCHES[name],
+        (off, m_off, dict(STEP_TOL, loss=max(STEP_TOL["loss"], FLOOR_FACTOR * bf16["loss"])),
+         floor), SUITE_ON_STEPS, cpu=cpu)
+    del off
+    launches_by_path[f"suite_{name}"] = launches
+    print(f"[suite] {name}: both kernel flags on: {out['flags_on_s_per_step']:.4f} s per "
+          f"step; launches per step {launches}", flush=True)
+    out["profile"] = suite_profile(name, prof_off, profile_step(
+        lambda: step_on(on, *draw()), f"suite {name} flags on", out["flags_on_s_per_step"]))
+    return out
+
+
+def suite_inference_row(name, dev, configs, smi):
+    """``inference_stage3_res64_bf16``: the stage-III eval step (fMRI ->
+    image, running statistics) at its batch, against the fp32 eval step."""
+    import torch
+
+    from fmri_tpu_torch.train.state import (
+        VaeGanCognitiveTrain, init_cognitive, init_vaegan, make_cognitive_state,
+    )
+    from fmri_tpu_torch.train.steps_vgan import eval_step
+
+    _, preset, b = SUITE_ROWS[name]
+    cfg = configs(preset)
+    weights = init_cognitive(cfg, init_vaegan(cfg, 0), seed=1).state_dict()
+
+    def new_state(cfg_):
+        nets = VaeGanCognitiveTrain(cfg_)
+        nets.load_state_dict(weights, strict=True)
+        return make_cognitive_state(nets.to(dev), cfg_, 3)
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    fmri = torch.randn((b, cfg.model.num_voxels), generator=gen, device=dev)
+    mark = memory_mark()
+    state = new_state(cfg)
+    set_launches(0)
+    for _ in range(SUITE_WARMUP):
+        out = eval_step(state, fmri)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SUITE_STEPS):
+        out = eval_step(state, fmri)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - t0) / SUITE_STEPS
+    launches = set_launches(0)
+    peak = peak_mib(mark)
+    check(not any(launches.values()), f"[suite] {name}: kernels launched: {launches}")
+    s = cfg.model.image_size
+    check(tuple(out.shape) == (b, s, s, 3) and bool(torch.isfinite(out).all()),
+          f"[suite] {name}: output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    sd = state.nets.state_dict()
+    check(all(torch.equal(sd[k].cpu(), v) for k, v in weights.items()),
+          f"[suite] {name}: the eval step changed the state")
+    ref = eval_step(new_state(configs(preset.replace("-bf16", ""))), fmri)
+    err = float((out - ref).abs().max() / ref.abs().max())
+    check(err >= BF16_MIN_GAP, f"[suite] {name}: bf16 vs fp32 eval {err}: the step did "
+                               f"not run in bf16")
+    print(f"[suite] {name}: {preset}, batch {b}: {seconds:.5f} s per step, "
+          f"{b / seconds:.1f} images/s, peak {peak:.1f} MiB above the "
+          f"{mark / 2**20:.1f} MiB held before; bf16 vs fp32 eval "
+          f"{err:.3g} of the largest magnitude (bound {BF16_EVAL_TOL}) (host clock, "
+          f"{SUITE_WARMUP} warm-up and {SUITE_STEPS} timed steps; {smi})", flush=True)
+    check(err <= BF16_EVAL_TOL, f"[suite] {name}: bf16 vs fp32 eval {err}")
+    return {"path": "inference_stage3", "preset": preset, "batch": b, "s_per_step": seconds,
+            "images_per_s": b / seconds, "peak_mib": peak, "launches": launches,
+            "bf16_vs_fp32": err}
+
+
+def suite_server(cfg, family, stage, weights, dev, **kw):
+    """(a ServingModel of ``weights``' encoder and decoder, the same server
+    with its programs run eagerly under the cuDNN algorithms its graphs
+    capture)."""
+    from fmri_tpu_torch.eval.serve import ServingModel
+    from fmri_tpu_torch.eval.steps import eval_module
+
+    model = eval_module(family, stage)[0](cfg.model)
+    model.load_state_dict({k: v for k, v in weights.items()
+                           if k.startswith(("encoder.", "decoder."))}, strict=True)
+    served, eager = (ServingModel(cfg, model, family=family, stage=stage, device=dev, **kw)
+                     for _ in range(2))
+    return served, eager_programs(eager)
+
+
+def suite_graph_vs_eager(served, eager, x):
+    """The largest gap of every bucket's graph, reconstruct and generate,
+    from the same server's eager programs."""
+    return max(max(max_gap(served.reconstruct(x[:b]), eager.reconstruct(x[:b])),
+                   max_gap(served.generate(b), eager.generate(b))) for b in served.buckets)
+
+
+def suite_serving_row(name, dev, configs, smi):
+    """``serving_pipeline_res64_bf16``: ``ServingModel`` over the stage-III
+    VAE/GAN model, one bucket of 256, uint8 output (bench.py:330-355), its
+    CUDA graphs against the same server's eager programs (1 LSB); then
+    ``WaeCognitive`` at stages II and III (res64, max_batch 64, float
+    output) the same way (1e-6, phase 12's bound)."""
+    import numpy as np
+
+    from fmri_tpu_torch.train.state import (
+        init_cognitive, init_vaegan, init_wae, init_wae_cognitive,
+    )
+
+    _, preset, b = SUITE_ROWS[name]
+    cfg = configs(preset)
+    weights = init_cognitive(cfg, init_vaegan(cfg, 0), seed=1).state_dict()
+    x = np.random.default_rng(0).normal(size=(b, cfg.model.num_voxels)).astype(np.float32)
+    mark = memory_mark()
+    set_launches(0)
+    served, eager = suite_server(cfg, "vgan", 3, weights, dev, max_batch=b, min_bucket=b,
+                                 output="uint8")
+    served.warmup()
+    for _ in range(SUITE_WARMUP):
+        out = served.reconstruct(x)
+    t0 = time.perf_counter()
+    for _ in range(SUITE_STEPS):
+        out = served.reconstruct(x)  # ends in the host pull
+    seconds = (time.perf_counter() - t0) / SUITE_STEPS
+    peak = peak_mib(mark)
+    want = 2 if dev.type == "cuda" else 0
+    check(served.graphs == want, f"[suite] {name}: {served.graphs} graphs, want {want}")
+    s = cfg.model.image_size
+    check(out.shape == (b, s, s, 3) and out.dtype == np.uint8,
+          f"[suite] {name}: output {out.shape} {out.dtype}")
+    lsb = suite_graph_vs_eager(served, eager, x)
+    print(f"[suite] {name}: {preset}, bucket {b}, uint8: {seconds:.5f} s per call, "
+          f"{b / seconds:.1f} images/s, peak {peak:.1f} MiB above the "
+          f"{mark / 2**20:.1f} MiB held before; {served.graphs} graphs, graph "
+          f"vs eager {lsb:.0f} LSB (bound 1) (host clock, {SUITE_WARMUP} warm-up and "
+          f"{SUITE_STEPS} timed calls; {smi})", flush=True)
+    check(lsb <= 1, f"[suite] {name}: graph vs eager {lsb} LSB")
+    numbers = {"path": "serving_pipeline", "preset": preset, "batch": b,
+               "s_per_step": seconds, "images_per_s": b / seconds, "peak_mib": peak,
+               "graph_vs_eager_lsb": lsb}
+
+    # WaeCognitive (stages II and III) served: graph against eager
+    cfg = configs("res64")
+    wae = init_wae_cognitive(cfg, init_wae(cfg, 0), seed=1).state_dict()
+    x = np.random.default_rng(1).normal(size=(64, cfg.model.num_voxels)).astype(np.float32)
+    for stage in (2, 3):
+        served, eager = suite_server(cfg, "wae", stage, wae, dev, max_batch=64)
+        served.warmup()
+        gap = suite_graph_vs_eager(served, eager, x)
+        want = 2 * len(served.buckets) if dev.type == "cuda" else 0
+        print(f"[suite] WaeCognitive stage {stage} served (res64, max_batch 64, float): "
+              f"{served.graphs} graphs, graph vs eager {gap:.3g} over buckets "
+              f"{served.buckets} (bound 1e-6)", flush=True)
+        check(served.graphs == want and gap <= 1e-6,
+              f"[suite] WaeCognitive stage {stage}: {served.graphs} graphs, gap {gap}")
+        numbers[f"wae_stage{stage}_graph_vs_eager"] = gap
+    numbers["launches"] = launches = set_launches(0)
+    check(not any(launches.values()), f"[suite] {name}: kernels launched: {launches}")
+    return numbers
+
+
+def suite_phase(dev, smi, configs=None):
+    """Phase 19: every row of the JAX package's benchmark suite through the
+    port (``SUITE_ROWS``). Returns ({suite_<row>: launches per step} of the
+    flags-on runs, {row: numbers})."""
+    import gc
+
+    import torch
+
+    from fmri_tpu_torch.configs import get_config
+
+    configs = configs or get_config
+    launches_by_path, numbers = {}, {}
+    t0 = time.perf_counter()
+    for name in SUITE_ROWS:
+        path = SUITE_ROWS[name][0]
+        if path == "inference_stage3":
+            numbers[name] = suite_inference_row(name, dev, configs, smi)
+        elif path == "serving_pipeline":
+            numbers[name] = suite_serving_row(name, dev, configs, smi)
+        else:
+            numbers[name] = suite_train_row(name, dev, configs, smi, launches_by_path)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    numbers["phase_s"] = time.perf_counter() - t0
+    return launches_by_path, numbers
+
+
 def main() -> None:
     import os
 
@@ -4214,7 +4682,7 @@ def main() -> None:
           f" | {torch.cuda.get_device_name(0)}", flush=True)
 
     # 2. build
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build.build()
     print(f"[build] {build.kernel_names()} in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -4404,6 +4872,7 @@ def main() -> None:
           flush=True)
 
     # 6. train, stage I
+    t_train = time.perf_counter()
     train_kernels, stage1_launches, stage1_seconds = train_phase(dev, cfg)
 
     # 7. train, stages II and III
@@ -4420,6 +4889,7 @@ def main() -> None:
     seconds.update(wae_seconds)
 
     # 11. the training driver: whole epochs through the Trainer, the CLIs;
+    t_trainer = time.perf_counter()
     # 12. serving from its checkpoint dirs, before they are deleted
     served = {}
     trainer_launches, trainer_numbers = trainer_phase(
@@ -4436,10 +4906,11 @@ def main() -> None:
         entry["launches_by_path"]["serve"] = served["launches"][entry["name"]]
 
     # 13. the host data path: the native loader, the CLIs on packed and raw data
+    t_data = time.perf_counter()
     data_launches, data_numbers = data_phase()
     # 14. the offline ETL: the prepare CLI, then the train and inference CLIs
     #     on what it wrote; 15. Inception-v3 and the parity CLI at res100
-    t0 = time.perf_counter()
+    t_prepare = t0 = time.perf_counter()
     prep_launches, prep_numbers = prepare_phase()
     prep_numbers["phase_s"] = time.perf_counter() - t0
     data_launches.update(prep_launches)
@@ -4478,6 +4949,12 @@ def main() -> None:
     serve_mesh_numbers["phase_s"] = time.perf_counter() - t0
     for entry in train_kernels:
         entry["launches_by_path"]["serve_mesh"] = serve_mesh_launches[entry["name"]]
+
+    # 19. the JAX package's benchmark suite, row by row, through the port
+    suite_launches, suite_numbers = suite_phase(dev, smi)
+    for entry in train_kernels:
+        entry["launches_by_path"].update(
+            {path: counts[entry["name"]] for path, counts in suite_launches.items()})
 
     # 8. kernels line; ssim at every shape the inference run gave it, each
     #    held against the plain version, times summed over the run's launches
@@ -4530,7 +5007,9 @@ def main() -> None:
                                 for path, counts in data_launches.items()},
                              **{path: counts["ssim"] for path, counts in mesh_launches.items()
                                 if "ssim" in counts},
-                             "serve_mesh": serve_mesh_launches["ssim"]},
+                             "serve_mesh": serve_mesh_launches["ssim"],
+                             "suite": sum(n["launches"]["ssim"] for row, n in
+                                          suite_numbers.items() if row in SUITE_ROWS)},
         "max_abs_err": max_err,
         "ms": ssim_tot["ms"],
         "device_ms": ssim_tot["device_ms"],
@@ -4565,6 +5044,15 @@ def main() -> None:
           flush=True)
     print(f"[serve_mesh] phase 18: {serve_mesh_numbers['phase_s']:.1f} s. Numbers (host "
           f"clock; {SERVE_MESH_LABEL}): {json.dumps(serve_mesh_numbers)}", flush=True)
+    print(f"[suite] numbers (host clock; {smi}; phase 19 {suite_numbers['phase_s']:.1f} s): "
+          f"{json.dumps(suite_numbers)}", flush=True)
+    phase_s = {"2-5": t_train - t_start, "6-10": t_trainer - t_train,
+               "11-12": t_data - t_trainer, "13": t_prepare - t_data,
+               "14": prep_numbers["phase_s"], "15": is_numbers["phase_s"],
+               "16": exp_numbers["phase_s"], "17": mesh_numbers["phase_s"],
+               "18": serve_mesh_numbers["phase_s"], "19": suite_numbers["phase_s"],
+               "all": time.perf_counter() - t_start}
+    print(f"[smoke] seconds by phase (host clock): {json.dumps(phase_s)}", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -925,15 +925,23 @@ def _rank_main(rank: int, argv, world: int, port: int) -> None:
 
 def _watch(procs) -> None:
     """Rank 0's watch over the ranks it started: one that fails takes the
-    server down at once, rather than leaving rank 0 waiting on it."""
-    for p in procs:
-        p.join()
-        if p.exitcode:
-            print(f"serve: rank {procs.index(p) + 1} exited with code {p.exitcode}; "
-                  f"stopping", file=sys.stderr, flush=True)
-            for q in procs:
-                q.kill()
-            os._exit(1)
+    server down at once, rather than leaving rank 0 waiting on it. It waits
+    on every rank's sentinel at once, so the first rank to exit is seen
+    whichever it is; ranks that exit cleanly (after rank 0's ``stop``) end
+    the watch."""
+    from multiprocessing.connection import wait
+
+    left = {p.sentinel: p for p in procs}
+    while left:
+        for sentinel in wait(list(left)):
+            p = left.pop(sentinel)
+            p.join()
+            if p.exitcode:
+                print(f"serve: rank {procs.index(p) + 1} exited with code {p.exitcode}; "
+                      f"stopping", file=sys.stderr, flush=True)
+                for q in procs:
+                    q.kill()
+                os._exit(1)
 
 
 def _mesh_main(args, argv) -> int:
@@ -993,6 +1001,8 @@ def _mesh_main(args, argv) -> int:
                              daemon=True) for r in range(1, world)]
         for p in procs:
             p.start()
+        print("mesh: " + ", ".join(f"rank {r} is process {p.pid}"
+                                   for r, p in enumerate(procs, 1)), flush=True)
         threading.Thread(target=_watch, args=(procs,), daemon=True).start()
     initialize_multihost(f"localhost:{port}", world, 0,
                          backend="gloo" if device.type == "cpu" else "nccl")

@@ -67,7 +67,7 @@ def test_deconv_geometry_and_taps(output_padding):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("preset", ["tiny", "res64"])
+@pytest.mark.parametrize("preset", ["tiny", "res64", "res100"])
 def test_nets_match_jax(preset):
     ref, got = _forward_both(presets.get_config(preset))
     for r, g in zip(ref, got):

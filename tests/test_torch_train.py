@@ -377,7 +377,13 @@ def _compare(jstate, jm, state, m, cfg, start, tol):
 def test_step_matches_jax(case):
     """Metrics, gate flags, parameters, BN running stats and RMSprop moments
     after one step and after three, from the same state and noise."""
-    preset, flags, dtype, b, tol1, tol3 = CASES[case]
+    step_matches_jax(CASES[case])
+
+
+def step_matches_jax(spec):
+    """``test_step_matches_jax`` for one ``CASES``-style tuple (also the
+    res100 case of ``tests/test_torch_res100.py``)."""
+    preset, flags, dtype, b, tol1, tol3 = spec
     jcfg, cfg = _configs(preset, flags, dtype)
     groups = random_groups(cfg, 0, "vae-gan")
     jstate, state = _jax_state(groups, jcfg), _port_state(groups, cfg)

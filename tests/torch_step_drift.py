@@ -3,7 +3,8 @@ and how far each sits from a float64 run of the port, on the CPU:
 
     python tests/torch_step_drift.py
 
-1. For each case of ``test_torch_train.py::CASES``, after steps 1 and 3, the
+1. For each case of ``test_torch_train.py::CASES`` and
+   ``test_torch_res100.py::CASES``, after steps 1 and 3, the
    largest per-tensor gap between the port and the JAX step in the measures
    that test bounds: losses (relative), parameter movement, BN running
    statistics and RMSprop moments (L2 relative). These are the measured
@@ -29,6 +30,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import test_torch_res100 as R  # noqa: E402
 import test_torch_train as T  # noqa: E402
 
 
@@ -36,8 +38,8 @@ def _rel(a, b, scale):
     return float((a.double() - b.double()).norm() / max(float(scale.double().norm()), 1e-30))
 
 
-def case_gaps(case):
-    preset, flags, dtype, b, _, _ = T.CASES[case]
+def case_gaps(case, spec):
+    preset, flags, dtype, b, _, _ = spec
     jcfg, cfg = T._configs(preset, flags, dtype)
     groups = T.random_groups(cfg, 0, "vae-gan")
     jstate, state = T._jax_state(groups, jcfg), T._port_state(groups, cfg)
@@ -120,6 +122,6 @@ def float64_gaps(b=4):
 
 
 if __name__ == "__main__":
-    for case in sorted(T.CASES):
-        case_gaps(case)
+    for case, spec in sorted({**T.CASES, **R.CASES}.items()):
+        case_gaps(case, spec)
     float64_gaps()
