@@ -296,7 +296,14 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      step that ran in fp32 fails), within ``BF16_LOSS_TOL`` for the three
      of res64 and res100 (``SUITE_BF16_FP32``), gates printed; res100: the
      fp32 step with both flags on, the card against the CPU at batch 4
-     (``CPU_TOL`` or 3x rounding noise). The stage-III eval step in bf16
+     (``CPU_TOL`` or 3x rounding noise). The rows of ``SUITE_PER_CALL``
+     (res100 bf16) record one more flags-on step after its timings and hold
+     each of its kernel calls against plain timed (``hold_against_plain``:
+     ms, device ms, library ms, plain ms, bound and its share per call),
+     then the weight grads again cast to fp32 (the kernels line's
+     ``shapes_res100``); their profiled steps say
+     which ops and callers launched the elementwise kernels
+     (``elementwise_by_caller``). The stage-III eval step in bf16
      against fp32 (between ``BF16_MIN_GAP`` and ``BF16_EVAL_TOL``); ``ServingModel`` at
      one bucket of 256 with uint8 output, its CUDA graphs against its eager
      programs (1 LSB), and ``WaeCognitive`` stages II and III served at
@@ -706,17 +713,21 @@ def timed_steps(step, state, n_steps, draw):
     return state, seconds, history
 
 
-def profile_step(run, path: str, step_s: float) -> dict:
+def profile_step(run, path: str, step_s: float, callers: bool = False) -> dict:
     """The device time of one more warm step, by kernel (``torch.profiler``,
     CUDA activity), beside ``step_s``, the unprofiled step's host time: the
     device's busy share of the step and its largest kernels. Prints and
     returns ``{"device_ms", "kernels", "busy_share", "top", "by_kernel"}``, the
-    last the device ms of every kernel name."""
+    last the device ms of every kernel name. With ``callers``, the CPU
+    activity, shapes and stacks are recorded too, and ``"elementwise"``
+    (:func:`elementwise_by_caller`) says which ops and callers launched the
+    step's elementwise kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * callers,
+                 record_shapes=callers, with_stack=callers) as prof:
         run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -731,15 +742,58 @@ def profile_step(run, path: str, step_s: float) -> dict:
           f"kernels, {100 * out['busy_share']:.1f}% of the {1e3 * step_s:.2f} ms step; "
           f"largest: " + "; ".join(f"{name} x{n} {ms:.2f} ms" for name, n, ms in out["top"]),
           flush=True)
+    if callers:
+        out["elementwise"] = elementwise_by_caller(prof, path)
     return out
 
 
-def hold_against_plain(calls, path: str, timed: bool):
+def elementwise_by_caller(prof, path: str, top: int = 8) -> dict:
+    """Where a profiled step's elementwise kernels (dtype casts, copies,
+    pointwise arithmetic) spend device time: by the op that launched them
+    and where it ran (the innermost frames of the port the profiler
+    recorded, else the autograd node, else the forward), with its input
+    shapes. Returns ``{"elementwise_ms", "copy_ms", "copies", "largest"}``:
+    the totals, the device ms and count of ``aten::copy_``, and the ``top``
+    largest ``[op in caller shapes, ops, ms]``."""
+    def caller(e, depth=3):
+        frames, node = [], None
+        while e is not None and len(frames) < depth:
+            frames += [f.split("fmri_tpu_torch/")[-1] for f in list(e.stack or []) + [e.name]
+                       if "fmri_tpu_torch/" in f]
+            if node is None and e.name.startswith("autograd::engine::evaluate_function: "):
+                node = e.name.split(": ", 1)[1]
+            e = e.cpu_parent
+        return " < ".join(frames[:depth]) or node or "the forward"
+
+    by_op, copies, copy_ms = {}, 0, 0.0
+    for e in prof.events():
+        ms = sum(k.duration for k in e.kernels if "elementwise" in k.name) / 1e3
+        if e.name == "aten::copy_":
+            copies, copy_ms = copies + 1, copy_ms + ms
+        if any("elementwise" in k.name for k in e.kernels):
+            key = f"{e.name} in {caller(e)} {e.input_shapes[:2]}"
+            n, total = by_op.get(key, (0, 0.0))
+            by_op[key] = (n + 1, total + ms)
+    ranked = sorted(by_op.items(), key=lambda kv: -kv[1][1])[:top]
+    out = {"elementwise_ms": sum(ms for _, ms in by_op.values()), "copy_ms": copy_ms,
+           "copies": copies, "largest": [[k, n, ms] for k, (n, ms) in ranked]}
+    print(f"[{path}] elementwise kernels: {out['elementwise_ms']:.2f} device ms, of which "
+          f"{copy_ms:.2f} in {copies} copies (aten::copy_); largest: " + "; ".join(
+              f"{k} x{n} {ms:.2f} ms" for k, (n, ms) in ranked), flush=True)
+    return out
+
+
+def hold_against_plain(calls, path: str, timed: bool, cast=None, iters: int = 20):
     """Every recorded call of the train kernels against its plain version,
     with its own operands and with bf16 activations, and the same bits
-    twice. With ``timed``, also the warm times of the kernel, its plain
-    version and its library call, summed over the calls (the kernels-line
-    entries). Returns ``{kernel: totals}``."""
+    twice. With ``cast``, the weight grads only (BatchNorm runs in fp32 in
+    every preset), their operands cast to it. With ``timed``, also each
+    call's warm times: the kernel (``iters`` calls back to back, and a
+    replayed CUDA graph), its library call, its plain version (a quarter as
+    many calls), its bound at the peak of its dtype (the weight grads at the
+    tensor-core rate, 3xTF32 for fp32; BatchNorm at the fp32 rate) and the
+    share of the bound the device reached, each in ``shapes`` and summed
+    over the calls (the kernels-line entries). Returns ``{kernel: totals}``."""
     import torch
 
     from fmri_tpu_torch.ops import bn, dw
@@ -787,8 +841,13 @@ def hold_against_plain(calls, path: str, timed: bool):
                   "max_rel_err_bf16": 0.0, "shapes": []}
               for n in TRAIN_KERNELS}
     for name, entry, kern, plain, lib, err_fn, (tol, tol_bf16), cost in specs:
+        if cast is not None and name != "tap_matmul":
+            continue
         tot = totals[name]
         for args, count in calls[entry].values():
+            if cast is not None:
+                args = tuple(a.to(cast) if torch.is_tensor(a) and a.dim() == 4 else a
+                             for a in args)
             got, ref = kern(*args), plain(*args)
             torch.cuda.synchronize()
             err = err_fn(got, ref)
@@ -797,6 +856,7 @@ def hold_against_plain(calls, path: str, timed: bool):
             tot["max_rel_err"] = max(tot["max_rel_err"], err)
             tot["max_abs_err"] = max(tot["max_abs_err"], float((got - ref).abs().max()))
             check(torch.equal(got, kern(*args)), f"{path} {entry}: two runs differ")
+            del got, ref
             # bf16 activations (the -bf16 presets' operands): products are
             # exact in fp32 and sums fp32 on both sides
             half = tuple(a.bfloat16() if torch.is_tensor(a) and a.dim() == 4 else a
@@ -806,39 +866,50 @@ def hold_against_plain(calls, path: str, timed: bool):
                                    f"{[tuple(a.shape) for a in args[:2]]}: "
                                    f"relative error {err} > {tol_bf16}")
             tot["max_rel_err_bf16"] = max(tot["max_rel_err_bf16"], err)
-            shape = {"call": entry, "count": count, "args": [
-                list(a.shape) if torch.is_tensor(a) else a for a in args]}
+            dtype = args[0].dtype
+            shape = {"call": entry, "count": count, "dtype": str(dtype)[len("torch."):],
+                     "args": [list(a.shape) if torch.is_tensor(a) else a for a in args]}
             tot["shapes"].append(shape)
             if not timed:
                 continue
-            ms = cuda_ms(lambda: kern(*args), iters=20)
-            dev_ms, source = device_ms(lambda: kern(*args))
-            lib_ms = cuda_ms(lambda: lib(*args), iters=20)
+            ms = cuda_ms(lambda: kern(*args), iters=iters)
+            dev_ms, source = device_ms(lambda: kern(*args), calls=iters,
+                                       replays=max(2, iters // 4))
+            lib_ms = cuda_ms(lambda: lib(*args), iters=iters)
+            plain_iters = max(1, iters // 4)
+            plain_ms = cuda_ms(lambda: plain(*args), iters=plain_iters,
+                               warmup=int(plain_iters > 1))
+            flops, nbytes = cost(args)
+            peak = (PEAK_FP32_FLOPS if name != "tap_matmul" else
+                    PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_3XTF32_FLOPS)
+            bound_ms, bound_by = bound(flops, nbytes, peak)
             tot["ms"] += count * ms
             tot["device_ms"] += count * dev_ms
             tot["device_ms_source"].add(source)
-            tot["plain_ms"] += count * cuda_ms(lambda: plain(*args), iters=5, warmup=1)
+            tot["plain_ms"] += count * plain_ms
             tot["library_ms"] += count * lib_ms
-            flops, nbytes = cost(args)
             tot["flops"] += count * flops
             tot["bytes"] += count * nbytes
             shape.update({"ms": ms, "device_ms": dev_ms, "library_ms": lib_ms,
-                          "gflop": flops / 1e9})
-            if name == "tap_matmul":
-                print(f"[train] tap_matmul {entry} {shape['args'][:2]} x{count}: "
-                      f"{ms:.4f} ms per call ({flops / ms / 1e9:.1f} TFLOP/s), device "
-                      f"{dev_ms:.4f} ms, library {lib_ms:.4f} ms", flush=True)
-            elif name == "bn_bwd_apply":
-                shape["bound_ms"] = bound(flops, nbytes)[0]
-                print(f"[train] bn_bwd_apply {shape['args'][0]} {args[0].dtype} x{count}: "
-                      f"{ms:.4f} ms per call, device {dev_ms:.4f} ms, library "
-                      f"{lib_ms:.4f} ms, bound {shape['bound_ms']:.4f} ms (bytes)",
-                      flush=True)
+                          "plain_ms": plain_ms, "gflop": flops / 1e9, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "share": bound_ms / dev_ms})
+            print(f"[{path}] {name} {entry} {shape['dtype']} {shape['args'][:2]} x{count}: "
+                  f"{ms:.4f} ms per call, device {dev_ms:.4f} ms, library {lib_ms:.4f} ms "
+                  f"({lib_ms / dev_ms:.2f}x the device ms), plain {plain_ms:.2f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; {100 * shape['share']:.1f}% of it)",
+                  flush=True)
     for name, tot in totals.items():
+        if cast is not None and name != "tap_matmul":
+            continue
         print(f"[{path}] {name}: {len(tot['shapes'])} shapes held against the plain "
               f"version; max |kernel - plain| {tot['max_abs_err']:.3g} "
               f"({tot['max_rel_err']:.3g} of the largest plain value; "
               f"{tot['max_rel_err_bf16']:.3g} with bf16 operands)", flush=True)
+        if timed:
+            per_step = sum(s["count"] * s["bound_ms"] for s in tot["shapes"])
+            print(f"[{path}] {name} per step: device {tot['device_ms']:.3f} ms, library "
+                  f"{tot['library_ms']:.3f} ms, bound {per_step:.3f} ms "
+                  f"({100 * per_step / tot['device_ms']:.1f}% of it)", flush=True)
     return totals
 
 
@@ -4279,6 +4350,11 @@ SUITE_LAUNCHES = {
 # step that ran in fp32 fails (two fp32 steps of one preset agree to 1e-7)
 SUITE_BF16_FP32 = ("stage1_vgan_res64_bf16", "stage1_vgan_res100_bf16",
                    "stage1_wae_res64_bf16_b1024")
+# the flags-on rows whose kernel calls are also timed one by one (in the
+# row's dtype, and the weight grads again cast to fp32), against their bound
+# and library call, and whose profiled steps attribute the elementwise
+# kernels (casts, copies) to their callers: the paper's image size
+SUITE_PER_CALL = ("stage1_vgan_res100_bf16",)
 BF16_LOSS_TOL = 5e-3
 BF16_MIN_GAP = 1e-6
 # flags on against flags off with bf16 operands, per tensor (check_tensors
@@ -4367,22 +4443,27 @@ def suite_checks_frozen_and_moved(name, nets, start, opt_state, history):
 
 def suite_profile(name, off, on):
     """Where the flags-on step's device time goes beside the flags-off
-    step's (``profile_step``'s of each): the ms of the port's own kernels
-    (``dw.cu``, ``bn.cu``) and the kernels whose time grew the most."""
-    ours = {"dw.cu": ("dw_wgmma", "dw_finish"),
+    step's (``profile_step``'s of each): the ms of the port's own kernels,
+    by source (``dw.cu``, ``bn.cu``) and by kernel, and the kernels whose
+    time grew the most."""
+    ours = {"dw.cu": ("dw_wgmma", "dw_finish", "dw_pitch_rows"),
             "bn.cu": ("bn_reduce_kernel", "bn_reduce_finish", "bn_apply_runs_kernel",
                       "bn_apply_channels_kernel")}
-    by_source = {src: sum(ms for k, ms in on["by_kernel"].items()
-                          if any(n in k for n in names))
-                 for src, names in ours.items()}
+    by_kernel = {n: sum(ms for k, ms in on["by_kernel"].items() if n in k)
+                 for names in ours.values() for n in names}
+    by_source = {src: sum(by_kernel[n] for n in names) for src, names in ours.items()}
     grew = sorted(((on["by_kernel"].get(k, 0.0) - off["by_kernel"].get(k, 0.0), k[:60])
                    for k in set(on["by_kernel"]) | set(off["by_kernel"])), reverse=True)
     out = {"device_ms_off": off["device_ms"], "device_ms_on": on["device_ms"],
            "busy_share_off": off["busy_share"], "busy_share_on": on["busy_share"],
-           "ms_by_source_on": by_source, "grew_most": grew[:4], "shrank_most": grew[-4:]}
+           "ms_by_source_on": by_source, "ms_by_kernel_on": by_kernel,
+           "grew_most": grew[:4], "shrank_most": grew[-4:],
+           **{f"elementwise_{k}": p["elementwise"] for k, p in (("off", off), ("on", on))
+              if "elementwise" in p}}
     print(f"[suite] {name}: profiled step, device ms flags off {off['device_ms']:.2f}, on "
           f"{on['device_ms']:.2f}; in the port's kernels: " + ", ".join(
-              f"{src} {ms:.2f} ms" for src, ms in by_source.items()) + "; grew most: " +
+              f"{src} {ms:.2f} ms" for src, ms in by_source.items()) + " (" + ", ".join(
+              f"{k} {ms:.2f}" for k, ms in by_kernel.items()) + "); grew most: " +
           "; ".join(f"{k} {ms:+.2f} ms" for ms, k in grew[:4]) + "; shrank most: " +
           "; ".join(f"{k} {ms:+.2f} ms" for ms, k in grew[-4:]), flush=True)
     return out
@@ -4430,7 +4511,9 @@ def suite_train_row(name, dev, configs, smi, launches_by_path):
     del start
     if name not in SUITE_LAUNCHES:
         return out
-    prof_off = profile_step(lambda: step(state, *draw()), f"suite {name} flags off", seconds)
+    per_call = name in SUITE_PER_CALL
+    prof_off = profile_step(lambda: step(state, *draw()), f"suite {name} flags off", seconds,
+                            callers=per_call)
     del state
 
     # the flags-off step against the fp32 step of its preset from the same
@@ -4469,7 +4552,17 @@ def suite_train_row(name, dev, configs, smi, launches_by_path):
     print(f"[suite] {name}: both kernel flags on: {out['flags_on_s_per_step']:.4f} s per "
           f"step; launches per step {launches}", flush=True)
     out["profile"] = suite_profile(name, prof_off, profile_step(
-        lambda: step_on(on, *draw()), f"suite {name} flags on", out["flags_on_s_per_step"]))
+        lambda: step_on(on, *draw()), f"suite {name} flags on", out["flags_on_s_per_step"],
+        callers=per_call))
+    if per_call:  # one more step's calls, timed one by one after the step's timings
+        # (timed before the steps, or their operands held through them, the steps ran
+        # 1.6-1.8x slower on the host clock)
+        _, _, calls, _ = record_step(lambda: step_on(on, *draw()))
+        del on
+        out["per_call"] = {
+            "own": hold_against_plain(calls, f"suite {name}", True, iters=5),
+            "fp32": hold_against_plain(calls, f"suite {name} cast to fp32", True,
+                                       cast=torch.float32, iters=5)}
     return out
 
 
@@ -4952,9 +5045,13 @@ def main() -> None:
 
     # 19. the JAX package's benchmark suite, row by row, through the port
     suite_launches, suite_numbers = suite_phase(dev, smi)
+    per_call = {row: suite_numbers[row].pop("per_call") for row in SUITE_PER_CALL}
     for entry in train_kernels:
         entry["launches_by_path"].update(
             {path: counts[entry["name"]] for path, counts in suite_launches.items()})
+        # res100's calls one by one: the row's own dtype, then cast to fp32
+        entry["shapes_res100"] = [row for calls in per_call.values() for dtype in ("own", "fp32")
+                                  for row in calls[dtype][entry["name"]]["shapes"]]
 
     # 8. kernels line; ssim at every shape the inference run gave it, each
     #    held against the plain version, times summed over the run's launches

@@ -14,7 +14,10 @@ Functions per layer: one takes dx from the stock input grad, the other
 CUDA kernel on the card) and runs only when the weight's gradient is asked
 for, as ``fmri_tpu/ops/conv.py:86-117, 194-231`` compute them. The gate is
 the JAX one (:62-63, :176-177): stride 1, or k5/p2/s2 (deconv: k5/p2/s2
-only); any other geometry takes the stock backward in both packages.
+only); any other geometry takes the stock backward in both packages. The
+two Functions share the operands cast to the compute dtype: x is cast once
+for the forward and both grads (and saved so), dy once for both grads, as
+XLA's one convert feeds every use in the JAX step.
 
 ``alt_backward=True`` (``ModelConfig.alt_backward``) routes :func:`conv2d`
 through the same pair of Functions with the rewrites of ``ops/conv_alt.py``
@@ -71,16 +74,14 @@ def _deconv(x, weight, stride, padding, output_padding, compute_dtype):
                                       output_padding=output_padding), compute_dtype)
 
 
-def _input_grad(dy, x, weight, stride, padding, output_padding, transposed,
-                compute_dtype):
-    """The stock input grad, as autograd of the forward computes it: dy
-    cast to the compute dtype, ``convolution_backward`` for the input only,
-    the result cast back to x's dtype."""
-    dyc, xc, wc = _operands(compute_dtype, dy, x, weight)
+def _input_grad(dyc, xc, wc, stride, padding, output_padding, transposed, x_dtype):
+    """The stock input grad, as autograd of the forward computes it, from
+    the operands cast to the compute dtype: ``convolution_backward`` for
+    the input only, the result cast back to x's dtype."""
     dx = torch.ops.aten.convolution_backward(
         dyc.to(xc.dtype), xc, wc, None, [stride] * 2, [padding] * 2, [1, 1],
         transposed, [output_padding] * 2, 1, [True, False, False])[0]
-    return dx.to(x.dtype)
+    return dx.to(x_dtype)
 
 
 def _stock_weight_grad(dy, x, weight, stride, padding, compute_dtype):
@@ -96,88 +97,85 @@ def _stock_weight_grad(dy, x, weight, stride, padding, compute_dtype):
 
 class _WeightGrad(torch.autograd.Function):
     """The weight-grad node of a ``pallas_backward`` or ``alt_backward``
-    conv or deconv. Its output is a placeholder (one zero, broadcast to the
-    layer's output shape) that the input-grad Function takes as an extra
-    input and hands ``dy`` back through, so autograd runs this node, and
-    launches ``ops/dw.py``, only when the weight's gradient is asked for: a
-    pullback to the input alone prunes it, as XLA's DCE prunes the dW of the
-    JAX step. ``route`` is ``"pallas"`` (``ops/dw.py``), ``"patches"``
-    (``conv_alt.conv2d_dw_patches``) or ``"stock"``."""
+    conv or deconv. Its output is a placeholder (one zero in the compute
+    dtype, broadcast to the layer's output shape) that the input-grad
+    Function takes as an extra input and hands ``dy``, already cast, back
+    through, so autograd runs this node, and launches ``ops/dw.py``, only
+    when the weight's gradient is asked for: a pullback to the input alone
+    prunes it, as XLA's DCE prunes the dW of the JAX step. ``xc`` is x cast
+    to the compute dtype. ``route`` is ``"pallas"`` (``ops/dw.py``),
+    ``"patches"`` (``conv_alt.conv2d_dw_patches``) or ``"stock"``."""
 
     @staticmethod
-    def forward(ctx, weight, x, out_shape, out_dtype, geometry):
-        ctx.save_for_backward(x)
+    def forward(ctx, weight, xc, out_shape, geometry):
+        ctx.save_for_backward(xc)
         ctx.weight_meta = (weight.shape, weight.dtype)
         ctx.geometry = geometry
-        return x.new_zeros((), dtype=out_dtype).expand(out_shape)
+        return xc.new_zeros(()).expand(out_shape)
 
     @staticmethod
-    def backward(ctx, dy):
-        x, = ctx.saved_tensors
+    def backward(ctx, dyc):
+        xc, = ctx.saved_tensors
         shape, dtype = ctx.weight_meta
         route, stride, padding, output_padding, transposed, cd = ctx.geometry
         k = shape[-1]
         if route == "stock":  # the library needs the weight's shape, not its values
-            weight = x.new_empty(shape, dtype=dtype)
-            return _stock_weight_grad(dy, x, weight, stride, padding, cd), \
-                None, None, None, None
-        xc, dyc = _operands(cd, x, dy)
-        if route == "patches":
+            dw_ = _stock_weight_grad(dyc, xc, xc.new_empty(shape, dtype=dtype), stride,
+                                     padding, cd)
+        elif route == "patches":
             dw_ = conv_alt.conv2d_dw_patches(xc, dyc, padding, k)
         elif transposed:
             dw_ = dw.conv2d_transpose_dw(xc.contiguous(), dyc.contiguous(), stride,
                                          padding, output_padding, k)
         else:
             dw_ = dw.conv2d_dw(xc.contiguous(), dyc.contiguous(), stride, padding, k)
-        return dw_.to(dtype), None, None, None, None
+        return dw_.to(dtype), None, None, None
 
 
 class _Conv2dDW(torch.autograd.Function):
-    """The forward conv and its input grad, stock or (``phases``) by
-    ``conv_alt.conv2d_dx_phases``; ``tap`` (the :class:`_WeightGrad`
-    placeholder) receives ``dy`` for the weight grad."""
+    """The forward conv of ``xc`` (x cast to the compute dtype) and the
+    input grad of x, stock or (``phases``) by ``conv_alt.conv2d_dx_phases``;
+    ``tap`` (the :class:`_WeightGrad` placeholder) receives ``dy``, cast
+    once for both grads, for the weight grad."""
 
     @staticmethod
-    def forward(ctx, x, weight, tap, stride, padding, compute_dtype, phases):
-        ctx.save_for_backward(x, weight)
-        ctx.geometry = (stride, padding, compute_dtype, phases)
-        return _conv(x, weight, stride, padding, compute_dtype)
+    def forward(ctx, x, weight, tap, xc, stride, padding, compute_dtype, phases):
+        ctx.save_for_backward(xc, weight)
+        ctx.geometry = (stride, padding, compute_dtype, phases, x.dtype)
+        return _conv(xc, weight, stride, padding, compute_dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        x, weight = ctx.saved_tensors
-        stride, padding, cd, phases = ctx.geometry
+        xc, weight = ctx.saved_tensors
+        stride, padding, cd, phases, x_dtype = ctx.geometry
+        dyc, wc = _operands(cd, dy, weight)
         dx = None
         if ctx.needs_input_grad[0] and phases:
-            dyc, wc = _operands(cd, dy, weight)
-            dx = conv_alt.conv2d_dx_phases(dyc, wc, x.shape[2:], padding).to(x.dtype)
+            dx = conv_alt.conv2d_dx_phases(dyc, wc, xc.shape[2:], padding).to(x_dtype)
         elif ctx.needs_input_grad[0]:
-            dx = _input_grad(dy, x, weight, stride, padding, 0, False, cd)
-        return dx, None, dy if ctx.needs_input_grad[2] else None, None, None, None, None
+            dx = _input_grad(dyc, xc, wc, stride, padding, 0, False, x_dtype)
+        return (dx, None, dyc if ctx.needs_input_grad[2] else None) + (None,) * 5
 
 
 class _Deconv2dDW(torch.autograd.Function):
-    """The forward deconv and its stock input grad; ``tap`` as in
-    :class:`_Conv2dDW`."""
+    """The forward deconv of ``xc`` and the stock input grad of x; ``tap``
+    as in :class:`_Conv2dDW`."""
 
     @staticmethod
-    def forward(ctx, x, weight, tap, stride, padding, output_padding, compute_dtype):
-        ctx.save_for_backward(x, weight)
-        ctx.geometry = (stride, padding, output_padding, compute_dtype)
-        return _deconv(x, weight, stride, padding, output_padding, compute_dtype)
+    def forward(ctx, x, weight, tap, xc, stride, padding, output_padding, compute_dtype):
+        ctx.save_for_backward(xc, weight)
+        ctx.geometry = (stride, padding, output_padding, compute_dtype, x.dtype)
+        return _deconv(xc, weight, stride, padding, output_padding, compute_dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        x, weight = ctx.saved_tensors
-        stride, padding, output_padding, cd = ctx.geometry
+        xc, weight = ctx.saved_tensors
+        stride, padding, output_padding, cd, x_dtype = ctx.geometry
+        dyc, wc = _operands(cd, dy, weight)
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = _input_grad(dy, x, weight, stride, padding, output_padding, True, cd)
-        return dx, None, dy if ctx.needs_input_grad[2] else None, None, None, None, None
-
-
-def _out_dtype(x: torch.Tensor, compute_dtype: str | None) -> torch.dtype:
-    return x.dtype if compute_dtype in (None, "float32") else torch.float32
+            dx = _input_grad(dyc, xc, wc, stride, padding, output_padding, True, x_dtype)
+        return (dx, None, dyc if ctx.needs_input_grad[2] else None) + (None,) * 5
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
@@ -200,9 +198,10 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
     else:
         return _conv(x, weight, stride, padding, compute_dtype)
     shape = (x.shape[0], co, *(dw._out_size(n, k, stride, padding) for n in x.shape[2:]))
-    tap = _WeightGrad.apply(weight, x.detach(), shape, _out_dtype(x, compute_dtype),
-                            (route, stride, padding, 0, False, compute_dtype))
-    return _Conv2dDW.apply(x, weight.detach(), tap, stride, padding, compute_dtype,
+    xc, = _operands(compute_dtype, x.detach())
+    tap = _WeightGrad.apply(weight, xc, shape, (route, stride, padding, 0, False,
+                                                compute_dtype))
+    return _Conv2dDW.apply(x, weight.detach(), tap, xc, stride, padding, compute_dtype,
                            phases)
 
 
@@ -218,11 +217,10 @@ def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor, stride: int = 2,
     if pallas_backward and stride == 2 and padding == 2 and k == 5:
         shape = (x.shape[0], weight.shape[1], *((n - 1) * stride - 2 * padding + k
                                                 + output_padding for n in x.shape[2:]))
-        tap = _WeightGrad.apply(weight, x.detach(), shape,
-                                _out_dtype(x, compute_dtype),
-                                ("pallas", stride, padding, output_padding, True,
-                                 compute_dtype))
-        return _Deconv2dDW.apply(x, weight.detach(), tap, stride, padding,
+        xc, = _operands(compute_dtype, x.detach())
+        tap = _WeightGrad.apply(weight, xc, shape, ("pallas", stride, padding,
+                                                    output_padding, True, compute_dtype))
+        return _Deconv2dDW.apply(x, weight.detach(), tap, xc, stride, padding,
                                  output_padding, compute_dtype)
     return _deconv(x, weight, stride, padding, output_padding, compute_dtype)
 

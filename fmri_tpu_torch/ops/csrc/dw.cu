@@ -63,10 +63,20 @@
 //     No atomics: two runs give the same bits. The tile, the patch and the
 //     split count come from ops/dw.py::plan, which models waves of blocks
 //     on 132 SMs; the C entry checks that the patch holds every tap.
-//   * Where TMA cannot describe an operand (rows not a multiple of 16 bytes,
-//     a box side over 256; no shape of the res64 step, but the res100
-//     step's 25 and 13 px layers), the same threads fill the same layouts
-//     with plain loads.
+//   * Every call takes this one asynchronous path. TMA describes an operand
+//     only if its base and its row strides are whole 16-byte units, and the
+//     res100 step's rows are not: 100, 50, 25, 13 and 7 columns (and U's
+//     2,500, 625, 169 and 49 positions) of bf16 are never, of fp32 below 100
+//     columns not. Such an operand is first re-laid, by dw_pitch_rows on
+//     the same stream, into scratch whose rows start every `pitch` elements
+//     (the row rounded up to 16 bytes); the tensor map keeps the true
+//     extents with the padded strides, so TMA's out-of-bounds fill still
+//     supplies the convolution's zero padding and the pad columns are never
+//     read as data. The copy reads and writes each staged operand once (at
+//     res100 bf16, batch 256: ~2 ms of HBM traffic a step against the ~87 ms
+//     that filling the ring with synchronous element-by-element loads, the
+//     path it replaces, lost). A patch side over 256 (TMA's limit for a box;
+//     no preset gives one) is refused, not loaded another way.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -94,7 +104,6 @@ struct Geometry {
   int within_row;       // a tile's positions lie in one output row (PW % RK == 0)
   int Cp, Hp, Wp;       // S patch of one stage: channels, rows, columns
   int patch_stride;     // bytes between the patches of two stages
-  int use_tma;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -310,9 +319,8 @@ template <> struct Wgmma<128> {
 // position offsets, the barriers (sized by `launch`).
 template <typename T, int MT, int NT>
 __global__ void __launch_bounds__(MT * 2, 1)
-dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ out,
-         const __grid_constant__ CUtensorMap umap, const __grid_constant__ CUtensorMap smap,
-         Geometry g) {
+dw_wgmma(float* __restrict__ out, const __grid_constant__ CUtensorMap umap,
+         const __grid_constant__ CUtensorMap smap, Geometry g) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kThreads = MT * 2;
   constexpr int RK = kRowBytes / static_cast<int>(sizeof(T));
@@ -366,32 +374,11 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
       }
       ro_tab[s * RK + k] = ro;
     }
-    uint8_t* bdst = b_ring + s * kBStage;
-    T* pdst = reinterpret_cast<T*>(patches + s * g.patch_stride);
-    if (g.use_tma) {
-      if (tid == 0) {
-        fence_proxy_async();
-        mbar_expect_tx(&bars[s], kBStage + patch_bytes);
-        tma_load_3d(bdst, &umap, &bars[s], pos0, n0, b);
-        tma_load_4d(pdst, &smap, &bars[s], w0, h0, cs_lo, b);
-      }
-    } else {  // the same layouts, by plain loads
-      for (int e = tid; e < NT * RK; e += kThreads) {
-        const int n = e / RK, j = e - n * RK;
-        T v = T(0.f);
-        if (n0 + n < g.N && pos0 + j < phw) v = U[((long long)b * g.Cu + n0 + n) * phw + pos0 + j];
-        const int jb = j * static_cast<int>(sizeof(T));
-        *reinterpret_cast<T*>(bdst + n * kRowBytes + ((((jb >> 4) ^ (n & 7))) << 4) + (jb & 15)) = v;
-      }
-      const int hw = g.Hp * g.Wp;
-      for (int e = tid; e < g.Cp * hw; e += kThreads) {
-        const int c = e / hw, r = e - c * hw, hh = r / g.Wp;
-        const int cs = cs_lo + c, h = h0 + hh, w = w0 + r - hh * g.Wp;
-        T v = T(0.f);
-        if (cs < g.Cs && h >= 0 && h < g.Hs && w >= 0 && w < g.Ws)
-          v = S[(((long long)b * g.Cs + cs) * g.Hs + h) * g.Ws + w];
-        pdst[e] = v;
-      }
+    if (tid == 0) {
+      fence_proxy_async();
+      mbar_expect_tx(&bars[s], kBStage + patch_bytes);
+      tma_load_3d(b_ring + s * kBStage, &umap, &bars[s], pos0, n0, b);
+      tma_load_4d(patches + s * g.patch_stride, &smap, &bars[s], w0, h0, cs_lo, b);
     }
   };
 
@@ -400,7 +387,7 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
   // order these generic-proxy writes before wgmma's reads of them.
   auto prepare = [&](int j) {
     const int s = j % kStages;
-    if (g.use_tma) mbar_wait(&bars[s], (j / kStages) & 1);
+    mbar_wait(&bars[s], (j / kStages) & 1);
     if constexpr (kF32) {
       float4* hi = reinterpret_cast<float4*>(b_ring + s * kBStage);
       float4* lo = reinterpret_cast<float4*>(b_lo + (j % 3) * kBStage);
@@ -421,9 +408,6 @@ dw_wgmma(const T* __restrict__ S, const T* __restrict__ U, float* __restrict__ o
 
   for (int i = 0; i < kAhead; ++i)
     if (i < ntiles) load(t_lo + i, i);
-  // The plain loads of tile 0 come from every thread, and prepare(0) splits
-  // in place what other warps stored.
-  if (!g.use_tma) __syncthreads();
   if (ntiles > 0) prepare(0);
 
   // acc: the stage on the tensor cores; sum: the block's total, to which
@@ -537,6 +521,29 @@ __global__ void dw_finish(const float* __restrict__ partial,
   }
 }
 
+// dst[r * pitch + c] = src[r * width + c] for c < width, zero for width <= c
+// < pitch, r < rows: an operand whose rows are not whole 16-byte units,
+// re-laid on rows that are, for TMA. W is the element's bits (uint16_t for
+// bf16, uint32_t for fp32): the copy is exact. One thread per 16 bytes of
+// dst: the stores are whole and coalesced, the loads element by element,
+// neighbouring threads on neighbouring addresses.
+template <typename W>
+__global__ void dw_pitch_rows(const W* __restrict__ src, W* __restrict__ dst, long long rows,
+                              int width, int pitch) {
+  constexpr int kUnit = 16 / static_cast<int>(sizeof(W));
+  const int units = pitch / kUnit;
+  const long long n = rows * units, step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
+    const long long r = i / units;
+    const int c0 = (int)(i - r * units) * kUnit;
+    const W* from = src + r * width + c0;
+    alignas(16) W v[kUnit];
+#pragma unroll
+    for (int j = 0; j < kUnit; ++j) v[j] = c0 + j < width ? from[j] : W(0);
+    *reinterpret_cast<uint4*>(dst + r * pitch + c0) = *reinterpret_cast<const uint4*>(v);
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -563,10 +570,18 @@ EncodeTiled encode_tiled() {
 constexpr int kEncodeFailed = 1000;  // a TMA map could not be made
 constexpr int kTooLarge = 1001;      // the S patch does not fit in shared memory
 constexpr int kPatchShort = 1002;    // the S patch misses a tap the kernel reads
+constexpr int kBoxTooLarge = 1003;   // a patch side over 256, TMA's limit for a box
+constexpr int kMisaligned = 1004;    // an operand's base or row pitch not on 16 bytes
+
+// An operand as its tensor map sees it: its base and the pitch, in
+// elements, between the starts of its rows (its innermost extent).
+struct Operand {
+  const void* base;
+  long long pitch;
+};
 
 template <typename T, int MT, int NT>
-int launch(const void* S, const void* U, float* dst, const Geometry& g, int splits,
-           cudaStream_t st) {
+int launch(Operand S, Operand U, float* dst, const Geometry& g, int splits, cudaStream_t st) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int RK = kRowBytes / static_cast<int>(sizeof(T));
   constexpr int kMaxBytes = 232448;
@@ -580,41 +595,40 @@ int launch(const void* S, const void* U, float* dst, const Geometry& g, int spli
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxBytes);
   if (err != cudaSuccess) return (int)err;
+  // U as [B, Cu, PH*PW] and S as [B, Cs, Hs, Ws]: the true extents (TMA
+  // fills what lies past them with zeros) over the pitched row strides.
+  const CUtensorMapDataType type =
+      kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint64_t esz = sizeof(T), phw = (cuuint64_t)g.PH * g.PW;
+  const cuuint64_t udims[3] = {phw, (cuuint64_t)g.Cu, (cuuint64_t)g.B};
+  const cuuint64_t ustrides[2] = {U.pitch * esz, U.pitch * g.Cu * esz};
+  const cuuint32_t ubox[3] = {(cuuint32_t)RK, (cuuint32_t)NT, 1};
+  const cuuint64_t sdims[4] = {(cuuint64_t)g.Ws, (cuuint64_t)g.Hs, (cuuint64_t)g.Cs,
+                               (cuuint64_t)g.B};
+  const cuuint64_t sstrides[3] = {S.pitch * esz, S.pitch * g.Hs * esz,
+                                  S.pitch * g.Hs * g.Cs * esz};
+  const cuuint32_t sbox[4] = {(cuuint32_t)g.Wp, (cuuint32_t)g.Hp, (cuuint32_t)g.Cp, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  EncodeTiled encode = encode_tiled();
   CUtensorMap umap = {}, smap = {};
-  if (g.use_tma) {
-    EncodeTiled encode = encode_tiled();
-    const CUtensorMapDataType type =
-        kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-    const cuuint64_t esz = sizeof(T), phw = (cuuint64_t)g.PH * g.PW;
-    const cuuint64_t udims[3] = {phw, (cuuint64_t)g.Cu, (cuuint64_t)g.B};
-    const cuuint64_t ustrides[2] = {phw * esz, phw * g.Cu * esz};
-    const cuuint32_t ubox[3] = {(cuuint32_t)RK, (cuuint32_t)NT, 1};
-    const cuuint64_t sdims[4] = {(cuuint64_t)g.Ws, (cuuint64_t)g.Hs, (cuuint64_t)g.Cs,
-                                 (cuuint64_t)g.B};
-    const cuuint64_t sstrides[3] = {g.Ws * esz, (cuuint64_t)g.Hs * g.Ws * esz,
-                                    (cuuint64_t)g.Cs * g.Hs * g.Ws * esz};
-    const cuuint32_t sbox[4] = {(cuuint32_t)g.Wp, (cuuint32_t)g.Hp, (cuuint32_t)g.Cp, 1};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    if (encode == nullptr ||
-        encode(&umap, type, 3, const_cast<void*>(U), udims, ustrides, ubox, unit,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-        encode(&smap, type, 4, const_cast<void*>(S), sdims, sstrides, sbox, unit,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return kEncodeFailed;
-  }
+  if (encode == nullptr ||
+      encode(&umap, type, 3, const_cast<void*>(U.base), udims, ustrides, ubox, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&smap, type, 4, const_cast<void*>(S.base), sdims, sstrides, sbox, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return kEncodeFailed;
   dim3 grid((g.M + MT - 1) / MT, (g.N + NT - 1) / NT, splits);
-  kernel<<<grid, MT * 2, (size_t)bytes, st>>>(static_cast<const T*>(S),
-                                              static_cast<const T*>(U), dst, umap, smap, g);
+  kernel<<<grid, MT * 2, (size_t)bytes, st>>>(dst, umap, smap, g);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(int mt, int nt, const void* S, const void* U, float* dst, const Geometry& g,
-             int splits, cudaStream_t st) {
+int dispatch(int mt, int nt, Operand S, Operand U, float* dst, const Geometry& g, int splits,
+             cudaStream_t st) {
   if (mt == 64) {
     switch (nt) {
       case 8: return launch<T, 64, 8>(S, U, dst, g, splits, st);
@@ -628,19 +642,60 @@ int dispatch(int mt, int nt, const void* S, const void* U, float* dst, const Geo
   return (int)cudaErrorInvalidValue;
 }
 
+// The operand `src` of `rows` rows of `width` elements, as TMA will read
+// it: itself where its base and rows lie on 16 bytes (pitch == width), else
+// copied into `stage` on rows of `pitch` elements (dw_pitch_rows).
+template <typename T>
+int place(const void* src, void* stage, long long rows, int width, int pitch, Operand* op,
+          cudaStream_t st) {
+  constexpr int kUnit = 16 / static_cast<int>(sizeof(T));
+  if (pitch < width || pitch % kUnit != 0) return kMisaligned;
+  if (stage == nullptr) {
+    if (pitch != width || reinterpret_cast<uintptr_t>(src) % 16 != 0) return kMisaligned;
+    *op = Operand{src, pitch};
+    return 0;
+  }
+  if (reinterpret_cast<uintptr_t>(stage) % 16 != 0) return kMisaligned;
+  const long long units = rows * (pitch / kUnit);
+  const int blocks = (int)min((units + 255) / 256, 8192LL);
+  using W = typename std::conditional<sizeof(T) == 2, uint16_t, uint32_t>::type;
+  if (blocks > 0)
+    dw_pitch_rows<W><<<blocks, 256, 0, st>>>(static_cast<const W*>(src), static_cast<W*>(stage),
+                                             rows, width, pitch);
+  *op = Operand{stage, pitch};
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run(int mt, int nt, const void* S, void* s_stage, int s_pitch, const void* U, void* u_stage,
+        int u_pitch, float* dst, const Geometry& g, int splits, cudaStream_t st) {
+  Operand s_op, u_op;
+  int err = place<T>(S, s_stage, (long long)g.B * g.Cs * g.Hs, g.Ws, s_pitch, &s_op, st);
+  if (err == 0)
+    err = place<T>(U, u_stage, (long long)g.B * g.Cu, g.PH * g.PW, u_pitch, &u_op, st);
+  return err != 0 ? err : dispatch<T>(mt, nt, s_op, u_op, dst, g, splits, st);
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. mt x nt: the tile of D one block owns (64 x
 // 8, 32, 64 or 128, or 128 x 128); Cp x Hp x Wp: the S patch one stage holds,
-// within_row: a tile's positions lie in one output row. The wrapper picks
-// all of them (ops/dw.py::plan); this entry only checks that the patch holds
-// every (tap, position) pair of a tile. The reduction is `tiles_per_image`
-// tiles of RK positions per image, `chunk` tiles per split. With splits > 1,
-// partial is scratch of splits * N * M floats; with splits == 1 the blocks
-// write out directly. out is [Cu, Cs, K, K] float32. Returns 0, a CUDA error
-// code, 1000 when a TMA map cannot be encoded, 1001 when the S patches do not
-// fit in shared memory, or 1002 when the patch is too small.
-extern "C" int tap_matmul(const void* S, const void* U, float* partial, float* out, int dtype,
+// within_row: a tile's positions lie in one output row. S_pitch and U_pitch:
+// the row pitches, in elements, that TMA reads S's rows (Ws) and U's rows
+// (PH*PW) on, whole 16-byte units; where one differs from its row, or the
+// operand's base is not on 16 bytes, `S_stage` / `U_stage` is scratch of
+// rows * pitch elements that the operand is first copied into (else null).
+// The wrapper picks all of them (ops/dw.py::plan); this entry only checks
+// that the patch holds every (tap, position) pair of a tile. The reduction
+// is `tiles_per_image` tiles of RK positions per image, `chunk` tiles per
+// split. With splits > 1, partial is scratch of splits * N * M floats; with
+// splits == 1 the blocks write out directly. out is [Cu, Cs, K, K] float32.
+// Returns 0, a CUDA error code, 1000 when a TMA map cannot be encoded, 1001
+// when the S patches do not fit in shared memory, 1002 when the patch is too
+// small, 1003 when a patch side is over 256, or 1004 when an operand TMA
+// would read is not on 16 bytes.
+extern "C" int tap_matmul(const void* S, void* S_stage, int S_pitch, const void* U,
+                          void* U_stage, int U_pitch, float* partial, float* out, int dtype,
                           int mt, int nt, int B, int Cs, int Hs, int Ws, int Cu, int PH,
                           int PW, int K, int stride, int pad, int splits, int chunk, int Cp,
                           int Hp, int Wp, int within_row, void* stream) {
@@ -657,19 +712,16 @@ extern "C" int tap_matmul(const void* S, const void* U, float* partial, float* o
   if ((within_row && PW % rk != 0) || Wp % unit != 0 || Wp < cols ||
       Hp < (rows - 1) * stride + K || Cp < min(Cs, (mt - 1) / (K * K) + 2))
     return kPatchShort;
+  if (Wp > 256 || Hp > 256 || Cp > 256) return kBoxTooLarge;
   const long long patch = (long long)Cp * Hp * Wp * esz;
-  const int patch_stride = (int)min((patch + 1023) / 1024 * 1024, 1LL << 30);
-  const int use_tma = (phw * esz) % 16 == 0 && (Ws * esz) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(U) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(S) % 16 == 0 && Wp <= 256 && Hp <= 256 &&
-                      Cp <= 256
-                          ? 1
-                          : 0;
+  const int patch_stride = (int)((patch + 1023) / 1024 * 1024);
   Geometry g{B, Cs, Hs, Ws, Cu, PH, PW, K, stride, pad, Cs * K * K, Cu,
-             per_image, B * per_image, chunk, within_row, Cp, Hp, Wp, patch_stride, use_tma};
+             per_image, B * per_image, chunk, within_row, Cp, Hp, Wp, patch_stride};
   float* dst = splits > 1 ? partial : out;
-  const int err = dtype == 0 ? dispatch<float>(mt, nt, S, U, dst, g, splits, st)
-                             : dispatch<__nv_bfloat16>(mt, nt, S, U, dst, g, splits, st);
+  const int err = dtype == 0 ? run<float>(mt, nt, S, S_stage, S_pitch, U, U_stage, U_pitch, dst,
+                                          g, splits, st)
+                             : run<__nv_bfloat16>(mt, nt, S, S_stage, S_pitch, U, U_stage,
+                                                  U_pitch, dst, g, splits, st);
   if (err != 0 || splits == 1) return err;
   const long long count = (long long)g.N * g.M;
   const int blocks = (int)min((count + 255) / 256, 4096LL);

@@ -18,9 +18,12 @@ raises; a CPU tensor takes ``*_plain``, one einsum per tap
 (:func:`tap_matmul_plain`). On the card the product runs on the tensor
 cores (``wgmma``): fp32 operands as 3xTF32, bf16 operands in one bf16 pass;
 :func:`plan` picks the tile, the shared-memory patch of the shifted operand
-(:func:`patch_shape`) and the split of the reduction, and the kernel is
-launched with that geometry (its C entry checks that the patch holds every
-tap it reads).
+(:func:`patch_shape`), the split of the reduction and the row pitches TMA
+reads each operand on (:func:`pitch`), and the kernel is launched with that
+geometry (its C entry checks that the patch holds every tap it reads). An
+operand whose rows are not whole 16-byte units is first copied onto those
+pitches, in the same C call and on the same stream, into scratch that
+:func:`tap_matmul` allocates.
 """
 
 from __future__ import annotations
@@ -115,7 +118,7 @@ def _lib():
     lib = build.load("dw")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tap_matmul.restype = i
-    lib.tap_matmul.argtypes = [p] * 4 + [i] * 19 + [p]
+    lib.tap_matmul.argtypes = [p, p, i] * 2 + [p] * 2 + [i] * 19 + [p]
     return lib
 
 
@@ -134,6 +137,14 @@ def patch_shape(mt: int, k: int, stride: int, cs: int, pw: int,
     unit = 16 // esz  # the box starts on 16 bytes, up to unit - 1 columns early
     return (min(cs, (mt - 1) // (k * k) + 2), (nrows - 1) * stride + k,
             (cols + 2 * unit - 2) // unit * unit, within_row)
+
+
+def pitch(n: int, esz: int = 4) -> int:
+    """The row pitch, in elements, that TMA reads a row of ``n`` elements on:
+    n rounded up to a whole number of 16-byte units (TMA's rule for a row
+    stride). A row already that long is read where it lies."""
+    unit = 16 // esz
+    return -(-n // unit) * unit
 
 
 def ring_stages(nt: int) -> int:
@@ -162,8 +173,9 @@ def resident_blocks(mt: int, nt: int, patch_bytes: int, esz: int = 4) -> int:
 
 class Plan(NamedTuple):
     """One launch of ``csrc/dw.cu``: the tile of D a block owns (mt x nt),
-    the split of the reduction (``splits`` runs of ``chunk`` tiles), and the
-    S patch a stage holds (:func:`patch_shape`)."""
+    the split of the reduction (``splits`` runs of ``chunk`` tiles), the S
+    patch a stage holds (:func:`patch_shape`), and the row pitches TMA reads
+    S's rows (Ws) and U's rows (PH*PW) on (:func:`pitch`)."""
     mt: int
     nt: int
     splits: int
@@ -172,6 +184,8 @@ class Plan(NamedTuple):
     hp: int
     wp: int
     within_row: bool
+    s_pitch: int
+    u_pitch: int
 
 
 @functools.cache
@@ -205,7 +219,22 @@ def plan(shifted_shape: tuple, direct_shape: tuple, k: int, stride: int,
         if best is None or cost < best[0]:
             best = (cost, s)
     chunk = cdiv(tiles, best[1])
-    return Plan(mt, nt, cdiv(tiles, chunk), chunk, cp, hp, wp, within_row)
+    return Plan(mt, nt, cdiv(tiles, chunk), chunk, cp, hp, wp, within_row,
+                pitch(shifted_shape[3], esz), pitch(ph * pw, esz))
+
+
+def _stage(t: torch.Tensor, rows: int, width: int, row_pitch: int) -> torch.Tensor | None:
+    """Scratch of ``rows * row_pitch`` elements for an operand that TMA
+    cannot read where it lies (rows of ``width`` elements not on the pitch,
+    or a base off 16 bytes), which the kernel copies its rows into; else
+    None."""
+    if row_pitch == width and t.data_ptr() % 16 == 0:
+        return None
+    return torch.empty(rows * row_pitch, dtype=t.dtype, device=t.device)
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def tap_matmul(shifted: torch.Tensor, direct: torch.Tensor, k: int, stride: int,
@@ -225,9 +254,12 @@ def tap_matmul(shifted: torch.Tensor, direct: torch.Tensor, k: int, stride: int,
     p = plan(tuple(shifted.shape), tuple(direct.shape), k, stride, shifted.element_size())
     partial = (torch.empty((p.splits, cu, cs * k * k), dtype=torch.float32,
                            device=shifted.device) if p.splits > 1 else out)
+    s_stage = _stage(shifted, b * cs * hs, ws, p.s_pitch)
+    u_stage = _stage(direct, b * cu, ph * pw, p.u_pitch)
     with torch.cuda.device(shifted.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().tap_matmul(shifted.data_ptr(), direct.data_ptr(),
+        rc = _lib().tap_matmul(shifted.data_ptr(), _ptr(s_stage), p.s_pitch,
+                               direct.data_ptr(), _ptr(u_stage), p.u_pitch,
                                partial.data_ptr(), out.data_ptr(),
                                KERNEL_DTYPES[shifted.dtype], p.mt, p.nt, b, cs, hs, ws,
                                cu, ph, pw, k, stride, pad, p.splits, p.chunk, p.cp,
@@ -235,8 +267,9 @@ def tap_matmul(shifted: torch.Tensor, direct: torch.Tensor, k: int, stride: int,
     if rc != 0:
         raise RuntimeError(f"tap_matmul launch failed with code {rc} (a CUDA "
                            f"error; 1000: no TMA descriptor; 1001: the S patch does not fit in "
-                           f"shared memory; 1002: the S patch misses a tap) "
-                           f"(shifted {tuple(shifted.shape)}, direct "
+                           f"shared memory; 1002: the S patch misses a tap; 1003: an S patch "
+                           f"side over 256, TMA's limit for a box; 1004: an operand not on 16 "
+                           f"bytes) (shifted {tuple(shifted.shape)}, direct "
                            f"{tuple(direct.shape)}, k {k}, stride {stride})")
     tap_matmul.launches += 1
     return out

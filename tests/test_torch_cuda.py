@@ -171,7 +171,8 @@ DW_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-4}
 def test_dw_kernel_matches_plain(cuda_device, kind, b, ci, h, co, stride, dtype):
     """The weight-grad kernel at res64 step shapes (the last two: the
     discriminator's 128->256 and 256->256 stride-2 convs at batch 192) and
-    one ragged shape (PH*PW = 25: no TMA box, the plain-load path): within
+    one ragged shape (PH*PW = 25, 9 px rows: both operands staged on pitched
+    rows before the TMA ring): within
     ``DW_TOL`` of the plain version's largest magnitude (fp32 operands as
     3xTF32, bf16 operands exact in fp32, sums in fp32), and the same bits
     from run to run."""
@@ -194,9 +195,11 @@ def test_dw_kernel_matches_plain(cuda_device, kind, b, ci, h, co, stride, dtype)
 
 # (S, U, stride) of the res100 step's weight grads at its batch of 100: the
 # encoder, the decoder's deconvs (S = dy, U = x) and out conv, and the
-# discriminator's two narrowest convs (batch 300). U rows of 625 or 169
-# positions, or S rows of 25 or 13 columns, are not whole 16-byte units, so
-# these take the plain-load path (all of them with bf16 operands).
+# discriminator's two narrowest convs (batch 300); then the two largest at
+# the suite's batch of 256, the 128->64 deconv at 50->100 px and the 64->3
+# out conv. U rows of 2,500, 625, 169 or 49 positions, or S rows of 50, 25 or
+# 13 columns (and every row with bf16 operands), are not whole 16-byte
+# units, so these operands are staged on pitched rows before the TMA ring.
 RES100_DW = [((100, 3, 100, 100), (100, 64, 50, 50), 2),
              ((100, 64, 50, 50), (100, 128, 25, 25), 2),
              ((100, 128, 25, 25), (100, 256, 13, 13), 2),
@@ -205,16 +208,18 @@ RES100_DW = [((100, 3, 100, 100), (100, 64, 50, 50), 2),
              ((100, 64, 100, 100), (100, 128, 50, 50), 2),
              ((100, 64, 100, 100), (100, 3, 100, 100), 1),
              ((300, 128, 25, 25), (300, 256, 13, 13), 2),
-             ((300, 256, 13, 13), (300, 256, 7, 7), 2)]
+             ((300, 256, 13, 13), (300, 256, 7, 7), 2),
+             ((256, 64, 100, 100), (256, 128, 50, 50), 2),
+             ((256, 64, 100, 100), (256, 3, 100, 100), 1)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s_shape,u_shape,stride", RES100_DW)
 def test_dw_kernel_res100_shapes_are_reproducible(cuda_device, s_shape, u_shape, stride,
                                                   dtype):
-    """The weight-grad kernel at the res100 step's shapes, most of them on
-    the plain-load path: within ``DW_TOL`` of the plain version, and the same
-    bits in four runs."""
+    """The weight-grad kernel at the res100 step's shapes, most of them
+    staged on pitched rows: within ``DW_TOL`` of the plain version, and the
+    same bits in four runs."""
     g = torch.Generator(device=cuda_device).manual_seed(sum(s_shape) + sum(u_shape))
     s = torch.randn(s_shape, generator=g, device=cuda_device).to(dtype)
     u = torch.randn(u_shape, generator=g, device=cuda_device).to(dtype)
@@ -223,6 +228,26 @@ def test_dw_kernel_res100_shapes_are_reproducible(cuda_device, s_shape, u_shape,
     assert runs[0].shape == ref.shape == (u_shape[1], s_shape[1], 5, 5)
     assert float((runs[0] - ref).abs().max()) <= DW_TOL[dtype] * float(ref.abs().max())
     assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_kernel_stages_a_misaligned_operand_and_refuses_a_wide_patch(cuda_device, dtype):
+    """Operands whose base is off 16 bytes (contiguous slices of a larger
+    buffer, rows already whole 16-byte units) are staged too and give the
+    plain result within ``DW_TOL``; a call whose S patch would be over 256
+    columns, TMA's limit for a box (a 130-wide output row at stride 2), is
+    refused with code 1003, not loaded another way."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((2 * 4 * 32 * 32 + 1,), generator=g, device=cuda_device).to(dtype)
+    dy = torch.randn((2 * 8 * 16 * 16 + 1,), generator=g, device=cuda_device).to(dtype)
+    x, dy = x[1:].view(2, 4, 32, 32), dy[1:].view(2, 8, 16, 16)
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    got, ref = port_dw.conv2d_dw(x, dy, 2, 2, 5), port_dw.conv2d_dw_plain(x, dy, 2, 2, 5)
+    assert float((got - ref).abs().max()) <= DW_TOL[dtype] * float(ref.abs().max())
+    wide = torch.zeros((1, 1, 260, 260), device=cuda_device, dtype=dtype)
+    with pytest.raises(RuntimeError, match="code 1003"):
+        port_dw.conv2d_dw(wide, torch.zeros((1, 1, 130, 130), device=cuda_device,
+                                            dtype=dtype), 2, 2, 5)
 
 
 def test_train_wrappers_check_their_operands(cuda_device):

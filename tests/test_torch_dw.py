@@ -120,6 +120,53 @@ def test_functions_match_torch_autograd(kind, stride, output_padding, compute_dt
         np.testing.assert_allclose(dw_.numpy(), exact.numpy(), rtol=2e-5, atol=2e-4)
 
 
+class _Casts(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the dtype casts (``aten._to_copy`` to another dtype) that run
+    under it, by (shape, source dtype, target dtype); autograd's worker runs
+    the backward under the same mode."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func is torch.ops.aten._to_copy.default and out.dtype != args[0].dtype:
+            key = (tuple(args[0].shape), args[0].dtype, out.dtype)
+            self.n[key] = self.n.get(key, 0) + 1
+        return out
+
+
+@pytest.mark.parametrize("kind", ["conv", "deconv"])
+def test_bf16_weight_grad_node_casts_each_operand_once(kind):
+    """A bf16 ``pallas_backward`` conv or deconv casts x to bf16 once, for
+    its forward, its input grad and its weight grad together, and dy once,
+    for both grads; dx and dW are the bits of the arithmetic they replace:
+    dx the stock autograd of the bf16 forward, dW ``ops/dw.py`` on the
+    operands cast to bf16."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(2, 6, 8, 8)).astype(np.float32))
+    if kind == "conv":
+        w = torch.from_numpy(0.1 * rng.normal(size=(4, 6, 5, 5)).astype(np.float32))
+        fwd = lambda a, b, pb: conv.conv2d(a, b, 2, 2, "bfloat16", pb)  # noqa: E731
+    else:
+        w = torch.from_numpy(0.1 * rng.normal(size=(6, 4, 5, 5)).astype(np.float32))
+        fwd = lambda a, b, pb: conv.conv2d_transpose(a, b, 2, 2, 1, "bfloat16", pb)  # noqa: E731
+    dy = torch.from_numpy(rng.normal(size=tuple(fwd(x, w, False).shape)).astype(np.float32))
+    casts = _Casts()
+    with casts:
+        y, dx, dw_ = _grads(lambda a, b: fwd(a, b, True), x, w, dy)
+    y_ref, dx_ref, _ = _grads(lambda a, b: fwd(a, b, False), x, w, dy)
+    xb, dyb = x.bfloat16(), dy.bfloat16()
+    dw_ref = (dw.conv2d_dw(xb, dyb, 2, 2, 5) if kind == "conv"
+              else dw.conv2d_transpose_dw(xb, dyb, 2, 2, 1, 5))
+    assert torch.equal(y, y_ref) and torch.equal(dx, dx_ref) and torch.equal(dw_, dw_ref)
+    to_bf16 = (torch.float32, torch.bfloat16)
+    assert casts.n[(tuple(x.shape), *to_bf16)] == 1
+    assert casts.n[(tuple(dy.shape), *to_bf16)] == 1
+
+
 def test_out_of_scope_geometry_takes_the_stock_backward():
     """k3/p1/s2 is outside the kernel's gate (as in the JAX package): no
     custom Function, and the gradients are autograd's own."""
@@ -138,65 +185,100 @@ def test_out_of_scope_geometry_takes_the_stock_backward():
     assert "DW" not in type(y.grad_fn).__name__  # deconv: k5/p2/s2 only
 
 
+def _pitch_rows(a, row_pitch):
+    """``csrc/dw.cu::dw_pitch_rows``: the rows (last axis) of ``a`` on
+    ``row_pitch`` elements, flat. The kernel writes zeros past each row;
+    here they are NaN, so a tensor map whose true extents let one through
+    spoils the result."""
+    rows = a.reshape(-1, a.shape[-1])
+    out = np.full((rows.shape[0], row_pitch), np.nan)
+    out[:, :rows.shape[1]] = rows
+    return out.reshape(-1)
+
+
+def _tma_box(flat, dims, row_pitch, start, box):
+    """A TMA box of a tensor map over ``flat``: extents ``dims`` and box
+    ``box`` innermost first, rows ``row_pitch`` elements apart, the box at
+    ``start``; zero outside the extents. Returned outermost first."""
+    strides = np.cumprod([1, row_pitch, *dims[1:-1]])
+    grids = np.meshgrid(*[np.arange(c, c + n) for c, n in zip(start, box)][::-1],
+                        indexing="ij")[::-1]
+    inside = np.logical_and.reduce([(g >= 0) & (g < d) for g, d in zip(grids, dims)])
+    offset = sum(g * st for g, st in zip(grids, strides))
+    return np.where(inside, flat[np.where(inside, offset, 0)], 0.0)
+
+
 def _emulate_kernel(shifted, direct, k, stride, pad, esz=4):
     """csrc/dw.cu's indexing in numpy (float64): the wrapper's plan (mt, nt,
-    splits, chunk and the S patch [Cp, Hp, Wp]); the reduction in tiles of RK positions of one image,
-    zero past PH*PW (TMA's out-of-bounds fill for U); n padded to whole nt
-    tiles (zero past Cu); per block of mt rows and per tile, the S patch
-    [Cp, Hp, Wp] at (cs_lo, h0, w0) with zeros outside S, each thread's row
-    offset (channel, kh, kw; rows past M clamped to the last) and each
-    position's offset (ph, pw) into it; one partial per split, and the
-    second pass's sum over splits in split order."""
+    splits, chunk, the S patch [Cp, Hp, Wp] and the row pitches); both
+    operands on their pitched rows as TMA reads them (``_pitch_rows``, the
+    staged copy, wherever the pitch is not the row); the reduction in tiles
+    of RK positions of one image, the U box [nt, RK] at (pos0, n0, b) and
+    the S patch box at (w0, h0, cs_lo, b), zero outside the true extents
+    (``_tma_box``); each thread's row offset (channel, kh, kw; rows past M
+    clamped to the last) and each position's offset (ph, pw) into the
+    patch; one partial per split, and the second pass's sum over splits in
+    split order."""
     b, cs, hs, ws = shifted.shape
     _, cu, ph_n, pw_n = direct.shape
     m_n, phw, rk = cs * k * k, ph_n * pw_n, dw.ROW_BYTES // esz
-    per_image = -(-phw // rk)
-    mt, nt, splits, chunk, cp, hp, wp, within_row = dw.plan(shifted.shape, direct.shape,
-                                                            k, stride, esz)
-    n_pad = -(-cu // nt) * nt
-    u_pad = np.zeros((b, n_pad, per_image * rk))
-    u_pad[:, :cu, :phw] = direct.reshape(b, cu, phw)
-    s_pad = np.zeros((b, cs + cp, hs + 2 * hp + 2 * pad, ws + 2 * wp + 2 * pad))
-    oh, ow = hp + pad, wp + pad  # where S[.., 0, 0] sits in s_pad
-    s_pad[:, :cs, oh:oh + hs, ow:ow + ws] = shifted
-    partial = np.zeros((splits, n_pad, m_n))
-    for m0 in range(0, m_n, mt):
+    per_image, unit = -(-phw // rk), 16 // esz
+    p = dw.plan(shifted.shape, direct.shape, k, stride, esz)
+    assert (p.s_pitch * esz) % 16 == 0 and (p.u_pitch * esz) % 16 == 0
+    s_flat = _pitch_rows(shifted, p.s_pitch)
+    u_flat = _pitch_rows(direct.reshape(b, cu, phw), p.u_pitch)
+    partial = np.zeros((p.splits, cu, m_n))
+    for m0 in range(0, m_n, p.mt):
         cs_lo = m0 // (k * k)
-        m = np.minimum(np.arange(m0, m0 + mt), m_n - 1)
+        m = np.minimum(np.arange(m0, m0 + p.mt), m_n - 1)
         c, tap = m // (k * k) - cs_lo, m % (k * k)
-        mb = (c * hp + tap // k) * wp + tap % k
-        for z in range(splits):
-            for tile in range(z * chunk, min(b * per_image, (z + 1) * chunk)):
+        mb = (c * p.hp + tap // k) * p.wp + tap % k
+        rows = slice(m0, min(m0 + p.mt, m_n))
+        for z in range(p.splits):
+            for tile in range(z * p.chunk, min(b * per_image, (z + 1) * p.chunk)):
                 bb, pos0 = tile // per_image, (tile % per_image) * rk
                 ph0 = pos0 // pw_n
-                pw0 = pos0 - ph0 * pw_n if within_row else 0
+                pw0 = pos0 - ph0 * pw_n if p.within_row else 0
                 h0 = ph0 * stride - pad
-                w0 = (pw0 * stride - pad) // (16 // esz) * (16 // esz)  # 16-byte start
+                w0 = (pw0 * stride - pad) // unit * unit  # 16-byte start
                 shift = pw0 * stride - pad - w0
-                patch = s_pad[bb, cs_lo:cs_lo + cp, oh + h0:oh + h0 + hp,
-                              ow + w0:ow + w0 + wp].reshape(-1)
+                patch = _tma_box(s_flat, (ws, hs, cs, b), p.s_pitch, (w0, h0, cs_lo, bb),
+                                 (p.wp, p.hp, p.cp, 1)).reshape(-1)
                 pos = pos0 + np.arange(rk)
                 ph = pos // pw_n
-                ro = shift + np.where(pos < phw, (ph - ph0) * stride * wp
+                ro = shift + np.where(pos < phw, (ph - ph0) * stride * p.wp
                                       + (pos - ph * pw_n - pw0) * stride, 0)
                 a = patch[ro[:, None] + mb[None]]                      # [rk, mt]
-                rows = slice(m0, min(m0 + mt, m_n))
-                partial[z][:, rows] += (u_pad[bb, :, pos0:pos0 + rk]
-                                        @ a)[:, :rows.stop - m0]
+                for n0 in range(0, cu, p.nt):
+                    u = _tma_box(u_flat, (phw, cu, b), p.u_pitch, (pos0, n0, bb),
+                                 (rk, p.nt, 1))[0]                     # [nt, rk]
+                    cols = slice(n0, min(n0 + p.nt, cu))
+                    partial[z][cols, rows] += (u @ a)[:cols.stop - n0, :rows.stop - m0]
     out = partial[0]
-    for z in range(1, splits):
+    for z in range(1, p.splits):
         out = out + partial[z]
-    return out[:cu].reshape(cu, cs, k, k)
+    return out.reshape(cu, cs, k, k)
 
 
 @pytest.mark.parametrize("kind,b,ci,h,co,stride", [
     ("conv", 4, 3, 64, 32, 1), ("conv", 2, 16, 16, 8, 2), ("conv", 2, 8, 8, 3, 1),
     ("deconv", 2, 16, 8, 8, 2), ("deconv", 2, 4, 5, 3, 2), ("conv", 3, 5, 9, 7, 2),
-    ("conv", 2, 8, 64, 4, 2), ("conv", 2, 4, 32, 130, 1)])
+    ("conv", 2, 8, 64, 4, 2), ("conv", 2, 4, 32, 130, 1),
+    # res100's geometries (50 -> 25, 25 -> 13, 13 -> 7 px; the decoder's 13
+    # and 25 px inputs; the out conv's 100 px rows), whose rows are not whole
+    # 16-byte units and are staged on pitched rows, at small batch and width
+    *[(f"{kind}-{dtype}", 2, ci, h, co, stride) for dtype in ("fp32", "bf16")
+      for kind, ci, h, co, stride in (
+          ("conv", 3, 50, 4, 2), ("conv", 4, 25, 5, 2), ("conv", 6, 13, 9, 2),
+          ("deconv", 5, 13, 4, 2), ("deconv", 3, 25, 6, 2), ("conv", 3, 100, 3, 1))]])
 def test_kernel_index_arithmetic_emulated(kind, b, ci, h, co, stride):
-    """The CUDA kernel cannot run here; its indexing, padding and split
-    plan, emulated in float64, give the plain weight grad (which sums in
-    fp32: rtol 1e-5, atol 1e-4)."""
+    """The CUDA kernel cannot run here; its indexing, padding, staging and
+    split plan, emulated in float64, give the plain weight grad (which sums
+    in fp32: rtol 1e-5, atol 1e-4). ``conv`` cases run with fp32 tiles (32
+    positions), ``deconv`` ones with bf16 tiles (64), unless the kind names
+    its dtype."""
+    kind, _, dtype = kind.partition("-")
+    esz = {"fp32": 4, "bf16": 2}.get(dtype, 4 if kind == "conv" else 2)
     rng = np.random.default_rng(b + ci + h + co)
     x = rng.normal(size=(b, ci, h, h))
     if kind == "conv":
@@ -204,13 +286,13 @@ def test_kernel_index_arithmetic_emulated(kind, b, ci, h, co, stride):
         dy = rng.normal(size=(b, co, oh, oh))
         ref = dw.conv2d_dw_plain(torch.from_numpy(x).double(),
                                  torch.from_numpy(dy).double(), stride, 2, 5)
-        got = _emulate_kernel(x, dy, 5, stride, 2)
+        got = _emulate_kernel(x, dy, 5, stride, 2, esz)
     else:
         oh = 2 * h
         dy = rng.normal(size=(b, co, oh, oh))
         ref = dw.conv2d_transpose_dw_plain(torch.from_numpy(x), torch.from_numpy(dy),
                                            2, 2, 1, 5)
-        got = _emulate_kernel(dy, x, 5, 2, 2, esz=2)  # bf16 tiles: 64 positions
+        got = _emulate_kernel(dy, x, 5, 2, 2, esz)
     np.testing.assert_allclose(got, ref.double().numpy(), rtol=1e-5, atol=1e-4)
 
 
@@ -235,11 +317,80 @@ RES100_CALLS = [((100, 3, 100, 100), (100, 64, 50, 50), 2),
                 ((300, 32, 50, 50), (300, 128, 25, 25), 2),
                 ((300, 128, 25, 25), (300, 256, 13, 13), 2),
                 ((300, 256, 13, 13), (300, 256, 7, 7), 2)]
+# Every weight grad the presets' steps call (the VAE/GAN and WAE train
+# paths, the VoxelDecoder and WaeDecoder backbones), per row of the batch:
+# (S [C, H, W], U [C, H, W], stride, images per row: the discriminator sees
+# 3). fullbrain's convs are res64's. test_preset_calls_are_the_steps_own
+# holds this table to the steps.
+PRESET_CALLS = {
+    16: [((3, 16, 16), (8, 8, 8), 2, 1), ((8, 8, 8), (16, 4, 4), 2, 1),
+         ((8, 16, 16), (3, 16, 16), 1, 1), ((16, 4, 4), (16, 2, 2), 2, 1),
+         ((128, 16, 16), (3, 16, 16), 1, 1), ((3, 16, 16), (8, 16, 16), 1, 3),
+         ((8, 16, 16), (16, 8, 8), 2, 3), ((16, 4, 4), (16, 2, 2), 2, 3),
+         ((16, 8, 8), (16, 4, 4), 2, 3), ((8, 16, 16), (8, 8, 8), 2, 1),
+         ((16, 4, 4), (16, 2, 2), 2, 1), ((8, 8, 8), (16, 4, 4), 2, 1),
+         ((128, 16, 16), (256, 8, 8), 2, 1), ((256, 8, 8), (512, 4, 4), 2, 1),
+         ((512, 4, 4), (1024, 2, 2), 2, 1)],
+    64: [((3, 64, 64), (64, 32, 32), 2, 1), ((64, 32, 32), (128, 16, 16), 2, 1),
+         ((64, 64, 64), (3, 64, 64), 1, 1), ((128, 16, 16), (256, 8, 8), 2, 1),
+         ((128, 64, 64), (3, 64, 64), 1, 1), ((3, 64, 64), (32, 64, 64), 1, 3),
+         ((32, 64, 64), (128, 32, 32), 2, 3), ((128, 32, 32), (256, 16, 16), 2, 3),
+         ((256, 16, 16), (256, 8, 8), 2, 3), ((64, 64, 64), (128, 32, 32), 2, 1),
+         ((256, 16, 16), (256, 8, 8), 2, 1), ((128, 32, 32), (256, 16, 16), 2, 1),
+         ((128, 64, 64), (256, 32, 32), 2, 1), ((256, 32, 32), (512, 16, 16), 2, 1),
+         ((512, 16, 16), (1024, 8, 8), 2, 1)],
+    100: [((3, 100, 100), (64, 50, 50), 2, 1), ((64, 50, 50), (128, 25, 25), 2, 1),
+          ((64, 100, 100), (3, 100, 100), 1, 1), ((128, 25, 25), (256, 13, 13), 2, 1),
+          ((128, 100, 100), (3, 100, 100), 1, 1), ((3, 100, 100), (32, 50, 50), 2, 3),
+          ((32, 50, 50), (128, 25, 25), 2, 3), ((128, 25, 25), (256, 13, 13), 2, 3),
+          ((256, 13, 13), (256, 7, 7), 2, 3), ((64, 100, 100), (128, 50, 50), 2, 1),
+          ((256, 25, 25), (256, 13, 13), 2, 1), ((128, 50, 50), (256, 25, 25), 2, 1),
+          ((128, 100, 100), (256, 50, 50), 2, 1), ((256, 50, 50), (512, 25, 25), 2, 1),
+          ((512, 25, 25), (1024, 13, 13), 2, 1)],
+}
+PRESET_SIZES = {"tiny": 16, "res64": 64, "res100": 100, "fullbrain": 64}
+PRESET_BATCHES = (4, 64, 100, 256, 1024)  # the suite's, the step's and the tests' batches
 
 
-def _m_n_tiles(s_shape, u_shape):
-    """(m, n, reduction tiles) of a call with fp32 operands."""
-    return s_shape[1] * 25, u_shape[1], s_shape[0] * -(-(u_shape[2] * u_shape[3]) // 32)
+def _m_n_tiles(s_shape, u_shape, esz=4):
+    """(m, n, reduction tiles) of a call with ``esz``-byte operands."""
+    return (s_shape[1] * 25, u_shape[1],
+            s_shape[0] * -(-(u_shape[2] * u_shape[3]) // (dw.ROW_BYTES // esz)))
+
+
+def _patch_holds_every_tap(stride, pw, esz, hp, wp, within_row, k=5):
+    """Every (tap, position) pair of every tile of one image reads inside
+    its stage's S patch: kh plus the position's row offset below Hp, kw plus
+    its column offset (from the patch's 16-byte-aligned first column) below
+    Wp, so a TMA box of [Cp, Hp, Wp] is enough; Wp a whole number of
+    16-byte units and no side over 256, TMA's limit for a box."""
+    rk, unit = dw.ROW_BYTES // esz, 16 // esz
+    assert (wp * esz) % 16 == 0 and max(hp, wp) <= 256
+    phw = pw * pw
+    for pos0 in range(0, phw, rk):
+        ph0 = pos0 // pw
+        pw0 = pos0 - ph0 * pw if within_row else 0
+        shift = (pw0 * stride - 2) - (pw0 * stride - 2) // unit * unit
+        pos = np.arange(pos0, min(phw, pos0 + rk))
+        ph, pwv = pos // pw, pos % pw
+        assert ((ph - ph0) * stride + k - 1).max() < hp
+        assert (shift + (pwv - pw0) * stride + k - 1).max() < wp
+        assert (pwv >= pw0).all() and 0 <= shift < unit
+
+
+def _assert_one_tma_path(s_shape, u_shape, stride, esz, p):
+    """The launch ``p`` takes the kernel's one asynchronous path: its patch
+    is the one ``patch_shape`` gives and holds every tap within TMA's box
+    limit, the block's shared memory fits in the 227 KB an SM grants one
+    block, and both operands lie on row pitches of whole 16-byte units,
+    each its row rounded up (TMA's rule for a row stride)."""
+    assert (p.cp, p.hp, p.wp, p.within_row) == dw.patch_shape(p.mt, 5, stride, s_shape[1],
+                                                              u_shape[3], esz)
+    _patch_holds_every_tap(stride, u_shape[3], esz, p.hp, p.wp, p.within_row)
+    assert p.cp <= 256 and dw.smem_bytes(p.nt, p.cp * p.hp * p.wp * esz, esz) <= 232448
+    unit = 16 // esz
+    for row, row_pitch in ((s_shape[3], p.s_pitch), (u_shape[2] * u_shape[3], p.u_pitch)):
+        assert row_pitch % unit == 0 and row <= row_pitch < row + unit
 
 
 @pytest.mark.parametrize("s_shape,u_shape,stride", STEP_CALLS + RES100_CALLS, ids=[
@@ -248,20 +399,86 @@ def test_plan_covers_the_reduction(s_shape, u_shape, stride):
     """Every tile in exactly one split; the narrowest N extent that covers
     n (three output channels: a 64 x 8 tile); splits at least MIN_TILES
     long; at least 95% of a wave of blocks on the card wherever the
-    reduction is long enough to split that far; and the patch of the plan
-    is the one ``patch_shape`` gives, with the block's shared memory inside
-    the 227 KB an SM grants one block."""
+    reduction is long enough to split that far; and the launch takes the
+    kernel's one asynchronous path (``_assert_one_tma_path``)."""
     m, n, tiles = _m_n_tiles(s_shape, u_shape)
-    mt, nt, splits, chunk, cp, hp, wp, within_row = dw.plan(s_shape, u_shape, 5, stride)
-    assert nt == next((t for t in dw.TILE_N if n <= t), 128) and mt in (64, 128)
-    assert (splits - 1) * chunk < tiles <= splits * chunk
-    assert splits == 1 or chunk >= dw.MIN_TILES
-    blocks = -(-m // mt) * -(-n // nt)
-    assert blocks * splits >= min(0.95 * dw.SMS, blocks * (tiles // dw.MIN_TILES))
+    p = dw.plan(s_shape, u_shape, 5, stride)
+    assert p.nt == next((t for t in dw.TILE_N if n <= t), 128) and p.mt in (64, 128)
+    assert (p.splits - 1) * p.chunk < tiles <= p.splits * p.chunk
+    assert p.splits == 1 or p.chunk >= dw.MIN_TILES
+    blocks = -(-m // p.mt) * -(-n // p.nt)
+    assert blocks * p.splits >= min(0.95 * dw.SMS, blocks * (tiles // dw.MIN_TILES))
     if n == 3:
-        assert (mt, nt) == (64, 8)
-    assert (cp, hp, wp, within_row) == dw.patch_shape(mt, 5, stride, s_shape[1], u_shape[3])
-    assert dw.smem_bytes(nt, cp * hp * wp * 4) <= 232448
+        assert (p.mt, p.nt) == (64, 8)
+    _assert_one_tma_path(s_shape, u_shape, stride, 4, p)
+
+
+PRESET_CASES = [(s, u, stride, per, esz) for size in sorted(set(PRESET_SIZES.values()))
+                for s, u, stride, per in PRESET_CALLS[size] for esz in (4, 2)]
+
+
+@pytest.mark.parametrize("s_row,u_row,stride,per,esz", PRESET_CASES, ids=[
+    f"{s[1]}px-" + "-".join(map(str, (*_m_n_tiles((per, *s), (per, *u), esz)[:2], esz)))
+    for s, u, _, per, esz in PRESET_CASES])
+def test_every_preset_call_takes_the_tma_path(s_row, u_row, stride, per, esz):
+    """Every weight grad of every preset (``PRESET_CALLS``) at every batch of
+    ``PRESET_BATCHES``, with fp32 and with bf16 operands: every tile in
+    exactly one split of at least MIN_TILES tiles, the narrowest N extent
+    that covers n, and the kernel's one asynchronous path
+    (``_assert_one_tma_path``): no call is left to another way of loading."""
+    for b in PRESET_BATCHES:
+        s_shape, u_shape = (b * per, *s_row), (b * per, *u_row)
+        _, n, tiles = _m_n_tiles(s_shape, u_shape, esz)
+        p = dw.plan(s_shape, u_shape, 5, stride, esz)
+        assert p.nt == next((t for t in dw.TILE_N if n <= t), 128) and p.mt in (64, 128)
+        assert (p.splits - 1) * p.chunk < tiles <= p.splits * p.chunk
+        assert p.splits == 1 or p.chunk >= dw.MIN_TILES
+        _assert_one_tma_path(s_shape, u_shape, stride, esz, p)
+
+
+@pytest.mark.parametrize("preset", sorted(PRESET_SIZES))
+def test_preset_calls_are_the_steps_own(preset, monkeypatch):
+    """``PRESET_CALLS`` holds every weight grad of the preset's stage-I
+    VAE/GAN step (encoder, decoder twice, discriminator over 3 images per
+    row) and of its VoxelDecoder and WaeDecoder, at batch 2 with
+    ``pallas_backward``; the WAE paths and the cognitive stages reuse these
+    nets. The voxels feed only fc layers, so they are cut to 64 here."""
+    import dataclasses
+
+    from fmri_tpu_torch.configs import presets
+    from fmri_tpu_torch.models import nets
+    from fmri_tpu_torch.train.optim import RmsProp
+    from fmri_tpu_torch.train.state import GROUPS, VaeGan, make_state
+    from fmri_tpu_torch.train.steps_vgan import make_vgan_stage1_step
+
+    seen = set()
+    for name in ("conv2d_dw", "conv2d_transpose_dw"):
+        orig = getattr(dw, name)
+
+        def recorded(x, dy, stride, *rest, _orig=orig, _name=name):
+            s, u = (x, dy) if _name == "conv2d_dw" else (dy, x)
+            seen.add((tuple(s.shape[1:]), tuple(u.shape[1:]), stride, s.shape[0] // 2))
+            return _orig(x, dy, stride, *rest)
+
+        monkeypatch.setattr(dw, name, recorded)
+    cfg = presets.override_num_voxels(presets.get_config(preset), 64)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, pallas_backward=True))
+    torch.manual_seed(0)
+    rng = np.random.default_rng(0)
+    s, latent = cfg.model.image_size, cfg.model.latent_dim
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, s, s, 3)).astype(np.float32))
+    eps, z_p = (torch.from_numpy(rng.normal(size=(2, latent)).astype(np.float32))
+                for _ in range(2))
+    vaegan = VaeGan(cfg)
+    state = make_state(vaegan, {g: RmsProp() for g in GROUPS})
+    make_vgan_stage1_step(cfg).train_step(state, x, eps, z_p, 0.35, 0.68, 1e-6)
+    for module, width in ((nets.VoxelDecoder, cfg.model.num_voxels),
+                          (nets.WaeDecoder, latent)):
+        m = module(cfg.model).train()
+        out = m(torch.from_numpy(rng.normal(size=(2, width)).astype(np.float32)))
+        outs = out if isinstance(out, tuple) else (out,)
+        torch.autograd.grad(sum((o * o).sum() for o in outs), list(m.parameters()))
+    assert seen == set(PRESET_CALLS[PRESET_SIZES[preset]])
 
 
 def _tf32(a):
@@ -330,25 +547,16 @@ def test_split_tf32_arithmetic_holds_the_fp32_bound():
 
 @pytest.mark.parametrize("esz", [4, 2])
 @pytest.mark.parametrize("s_hw,stride,pw", [(64, 1, 64), (64, 2, 32), (32, 2, 16),
-                                             (16, 2, 8), (32, 1, 32), (9, 2, 5)])
+                                             (16, 2, 8), (32, 1, 32), (9, 2, 5),
+                                             # res100's and tiny's geometries
+                                             (100, 1, 100), (100, 2, 50), (50, 2, 25),
+                                             (25, 2, 13), (13, 2, 7), (16, 1, 16),
+                                             (8, 2, 4), (4, 2, 2)])
 def test_patch_holds_every_tap_of_a_tile(s_hw, stride, pw, esz):
-    """Every (tap, position) pair of every tile reads inside its stage's S
-    patch: kh plus the position's row offset below Hp, kw plus its column
-    offset (from the patch's 16-byte-aligned first column) below Wp, so a TMA
-    box of [Cp, Hp, Wp] is enough; Wp a whole number of 16-byte units."""
-    k, rk, unit = 5, dw.ROW_BYTES // esz, 16 // esz
-    _, hp, wp, within_row = dw.patch_shape(64, k, stride, 8, pw, esz)
-    assert (wp * esz) % 16 == 0
-    phw = pw * pw
-    for pos0 in range(0, phw, rk):
-        ph0 = pos0 // pw
-        pw0 = pos0 - ph0 * pw if within_row else 0
-        shift = (pw0 * stride - 2) - (pw0 * stride - 2) // unit * unit
-        pos = np.arange(pos0, min(phw, pos0 + rk))
-        ph, pwv = pos // pw, pos % pw
-        assert ((ph - ph0) * stride + k - 1).max() < hp
-        assert (shift + (pwv - pw0) * stride + k - 1).max() < wp
-        assert (pwv >= pw0).all() and 0 <= shift < unit
+    """``patch_shape``'s patch for S rows of ``s_hw`` and U rows of ``pw``
+    holds every (tap, position) pair of every tile (``_patch_holds_every_tap``)."""
+    _, hp, wp, within_row = dw.patch_shape(64, 5, stride, 8, pw, esz)
+    _patch_holds_every_tap(stride, pw, esz, hp, wp, within_row)
 
 
 def _count_dw_calls(monkeypatch):

@@ -157,8 +157,14 @@ def test_suite_phase_runs_at_tiny(monkeypatch, smoke, one_torch_thread):  # noqa
     for fn in ("memory_allocated", "max_memory_allocated"):
         monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: 0)
     # torch.profiler's CUDA activity: the step runs, no device time is read
-    monkeypatch.setattr(smoke, "profile_step", lambda run, path, step_s: (run(), {
-        "device_ms": 0.0, "kernels": 0, "busy_share": 0.0, "top": [], "by_kernel": {}})[1])
+    profiled = []
+    monkeypatch.setattr(smoke, "profile_step", lambda run, path, step_s, callers=False: (
+        run(), profiled.append((path, callers)), {"device_ms": 0.0, "kernels": 0,
+                                                  "busy_share": 0.0, "top": [],
+                                                  "by_kernel": {}})[2])
+    # the per-call timings: each call is still held against plain; no time is read
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, *a, **k: 1.0)
+    monkeypatch.setattr(smoke, "device_ms", lambda fn, *a, **k: (1.0, "stub"))
     for name in ("bn_bwd_reduce", "bn_bwd_apply"):
         monkeypatch.setattr(bn, name, _launching(getattr(bn, name)))
     for name in ("conv2d_dw", "conv2d_transpose_dw"):
@@ -172,3 +178,31 @@ def test_suite_phase_runs_at_tiny(monkeypatch, smoke, one_torch_thread):  # noqa
     assert set(numbers) == set(smoke.SUITE_ROWS) | {"phase_s"}
     for name in smoke.SUITE_ROWS:
         assert not any(numbers[name]["launches"].values()), name
+    for name in smoke.SUITE_PER_CALL:  # every call timed, the weight grads again in fp32
+        per_call = numbers[name]["per_call"]
+        own, fp32 = (per_call[k]["tap_matmul"]["shapes"] for k in ("own", "fp32"))
+        assert len(own) == len(fp32) > 0 and not per_call["fp32"]["bn_bwd_apply"]["shapes"]
+        assert {r["dtype"] for r in own} == {"bfloat16"} and {r["dtype"] for r in fp32} == {
+            "float32"}
+        assert sum(r["count"] for r in own) == SUITE_LAUNCHES[name][2]
+        bn_rows = per_call["own"]["bn_bwd_reduce"]["shapes"] + per_call["own"][
+            "bn_bwd_apply"]["shapes"]
+        assert sum(r["count"] for r in bn_rows) == sum(SUITE_LAUNCHES[name][:2])
+        assert all(r["bound_ms"] > 0 and r["share"] == r["bound_ms"] / r["device_ms"]
+                   for r in own + fp32 + bn_rows)
+        assert {callers for path, callers in profiled if name in path} == {True}
+    assert not any(callers for path, callers in profiled
+                   if not any(name in path for name in smoke.SUITE_PER_CALL))
+
+
+def test_elementwise_by_caller_counts_copies(smoke, one_torch_thread):  # noqa: F811
+    """The caller breakdown reads a profile's copies (on the CPU no kernel
+    is recorded, so no elementwise time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(4, 8)
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True, with_stack=True) as prof:
+        x.to(torch.bfloat16)
+        x.to(torch.float64)
+    out = smoke.elementwise_by_caller(prof, "test")
+    assert out["copies"] == 2 and out["elementwise_ms"] == out["copy_ms"] == 0.0
