@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from fmri_tpu_torch import native
+from fmri_tpu_torch.utils.spans import span
 
 Batch = Union[np.ndarray, Dict[str, np.ndarray]]
 
@@ -143,7 +144,9 @@ def device_iterator(batches: Iterable[Batch], device: torch.device,
     device = torch.device(device)
     if prefetch <= 0:
         for batch in batches:
-            yield to_device(batch, device)
+            with span("input.stage"):
+                staged = to_device(batch, device)
+            yield staged
         return
 
     q: Queue = Queue(maxsize=prefetch)
@@ -155,7 +158,9 @@ def device_iterator(batches: Iterable[Batch], device: torch.device,
             for batch in batches:
                 if stop.is_set():
                     return
-                q.put(to_device(batch, device))
+                with span("input.stage"):
+                    staged = to_device(batch, device)
+                q.put(staged)
         except BaseException as e:  # surfaced in the consumer, not swallowed
             q.put((err, e))
         else:

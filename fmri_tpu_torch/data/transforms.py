@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fmri_tpu_torch.utils.spans import span
+
 # ------------------------- host-side (numpy / PIL) -------------------------
 
 
@@ -129,13 +131,14 @@ def train_augment(x: torch.Tensor, flip: torch.Tensor | None = None,
     the draws; None skips that transform. Stage-I images take the flip,
     stage-II/III pairs the shift (max 5), eval neither. uint8 batches (a
     packed dataset, shipped undecoded) are dequantized here first."""
-    if x.dtype == torch.uint8:
-        x = x.float() / 255.0
-    if flip is not None:
-        x = random_flip_batch(x, flip)
-    if shifts is not None:
-        x = random_shift_batch(x, shifts)
-    return normalize(x, mean, std)
+    with span("input.augment"):
+        if x.dtype == torch.uint8:
+            x = x.float() / 255.0
+        if flip is not None:
+            x = random_flip_batch(x, flip)
+        if shifts is not None:
+            x = random_shift_batch(x, shifts)
+        return normalize(x, mean, std)
 
 
 def eval_preprocess(x: torch.Tensor, mean: Sequence[float] = (0.5, 0.5, 0.5),

@@ -58,6 +58,13 @@ data group after the last ``torch.autograd.grad``, before the optimizer;
 the gate and the metrics take the global batch's means. RMSprop's clamp is
 elementwise and needs no global norm. With a model axis the step runs
 cuDNN's deterministic algorithms (``_on_mesh``).
+
+Under a profiler the steps mark their phases (``utils/spans.py``):
+``train.step`` (``_on_mesh``, so every family's step), ``train.forward``
+(through the head losses), ``train.backward`` (the spliced backward's
+segments ``train.backward.discriminator``, ``.decoder``, ``.encoder``),
+``train.gate`` (the gradients' reduction, the head sums, the gate, the
+learning rate) and ``train.optimizer`` (``train.optimizer.<group>``).
 """
 
 from __future__ import annotations
@@ -75,6 +82,7 @@ from fmri_tpu_torch.models.nets import reparameterize
 from fmri_tpu_torch.train.common import gate_float
 from fmri_tpu_torch.train.optim import RmsProp
 from fmri_tpu_torch.train.state import COGNITIVE_TRAINED, GROUPS, TrainState
+from fmri_tpu_torch.utils.spans import span
 
 MODES = ("vae-gan", "vae", "beta-vae", "dcgan")
 
@@ -141,8 +149,10 @@ def _encoder_grads(nets, z, mu, lv, gz, k_a: float, gmu=None):
 
 
 def _apply_updates(opt, state: TrainState, grads, lr, gates) -> None:
-    for name, g in grads.items():
-        opt.update(g, state.opt_state[name], state.nets.group(name), lr, gates[name])
+    with span("train.optimizer"):
+        for name, g in grads.items():
+            with span("train.optimizer." + name):
+                opt.update(g, state.opt_state[name], state.nets.group(name), lr, gates[name])
 
 
 def _data(mesh) -> int:
@@ -163,10 +173,11 @@ def _on_mesh(train_step: Callable, mesh) -> Callable:
             raise ValueError(f"the step was made for {mesh} and the state is placed on "
                              f"{state.mesh}: place it with parallel.mesh.shard_state(state, "
                              f"mesh) and make the step with the same mesh")
-        if not tp:
-            return train_step(state, *args)
-        with deterministic_cudnn():
-            return train_step(state, *args)
+        with span("train.step"):
+            if not tp:
+                return train_step(state, *args)
+            with deterministic_cudnn():
+                return train_step(state, *args)
 
     return step
 
@@ -270,68 +281,79 @@ def stage1_grads(cfg: Config, mode: str, backward: str, data: int = 1) -> Callab
             return mu, lv, reparameterize(mu, lv, eps)
 
     def grads_naive(nets, x, eps, z_p, lambda_mse, mu_cot=None):
-        mu, lv, z = encode(nets, x, eps)
-        x_tilde, x_p = _decode(nets.decoder, [z, z_p], fused)
-        feats, score = nets.discriminator(torch.cat([x, x_tilde, x_p]))
-        terms, h = heads(x, x_tilde, feats, score, mu, lv, lambda_mse)
-        gmu = mu_cot(mu.detach()) if mu_cot is not None else None
-        grads = {}
-        for i, name in enumerate(trained):
-            params = list(nets.group(name).values())
-            grads[name] = _named(nets, name, torch.autograd.grad(
-                getattr(h, name), params,
-                retain_graph=i < len(trained) - 1 or gmu is not None))
-        if gmu is not None and "encoder" in grads:
-            params = list(nets.group("encoder").values())
-            for k, g in zip(grads["encoder"], torch.autograd.grad(
-                    mu, params, gmu, materialize_grads=True)):
-                grads["encoder"][k] = grads["encoder"][k] + g
+        with span("train.forward"):
+            mu, lv, z = encode(nets, x, eps)
+            x_tilde, x_p = _decode(nets.decoder, [z, z_p], fused)
+            feats, score = nets.discriminator(torch.cat([x, x_tilde, x_p]))
+            terms, h = heads(x, x_tilde, feats, score, mu, lv, lambda_mse)
+            gmu = mu_cot(mu.detach()) if mu_cot is not None else None
+        with span("train.backward"):
+            grads = {}
+            for i, name in enumerate(trained):
+                params = list(nets.group(name).values())
+                grads[name] = _named(nets, name, torch.autograd.grad(
+                    getattr(h, name), params,
+                    retain_graph=i < len(trained) - 1 or gmu is not None))
+            if gmu is not None and "encoder" in grads:
+                params = list(nets.group("encoder").values())
+                for k, g in zip(grads["encoder"], torch.autograd.grad(
+                        mu, params, gmu, materialize_grads=True)):
+                    grads["encoder"][k] = grads["encoder"][k] + g
         return grads, terms, h
 
     def grads_spliced(nets, x, eps, z_p, lambda_mse, mu_cot=None):
         b = x.shape[0]
         dis_p = list(nets.group("discriminator").values())
-        mu, lv, z = encode(nets, x, eps)
-        gmu = mu_cot(mu.detach()) if mu_cot is not None else None
-        z_in = z.detach().requires_grad_()
-        x_tilde, x_p = _decode(nets.decoder, [z_in, z_p], fused)
-        xt_in = x_tilde.detach().requires_grad_()
-        xp_in = x_p.detach().requires_grad_()
-        feats, score = nets.discriminator(torch.cat([x, xt_in, xp_in]))
-        with torch.no_grad():
-            terms, h = heads(x, x_tilde, feats, score, mu, lv, lambda_mse)
+        with span("train.forward"):
+            mu, lv, z = encode(nets, x, eps)
+            gmu = mu_cot(mu.detach()) if mu_cot is not None else None
+            z_in = z.detach().requires_grad_()
+            x_tilde, x_p = _decode(nets.decoder, [z_in, z_p], fused)
+            xt_in = x_tilde.detach().requires_grad_()
+            xp_in = x_p.detach().requires_grad_()
+            feats, score = nets.discriminator(torch.cat([x, xt_in, xp_in]))
+            with torch.no_grad():
+                terms, h = heads(x, x_tilde, feats, score, mu, lv, lambda_mse)
 
-        # discriminator: the C basis (its head), to the images where a
-        # decoder head uses it ('vae' has no GAN term there)
-        imgs = [xt_in, xp_in] if mode != "vae" else []
-        g = torch.autograd.grad(score, dis_p + imgs, _cot_c(score, b, uses_b),
-                                retain_graph=uses_b)
-        grads = {"discriminator": _named(nets, "discriminator", g[:len(dis_p)])}
-        gxt_c, gxp_c = g[len(dis_p):] or (None, None)
-        lam = lambda_mse
-        if uses_b:
-            gxt_b, gxp_b = torch.autograd.grad(feats, [xt_in, xp_in], _cot_b(feats, b))
-            outs = [x_tilde, x_p]
-            cot_dec = [lam * gxt_b - (1.0 - lam) * gxt_c,
-                       lam * gxp_b - (1.0 - lam) * gxp_c]
-            cot_enc_img = gxt_b
-        else:
-            cot_nle = x_tilde.detach() - x  # d/d(x_tilde) of sum 0.5 (x - x_tilde)^2
-            if mode == "dcgan":
+        with span("train.backward"):
+            # discriminator: the C basis (its head), to the images where a
+            # decoder head uses it ('vae' has no GAN term there); the B
+            # basis to the images
+            imgs = [xt_in, xp_in] if mode != "vae" else []
+            with span("train.backward.discriminator"):
+                g = torch.autograd.grad(score, dis_p + imgs, _cot_c(score, b, uses_b),
+                                        retain_graph=uses_b)
+                grads = {"discriminator": _named(nets, "discriminator", g[:len(dis_p)])}
+                gxt_c, gxp_c = g[len(dis_p):] or (None, None)
+                if uses_b:
+                    gxt_b, gxp_b = torch.autograd.grad(feats, [xt_in, xp_in],
+                                                       _cot_b(feats, b))
+            lam = lambda_mse
+            if uses_b:
                 outs = [x_tilde, x_p]
-                cot_dec = [lam * cot_nle - (1.0 - lam) * gxt_c, -(1.0 - lam) * gxp_c]
-            else:  # 'vae': L_dec = lam * NLE only
-                outs, cot_dec = [x_tilde], [lam * cot_nle]
-            cot_enc_img = cot_nle
+                cot_dec = [lam * gxt_b - (1.0 - lam) * gxt_c,
+                           lam * gxp_b - (1.0 - lam) * gxp_c]
+                cot_enc_img = gxt_b
+            else:
+                cot_nle = x_tilde.detach() - x  # d/d(x_tilde) of sum 0.5 (x - x_tilde)^2
+                if mode == "dcgan":
+                    outs = [x_tilde, x_p]
+                    cot_dec = [lam * cot_nle - (1.0 - lam) * gxt_c, -(1.0 - lam) * gxp_c]
+                else:  # 'vae': L_dec = lam * NLE only
+                    outs, cot_dec = [x_tilde], [lam * cot_nle]
+                cot_enc_img = cot_nle
 
-        # decoder: the head's combination, then the B (or NLE) basis to z
-        grads["decoder"] = _named(nets, "decoder", torch.autograd.grad(
-            outs, list(nets.group("decoder").values()), cot_dec,
-            retain_graph=mode != "dcgan"))
-        if mode != "dcgan":
-            gz, = torch.autograd.grad(x_tilde, z_in, cot_enc_img)
-            k_a = t.beta / (b * data) if mode == "beta-vae" else 1.0
-            grads["encoder"] = _encoder_grads(nets, z, mu, lv, gz, k_a, gmu)
+            # decoder: the head's combination, then the B (or NLE) basis to z
+            with span("train.backward.decoder"):
+                grads["decoder"] = _named(nets, "decoder", torch.autograd.grad(
+                    outs, list(nets.group("decoder").values()), cot_dec,
+                    retain_graph=mode != "dcgan"))
+                if mode != "dcgan":
+                    gz, = torch.autograd.grad(x_tilde, z_in, cot_enc_img)
+            if mode != "dcgan":
+                k_a = t.beta / (b * data) if mode == "beta-vae" else 1.0
+                with span("train.backward.encoder"):
+                    grads["encoder"] = _encoder_grads(nets, z, mu, lv, gz, k_a, gmu)
         return grads, terms, h
 
     return grads_spliced if backward == "spliced" else grads_naive
@@ -357,12 +379,13 @@ def make_vgan_stage1_step(cfg: Config, mode: str = "vae-gan",
         nets.train()
         dev = x.device
         grads, terms, h = grads_fn(nets, x, eps, z_p, _scalar(lambda_mse, dev))
-        grads = _reduce_grads(grads, mesh)
-        means, sums = _head_sums(mesh, terms, h)
-        dec_gate, dis_gate = (gate_float(g) for g in equilibrium_gate(
-            terms, _scalar(equilibrium, dev), _scalar(margin, dev),
-            init_dis=(mode != "vae"), means=means))
-        lr = lr_schedule(state.step)
+        with span("train.gate"):
+            grads = _reduce_grads(grads, mesh)
+            means, sums = _head_sums(mesh, terms, h)
+            dec_gate, dis_gate = (gate_float(g) for g in equilibrium_gate(
+                terms, _scalar(equilibrium, dev), _scalar(margin, dev),
+                init_dis=(mode != "vae"), means=means))
+            lr = lr_schedule(state.step)
         _apply_updates(opt, state, grads, lr, {"encoder": 1.0, "decoder": dec_gate,
                                                "discriminator": dis_gate})
         state.step += 1
@@ -433,18 +456,15 @@ def make_vgan_cognitive_step(cfg: Config, stage: int, mode: str = "vae-gan",
         return terms, combine_mode(terms, mode, lambda_mse=lambda_mse,
                                    beta=t.beta, batch_size=b * data)
 
-    def grads_naive(nets, f, lambda_mse):
-        terms, h = heads(f, lambda_mse)
+    def grads_naive(nets, f, h, lambda_mse):
         grads = {}
         for i, name in enumerate(trained):
             params = list(nets.group(name).values())
             grads[name] = _named(nets, name, torch.autograd.grad(
                 getattr(h, name), params, retain_graph=i == 0))
-        return grads, terms, h
+        return grads
 
-    def grads_spliced(nets, f, lambda_mse):
-        with torch.no_grad():
-            terms, h = heads(f, lambda_mse)
+    def grads_spliced(nets, f, h, lambda_mse):
         b = f["gt_x"].shape[0]
         lam = lambda_mse
         dis_p = list(nets.group("discriminator").values())
@@ -453,29 +473,33 @@ def make_vgan_cognitive_step(cfg: Config, stage: int, mode: str = "vae-gan",
         # the discriminator backward runs once per base loss; in stage III
         # the C basis also reaches the images where the decoder head has B
         imgs = [f["xt_in"], f["xp_in"]] if stage == 3 and uses_b else []
-        g = torch.autograd.grad(score, dis_p + imgs, _cot_c(score, b, uses_b),
-                                retain_graph=uses_b)
-        grads = {"discriminator": _named(nets, "discriminator", g[:len(dis_p)])}
+        with span("train.backward.discriminator"):
+            g = torch.autograd.grad(score, dis_p + imgs, _cot_c(score, b, uses_b),
+                                    retain_graph=uses_b)
+            grads = {"discriminator": _named(nets, "discriminator", g[:len(dis_p)])}
+            if uses_b:  # the B basis to the images
+                cot_b = torch.autograd.grad(feats, f["xt_in"] if stage == 2 else imgs,
+                                            _cot_b(feats, b))
         if stage == 2:
-            if uses_b:
-                cot_xt, = torch.autograd.grad(feats, f["xt_in"], _cot_b(feats, b))
-            else:  # 'vae', 'dcgan': L_enc = kld + NLE
-                cot_xt = nle
-            gz, = torch.autograd.grad(x_tilde, f["z_in"], cot_xt)
+            cot_xt = cot_b[0] if uses_b else nle  # 'vae', 'dcgan': L_enc = kld + NLE
+            with span("train.backward.decoder"):
+                gz, = torch.autograd.grad(x_tilde, f["z_in"], cot_xt)
             k_a = t.beta / (b * data) if mode == "beta-vae" else 1.0
-            grads["encoder"] = _encoder_grads(nets, f["z"], f["mu"], f["lv"], gz, k_a)
+            with span("train.backward.encoder"):
+                grads["encoder"] = _encoder_grads(nets, f["z"], f["mu"], f["lv"], gz, k_a)
         else:
             if uses_b:
                 gxt_c, gxp_c = g[len(dis_p):]
-                gxt_b, gxp_b = torch.autograd.grad(feats, imgs, _cot_b(feats, b))
+                gxt_b, gxp_b = cot_b
                 outs = [x_tilde, f["x_p"]]
                 cot_dec = [lam * gxt_b - (1.0 - lam) * gxt_c,
                            lam * gxp_b - (1.0 - lam) * gxp_c]
             else:  # 'vae' and, as in the JAX spliced step, 'dcgan': lam * NLE
                 outs, cot_dec = [x_tilde], [lam * nle]
-            grads["decoder"] = _named(nets, "decoder", torch.autograd.grad(
-                outs, list(nets.group("decoder").values()), cot_dec))
-        return grads, terms, h
+            with span("train.backward.decoder"):
+                grads["decoder"] = _named(nets, "decoder", torch.autograd.grad(
+                    outs, list(nets.group("decoder").values()), cot_dec))
+        return grads
 
     grads_fn = grads_spliced if spliced else grads_naive
 
@@ -489,19 +513,28 @@ def make_vgan_cognitive_step(cfg: Config, stage: int, mode: str = "vae-gan",
         nets = state.nets
         nets.train()
         dev = fmri.device
-        f = forward(nets, fmri, image, eps, eps_t, z_p)
-        grads, terms, h = grads_fn(nets, f, _scalar(lambda_mse, dev))
-        grads = _reduce_grads(grads, mesh)
-        means, sums = _head_sums(mesh, terms, h)
-        if stage == 2:  # encoder and discriminator always train (:557-565)
-            dec_gate, dis_gate = _scalar(0.0, dev), _scalar(1.0, dev)
-            gates = {"encoder": 1.0, "discriminator": 1.0}
-        else:
-            dec_gate, dis_gate = (gate_float(g) for g in equilibrium_gate(
-                terms, _scalar(equilibrium, dev), _scalar(margin, dev),
-                init_dis=(mode != "vae"), means=means))
-            gates = {"decoder": dec_gate, "discriminator": dis_gate}
-        lr = lr_schedule(state.step)
+        with span("train.forward"):
+            f = forward(nets, fmri, image, eps, eps_t, z_p)
+            lam = _scalar(lambda_mse, dev)
+            if spliced:  # the spliced backward needs no graph of the heads
+                with torch.no_grad():
+                    terms, h = heads(f, lam)
+            else:
+                terms, h = heads(f, lam)
+        with span("train.backward"):
+            grads = grads_fn(nets, f, h, lam)
+        with span("train.gate"):
+            grads = _reduce_grads(grads, mesh)
+            means, sums = _head_sums(mesh, terms, h)
+            if stage == 2:  # encoder and discriminator always train (:557-565)
+                dec_gate, dis_gate = _scalar(0.0, dev), _scalar(1.0, dev)
+                gates = {"encoder": 1.0, "discriminator": 1.0}
+            else:
+                dec_gate, dis_gate = (gate_float(g) for g in equilibrium_gate(
+                    terms, _scalar(equilibrium, dev), _scalar(margin, dev),
+                    init_dis=(mode != "vae"), means=means))
+                gates = {"decoder": dec_gate, "discriminator": dis_gate}
+            lr = lr_schedule(state.step)
         _apply_updates(opt, state, grads, lr, gates)
         state.step += 1
         return state, _metrics(sums, fmri.shape[0] * data, dec_gate, dis_gate, lr)

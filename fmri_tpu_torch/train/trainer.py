@@ -18,7 +18,10 @@ steps and the trainer's keywords per stage):
   the NaN guard and patience, checkpoints on a cadence (optionally written
   by a background thread and pruned) and a final one;
 * ``profile``: a ``torch.profiler`` trace of the second epoch of the run,
-  summarized by ``python -m fmri_tpu_torch.utils.profile_report``;
+  summarized by ``python -m fmri_tpu_torch.utils.profile_report``: kernels
+  by device time, the idle share, and a table by program span (the
+  step's phases and the input path, ``utils/spans.py``: host ms, kernels
+  launched, blocking syncs and device idle ms in each);
 * cuDNN's deterministic algorithms (``device.deterministic_cudnn``) inside
   ``fit`` and ``evaluate_batches``, so a seed gives one run and a resumed
   run equals the uninterrupted one, as in the JAX trainer;
@@ -365,12 +368,14 @@ class Trainer:
         return {k: v / nb for k, v in zip(keys, sums)}
 
     def _profiler(self, device: torch.device):
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
 
         acts = [ProfilerActivity.CPU]
         if device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        return profile(activities=acts)
+        # every thread: the input producer's ``input.stage`` spans too
+        return profile(activities=acts,
+                       experimental_config=_ExperimentalConfig(profile_all_threads=True))
 
     # ------------------------------------------------------------------
 

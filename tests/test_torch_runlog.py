@@ -134,11 +134,55 @@ def test_profile_report_counts_busy_time_as_a_union(tmp_path):
     assert profile_report.main([str(tmp_path)]) == 0
 
 
+def test_profile_report_by_program_span(tmp_path):
+    """Per ``fmri.`` span: calls, host ms, the kernels launched inside it
+    (autograd's launch, on a thread with no span, under the step thread's
+    spans), their device ms, blocking calls on the span's own thread, and
+    the idle gaps whose midpoint it covers; a parent includes its child."""
+    def ev(cat, name, ts, dur, tid=1, corr=None):
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "tid": tid}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    events = [
+        ev("user_annotation", "fmri.train.step", 0, 1000),
+        ev("user_annotation", "fmri.train.backward", 100, 400),
+        ev("user_annotation", "fmri.train.optimizer", 600, 300),
+        ev("user_annotation", "fmri.input.stage", 150, 100, tid=3),
+        ev("cuda_runtime", "cudaLaunchKernel", 110, 5, corr=1),
+        ev("kernel", "dgrad", 120, 80, tid=9, corr=1),
+        ev("cuda_runtime", "cudaLaunchKernel", 300, 5, tid=2, corr=2),  # autograd's thread
+        ev("kernel", "wgrad", 400, 100, tid=9, corr=2),
+        ev("cuda_runtime", "cudaStreamSynchronize", 700, 50, corr=3),
+        ev("cuda_runtime", "cudaStreamSynchronize", 160, 20, tid=3, corr=4),
+        ev("cuda_runtime", "cudaLaunchKernel", 800, 5, corr=5),
+        ev("kernel", "mul", 850, 10, tid=9, corr=5),
+        ev("cuda_runtime", "cudaDeviceSynchronize", 1100, 10, corr=6),  # outside every span
+    ]
+    s = profile_report.summarize(_trace(tmp_path / "t.json", events))
+    rows = {k: {c: pytest.approx(v) for c, v in r.items()} for k, r in s["by_span"].items()}
+    # device busy [120, 200), [400, 500), [850, 860): gaps at 300 (200 us) and 675 (350 us)
+    assert rows == {
+        "fmri.train.step": dict(calls=1, host_ms=1.0, kernels=3, device_ms=0.19, syncs=1,
+                                idle_ms=0.55),
+        "fmri.train.backward": dict(calls=1, host_ms=0.4, kernels=2, device_ms=0.18, syncs=0,
+                                    idle_ms=0.2),
+        "fmri.train.optimizer": dict(calls=1, host_ms=0.3, kernels=1, device_ms=0.01, syncs=1,
+                                     idle_ms=0.35),
+        "fmri.input.stage": dict(calls=1, host_ms=0.1, kernels=0, device_ms=0.0, syncs=1,
+                                 idle_ms=0.0),
+    }
+    report = profile_report.format_report(s)
+    assert "-- by program span" in report and "fmri.train.backward" in report
+
+
 def test_profile_report_of_a_cpu_trace(tmp_path):
     path = _trace(tmp_path / "t.json", [
         {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 5, "dur": 10}])
     s = profile_report.summarize(path)
     assert s["idle_share"] is None and s["kernels"] == 0
     assert "no device kernels" in profile_report.format_report(s)
+    assert s["by_span"] == {} and "by program span" not in profile_report.format_report(s)
     with pytest.raises(FileNotFoundError):
         profile_report.find_trace(str(tmp_path / "empty"))

@@ -116,7 +116,24 @@ def test_on_device_epochs_and_profile(tmp_path, capsys):
     from fmri_tpu_torch.utils import profile_report
 
     assert profile_report.main([os.path.join(run_dir, "profile")]) == 0
-    assert "no device kernels" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "no device kernels" in out
+    table = out[out.index("-- by program span"):]
+    assert "fmri.train.step" in table and "fmri.train.optimizer.encoder" in table
+
+
+def test_profile_traces_the_input_producer(tmp_path, capsys):
+    """``--profile`` records every thread: the table has the producer
+    thread's ``input.stage`` beside the step's phases."""
+    _train(tmp_path, "--family", "vgan", "--stage", "1", "--epochs", "2", "--profile",
+           "--debug")
+    run_dir, = glob.glob(str(tmp_path / "debug" / "vgan_stage1" / "*"))
+    from fmri_tpu_torch.utils import profile_report
+
+    s = profile_report.summarize(profile_report.find_trace(os.path.join(run_dir, "profile")))
+    assert {"fmri.input.stage", "fmri.input.augment", "fmri.train.step", "fmri.train.gate"} <= set(
+        s["by_span"])
+    assert s["by_span"]["fmri.input.stage"]["calls"] == s["by_span"]["fmri.train.step"]["calls"]
 
 
 def test_packed_input(tmp_path):
