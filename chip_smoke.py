@@ -36,6 +36,11 @@ Phases, each of which fails the run (exit code 1) on a failed check:
      130 rows and ``generate(4)``; a request reconstructed alone equals it
      reconstructed inside a padded batch (float output within 1e-5; uint8
      within 1 LSB, as cuDNN may pick another algorithm per batch size);
+  5b. sync: warmed res64-bf16 stage-I and stage-II steps at batch 256 (the
+     benchmark's training cells: ``exponential_lr``, the step's scalars made
+     once, as the ``Trainer`` makes them per epoch), each with its
+     ``train_augment``, under ``torch.cuda.set_sync_debug_mode("error")``:
+     no call may wait for the device (a tensor of host data would);
   6. train: the stage-I VAE/GAN step at res64 (full published widths,
      batch 64, fp32) with ``pallas_bn`` and ``pallas_backward`` on, so the
      BatchNorm backward and the conv/deconv weight grads run through the
@@ -1097,6 +1102,79 @@ def kernel_path_checks(name, dev, path, cfg_on, weights, args, draw, want, refer
     check(counted == {k: n_steps * v for k, v in launches.items()},
           f"{name}: {counted} launches over {n_steps} steps, {launches} per step")
     return on, launches, seconds, step
+
+
+def sync_phase(dev, preset="res64-bf16", batch=256, steps=3):
+    """Phase 5b: ``steps`` warmed stage-I and stage-II steps of ``preset``,
+    each after its ``train_augment`` on uint8 images already on the device,
+    under ``torch.cuda.set_sync_debug_mode("error")``; returns the host
+    seconds per step of each stage (the device is synchronized after)."""
+    import torch
+
+    from fmri_tpu_torch.configs import get_config
+    from fmri_tpu_torch.data.transforms import train_augment
+    from fmri_tpu_torch.device import deterministic_cudnn
+    from fmri_tpu_torch.train.optim import RmsProp, exponential_lr
+    from fmri_tpu_torch.train.state import GROUPS, init_cognitive, init_vaegan, make_state
+    from fmri_tpu_torch.train.steps_vgan import make_vgan_cognitive_step, make_vgan_stage1_step
+
+    cfg = get_config(preset)
+    t, m, d = cfg.train, cfg.model, cfg.data
+    b, latent = batch, m.latent_dim
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lr = exponential_lr(t.learning_rate, t.decay_lr, 462)
+    hyper = tuple(torch.tensor(v, dtype=torch.float32, device=dev)
+                  for v in (t.margin, t.equilibrium, t.lambda_mse))
+    images = torch.randint(0, 256, (b, m.image_size, m.image_size, 3), dtype=torch.uint8,
+                           generator=gen, device=dev)
+    fmri = torch.randn((b, m.num_voxels), generator=gen, device=dev)
+    rms = RmsProp(t.rms_decay, t.rms_eps, t.grad_clip)
+    state1 = make_state(init_vaegan(cfg, seed=0).to(dev), {g: rms for g in GROUPS})
+    step1 = make_vgan_stage1_step(cfg, lr_schedule=lr).train_step
+    rms2 = RmsProp(t.rms_decay, t.rms_eps, clip=1.0)
+    state2 = make_state(init_cognitive(cfg, seed=0).to(dev),
+                        {"encoder": rms2, "discriminator": rms2})
+    step2 = make_vgan_cognitive_step(cfg, 2, lr_schedule=lr).train_step
+
+    def noise(n):
+        return [torch.randn((b, latent), generator=gen, device=dev) for _ in range(n)]
+
+    def stage1():
+        flip = torch.rand(b, generator=gen, device=dev) < 0.5
+        x = train_augment(images, flip, None, d.mean, d.std)
+        return step1(state1, x, *noise(2), *hyper)[1]
+
+    def stage2():
+        shifts = torch.randint(-d.max_shift, d.max_shift + 1, (b, 2), generator=gen, device=dev)
+        x = train_augment(images, None, shifts, d.mean, d.std)
+        return step2(state2, fmri, x, *noise(3), *hyper)[1]
+
+    seconds = {}
+    with deterministic_cudnn():
+        for name, step in (("stage1", stage1), ("stage2", stage2)):
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(steps):
+                    metrics = step()
+                seconds[name] = (time.perf_counter() - t0) / steps
+            except RuntimeError as exc:
+                fail(f"[sync] a warmed {preset} {name} step or its augment waited for the "
+                     f"device: {exc}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            losses = {k: float(v) for k, v in metrics.items() if k.startswith("loss_")}
+            check(all(v == v and abs(v) != float("inf") for v in losses.values()),
+                  f"[sync] {name}: non-finite losses {losses}")
+            print(f"[sync] {preset} {name}, batch {b}: {steps} warmed steps and their "
+                  f"train_augment under set_sync_debug_mode('error') raised nothing; host "
+                  f"{1e3 * seconds[name]:.2f} ms per step before the final synchronize; "
+                  f"losses {losses}", flush=True)
+    return seconds
 
 
 def train_phase(dev, cfg):
@@ -4964,6 +5042,9 @@ def main() -> None:
     print(f"[serving] padded batch vs alone: float {ferr:.3g}, uint8 {lsb} LSB",
           flush=True)
 
+    # 5b. no warmed train step or augment waits for the device
+    sync_seconds = sync_phase(dev)
+
     # 6. train, stage I
     t_train = time.perf_counter()
     train_kernels, stage1_launches, stage1_seconds = train_phase(dev, cfg)
@@ -5141,6 +5222,8 @@ def main() -> None:
           flush=True)
     print(f"[serve_mesh] phase 18: {serve_mesh_numbers['phase_s']:.1f} s. Numbers (host "
           f"clock; {SERVE_MESH_LABEL}): {json.dumps(serve_mesh_numbers)}", flush=True)
+    print(f"[sync] host seconds per warmed step under set_sync_debug_mode('error'): "
+          f"{json.dumps(sync_seconds)}", flush=True)
     print(f"[suite] numbers (host clock; {smi}; phase 19 {suite_numbers['phase_s']:.1f} s): "
           f"{json.dumps(suite_numbers)}", flush=True)
     phase_s = {"2-5": t_train - t_start, "6-10": t_trainer - t_train,

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fmri_tpu_torch.device import constant
 from fmri_tpu_torch.utils.spans import span
 
 # ------------------------- host-side (numpy / PIL) -------------------------
@@ -87,7 +88,9 @@ def load_stimulus(path: str, crop: int, size: int) -> np.ndarray:
 
 
 def _channel(v: Sequence[float], x: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+    """``v`` per channel in ``x``'s dtype on ``x``'s device, made once
+    (:func:`~fmri_tpu_torch.device.constant`)."""
+    return constant(tuple(v), x.dtype, x.device)
 
 
 def normalize(x: torch.Tensor, mean: Sequence[float],

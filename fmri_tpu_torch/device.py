@@ -45,3 +45,22 @@ def deterministic_cudnn():
         yield
     finally:
         torch.backends.cudnn.deterministic = saved
+
+
+_CONSTANTS: dict = {}
+
+
+def constant(value, dtype: torch.dtype, device: str | torch.device) -> torch.Tensor:
+    """``torch.as_tensor(value, dtype=dtype, device=device)`` made once per
+    (value, dtype, device) and then reused. On CUDA a tensor of host data is
+    a pageable copy that waits for the device's queue to drain; a step that
+    makes one per call stalls the host there every call. The tensor is
+    shared by every caller: never write into it. ``value`` is a number or a
+    tuple of numbers; ``device`` a tensor's (with its index on CUDA). A
+    constant that a CUDA graph reads must first be made outside the capture
+    (by the warm calls before it)."""
+    key = (value, dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS.setdefault(key, torch.as_tensor(value, dtype=dtype, device=device))
+    return t

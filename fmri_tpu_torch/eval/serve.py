@@ -209,10 +209,10 @@ class ServingModel:
         # under voxel_tp, fc1's product summed over the model group: where
         # the captured program starts
         self._h = buffers((cfg.model.cog_hidden,), data) if self.voxel_tp else {}
-        # the normalization constants on the device: a host-to-device copy
-        # cannot be captured
-        self._mean, self._std = (torch.tensor(v, device=dev)
-                                 for v in (cfg.data.mean, cfg.data.std))
+        # the normalization constants: a host-to-device copy cannot be
+        # captured, so the warm calls before each capture make them on the
+        # device (once, ``device.constant``) and the graphs read them
+        self._mean, self._std = tuple(cfg.data.mean), tuple(cfg.data.std)
         self._rng = torch.Generator(device=dev).manual_seed(seed) if sampling else None
         self._gen_rng = torch.Generator(device=dev).manual_seed(seed + 0x5EED)
         # {(kind, bucket): (graph, its static output)}, one memory pool for all

@@ -6,7 +6,9 @@ The port's copy of ``fmri_tpu/train/optim.py:32-127``. The reference skips
 (``train_vgan_stage1.py:396-432``); here the gate is a 0/1 tensor on the
 device and ``torch.where`` keeps the parameters and the moments when it is
 0, so a gated step needs no host sync and a skipped step leaves the moments
-untouched, as torch's skipped ``step()`` does.
+untouched, as torch's skipped ``step()`` does. A gate given as a number
+(the groups that always train) is decided on the host: 1 applies the update
+without ``torch.where``, 0 skips it, and neither makes a device tensor.
 
 Numerics follow torch:
   * RMSprop (``train_vgan_stage1.py:275-283``): ``sq_avg = a * sq_avg +
@@ -28,7 +30,22 @@ from typing import Dict, Mapping, NamedTuple, Optional
 
 import torch
 
+from fmri_tpu_torch.device import constant
+
 Moments = Dict[str, torch.Tensor]
+
+
+def _on(gate, device: torch.device):
+    """``gate != 0``: a device boolean for a tensor gate, a Python bool for
+    a number (no host-to-device copy, which would wait for the device)."""
+    if isinstance(gate, torch.Tensor):
+        return torch.as_tensor(gate, device=device) != 0
+    return bool(gate != 0)
+
+
+def _put(dst: torch.Tensor, new: torch.Tensor, on) -> None:
+    """``dst`` = ``new`` where ``on`` (see :func:`_on`), else kept."""
+    dst.copy_(new if on is True else torch.where(on, new, dst))
 
 
 class RmsProp(NamedTuple):
@@ -46,7 +63,9 @@ class RmsProp(NamedTuple):
                gate=1.0) -> None:
         """One gated step, in place on ``params`` and ``sq_avg``. ``lr`` and
         ``gate`` are scalars (tensors on the device, or numbers)."""
-        on = torch.as_tensor(gate, device=next(iter(params.values())).device) != 0
+        on = _on(gate, next(iter(params.values())).device)
+        if on is False:
+            return
         for k, p in params.items():
             g = grads[k]
             if self.clip is not None:
@@ -54,8 +73,8 @@ class RmsProp(NamedTuple):
             s = sq_avg[k]
             new_s = self.decay * s + (1.0 - self.decay) * g * g
             new_p = p - lr * g / (torch.sqrt(new_s) + self.eps)
-            p.copy_(torch.where(on, new_p, p))
-            s.copy_(torch.where(on, new_s, s))
+            _put(p, new_p, on)
+            _put(s, new_s, on)
 
 
 class AdamState(NamedTuple):
@@ -82,8 +101,10 @@ class Adam(NamedTuple):
                params: Mapping[str, torch.Tensor], lr: torch.Tensor,
                gate=1.0) -> None:
         """One gated step, in place on ``params`` and ``state``."""
-        on = torch.as_tensor(gate, device=state.count.device) != 0
-        count = state.count + on.to(torch.int32)
+        on = _on(gate, state.count.device)
+        if on is False:
+            return
+        count = state.count + (1 if on is True else on.to(torch.int32))
         t = count.clamp_min(1).float()
         bc1 = 1.0 - torch.pow(self.b1, t)
         bc2 = 1.0 - torch.pow(self.b2, t)
@@ -95,20 +116,20 @@ class Adam(NamedTuple):
             new_m = self.b1 * m + (1.0 - self.b1) * g
             new_v = self.b2 * v + (1.0 - self.b2) * g * g
             new_p = p - lr * (new_m / bc1) / (torch.sqrt(new_v / bc2) + self.eps)
-            p.copy_(torch.where(on, new_p, p))
-            m.copy_(torch.where(on, new_m, m))
-            v.copy_(torch.where(on, new_v, v))
-        state.count.copy_(torch.where(on, count, state.count))
+            _put(p, new_p, on)
+            _put(m, new_m, on)
+            _put(v, new_v, on)
+        _put(state.count, count, on)
 
 
 def exponential_lr(base_lr: float, gamma: float, steps_per_epoch: int):
     """``ExponentialLR(gamma)`` stepped per epoch
-    (``train_vgan_stage1.py:277,448``): step (int tensor) -> fp32 lr."""
+    (``train_vgan_stage1.py:277,448``): step (int tensor) -> fp32 lr. gamma
+    is an fp32 tensor made once per device."""
 
     def schedule(step: torch.Tensor) -> torch.Tensor:
         epoch = torch.div(step, steps_per_epoch, rounding_mode="floor")
-        return base_lr * torch.pow(torch.tensor(gamma, device=step.device),
-                                   epoch.float())
+        return base_lr * torch.pow(constant(gamma, torch.float32, step.device), epoch.float())
 
     return schedule
 
@@ -120,6 +141,6 @@ def step_lr(base_lr: float, step_size: int, gamma: float, steps_per_epoch: int):
     def schedule(step: torch.Tensor) -> torch.Tensor:
         epoch = torch.div(step, steps_per_epoch, rounding_mode="floor")
         k = torch.div(epoch, step_size, rounding_mode="floor")
-        return base_lr * torch.pow(torch.tensor(gamma, device=step.device), k.float())
+        return base_lr * torch.pow(constant(gamma, torch.float32, step.device), k.float())
 
     return schedule

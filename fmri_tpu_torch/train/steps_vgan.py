@@ -527,7 +527,8 @@ def make_vgan_cognitive_step(cfg: Config, stage: int, mode: str = "vae-gan",
             grads = _reduce_grads(grads, mesh)
             means, sums = _head_sums(mesh, terms, h)
             if stage == 2:  # encoder and discriminator always train (:557-565)
-                dec_gate, dis_gate = _scalar(0.0, dev), _scalar(1.0, dev)
+                dec_gate = torch.zeros((), dtype=torch.float32, device=dev)
+                dis_gate = torch.ones((), dtype=torch.float32, device=dev)
                 gates = {"encoder": 1.0, "discriminator": 1.0}
             else:
                 dec_gate, dis_gate = (gate_float(g) for g in equilibrium_gate(
