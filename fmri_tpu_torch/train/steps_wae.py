@@ -44,6 +44,13 @@ Noise comes from the caller (``z_fake`` already scaled by sigma, and for
 WAE/Dual-GAN ``eps`` and ``z_p``). The state is updated in place and
 returned with the metrics, which stay on the device under the JAX keys.
 
+Spans under a profiler (``utils/spans.py``): phase 1 is
+``train.latent_disc`` in every step, with the latent D's update inside it
+as ``train.optimizer.latent_disc``. Stage I and the cognitive stages mark
+their forwards ``train.forward`` and their ``torch.autograd.grad`` calls
+``train.backward``; WAE/Dual-GAN has ``stage1_grads``'s spans, phase 1
+inside its forward. Every other update is a ``train.optimizer.<group>``.
+
 ``mesh``: as in ``steps_vgan.py``. The latent discriminator's gradient is
 summed over the data group inside phase 1, before its update, which phase
 2 reads; the mean losses of stages II and III (recon, penalty) are pulled
@@ -68,21 +75,25 @@ from fmri_tpu_torch.train.steps_vgan import (
     StepFns, _apply_updates, _data, _data_sums, _default_lr, _head_sums, _metrics,
     _named, _on_mesh, _reduce_grads, _scalar, eval_step, generate_step, stage1_grads,
 )
+from fmri_tpu_torch.utils.spans import span
 
 
 def _params(nets, name: str):
     return list(nets.group(name).values())
 
 
-def _latent_d_step(disc, opt, opt_state, d_real_in, d_fake_in, lam, lr, mesh=None):
-    """Phase 1: the latent discriminator ``disc``'s two losses on detached
-    inputs, its gradient (summed over the data group) and its (ungated)
-    update, in place. Returns (loss_fake, loss_real), this rank's sums."""
-    ld = dict(disc.named_parameters())
-    loss_fake, loss_real = wae_disc_losses(disc(d_real_in), disc(d_fake_in), lam)
-    grads = torch.autograd.grad(loss_fake + loss_real, list(ld.values()))
-    grads = _reduce_grads({"d": dict(zip(ld, grads))}, mesh)["d"]
-    opt.update(grads, opt_state, ld, lr, 1.0)
+def _latent_d_step(state: TrainState, opt, d_real_in, d_fake_in, lam, lr, mesh=None):
+    """Phase 1, under ``train.latent_disc``: the latent discriminator (group
+    ``latent_disc``)'s two losses on detached inputs, its gradient (summed
+    over the data group) and its (ungated) update, in place. Returns
+    (loss_fake, loss_real), this rank's sums."""
+    with span("train.latent_disc"):
+        disc = state.nets.module("latent_disc")
+        ld = dict(disc.named_parameters())
+        loss_fake, loss_real = wae_disc_losses(disc(d_real_in), disc(d_fake_in), lam)
+        grads = torch.autograd.grad(loss_fake + loss_real, list(ld.values()))
+        grads = _reduce_grads({"latent_disc": dict(zip(ld, grads))}, mesh)
+        _apply_updates(opt, state, grads, lr, {"latent_disc": 1.0})
     return loss_fake.detach(), loss_real.detach()
 
 
@@ -119,32 +130,35 @@ def make_wae_stage1_step(cfg: Config, lr_schedule: Callable | None = None,
         before = bn_stats(nets.encoder) if spliced else None
 
         # phase 1: the latent D, the encoder and decoder frozen
-        with torch.set_grad_enabled(spliced):
+        with span("train.forward"), torch.set_grad_enabled(spliced):
             mu, _ = nets.encoder(x)
-        loss_fake, loss_real = _latent_d_step(
-            nets.discriminator, opt, state.opt_state["latent_disc"], mu.detach(), z_fake,
-            lam, 0.5 * lr, mesh)
+        loss_fake, loss_real = _latent_d_step(state, opt, mu.detach(), z_fake, lam, 0.5 * lr,
+                                              mesh)
 
         # phase 2: encoder and decoder against the updated D
         if spliced:
-            mu_in = mu.detach().requires_grad_()
-            x_recon = nets.decoder(mu_in)
-            loss_recon = wae_recon_sum(x_recon.detach(), x)
-            g = torch.autograd.grad(x_recon, dec_p + [mu_in], x_recon.detach() - x)
-            g_dec, gmu_rec = g[:-1], g[-1]
-            mu_p = mu.detach().requires_grad_()
-            loss_pen = wae_penalty_sum(nets.discriminator(mu_p), lam)
-            gmu_pen, = torch.autograd.grad(loss_pen, mu_p)
-            g_enc = torch.autograd.grad(mu, enc_p, gmu_rec + gmu_pen,
-                                        materialize_grads=True)  # l_var: 0
+            with span("train.forward"):
+                mu_in = mu.detach().requires_grad_()
+                x_recon = nets.decoder(mu_in)
+                loss_recon = wae_recon_sum(x_recon.detach(), x)
+                mu_p = mu.detach().requires_grad_()
+                loss_pen = wae_penalty_sum(nets.discriminator(mu_p), lam)
+            with span("train.backward"):
+                g = torch.autograd.grad(x_recon, dec_p + [mu_in], x_recon.detach() - x)
+                g_dec, gmu_rec = g[:-1], g[-1]
+                gmu_pen, = torch.autograd.grad(loss_pen, mu_p)
+                g_enc = torch.autograd.grad(mu, enc_p, gmu_rec + gmu_pen,
+                                            materialize_grads=True)  # l_var: 0
         else:
-            mu2, _ = nets.encoder(x)
-            x_recon = nets.decoder(mu2)
-            loss_recon = wae_recon_sum(x_recon, x)
-            loss_pen = wae_penalty_sum(nets.discriminator(mu2), lam)
-            g = torch.autograd.grad(loss_recon + loss_pen, enc_p + dec_p,
-                                    materialize_grads=True)
-            g_enc, g_dec = g[:len(enc_p)], g[len(enc_p):]
+            with span("train.forward"):
+                mu2, _ = nets.encoder(x)
+                x_recon = nets.decoder(mu2)
+                loss_recon = wae_recon_sum(x_recon, x)
+                loss_pen = wae_penalty_sum(nets.discriminator(mu2), lam)
+            with span("train.backward"):
+                g = torch.autograd.grad(loss_recon + loss_pen, enc_p + dec_p,
+                                        materialize_grads=True)
+                g_enc, g_dec = g[:len(enc_p)], g[len(enc_p):]
 
         grads = _reduce_grads({"encoder": _named(nets, "encoder", g_enc),
                                "decoder": _named(nets, "decoder", g_dec)}, mesh)
@@ -191,34 +205,36 @@ def make_wae_cognitive_step(cfg: Config, stage: int,
         nets = state.nets
         nets.train()
         b = fmri.shape[0]
-        with torch.no_grad():  # the frozen teacher, in train mode: it ticks
-            mu_teacher, _ = nets.teacher_encoder(image)
-            if stage == 2:  # gt reconstruction: no loss, one decoder tick
-                nets.decoder(mu_teacher)
-        before = bn_stats(nets.encoder)
-        with torch.set_grad_enabled(stage == 2):
-            mu, _ = nets.encoder(fmri)
+        with span("train.forward"):
+            with torch.no_grad():  # the frozen teacher, in train mode: it ticks
+                mu_teacher, _ = nets.teacher_encoder(image)
+                if stage == 2:  # gt reconstruction: no loss, one decoder tick
+                    nets.decoder(mu_teacher)
+            before = bn_stats(nets.encoder)
+            with torch.set_grad_enabled(stage == 2):
+                mu, _ = nets.encoder(fmri)
 
         # phase 1: teacher latents "real", cognitive latents "fake"
-        loss_fake, loss_real = _latent_d_step(
-            nets.discriminator, opt, state.opt_state["latent_disc"], mu_teacher,
-            mu.detach(), lam, lr_disc(state.step), mesh)
+        loss_fake, loss_real = _latent_d_step(state, opt, mu_teacher, mu.detach(), lam,
+                                              lr_disc(state.step), mesh)
 
         # phase 2 against the updated D; each mean is this rank's rows', and
         # 1/D of it is this rank's part of the global batch's mean
-        loss_recon = wae_recon_mean(nets.decoder(mu), image)
-        if stage == 2:
-            loss_pen = wae_penalty_mean(nets.discriminator(mu), lam)
-            name, lr, loss = "encoder", lr_enc(state.step), loss_recon + loss_pen
-        else:
-            with torch.no_grad():  # logged only (train_wae_stage3.py:344)
+        with span("train.forward"):
+            loss_recon = wae_recon_mean(nets.decoder(mu), image)
+            if stage == 2:
                 loss_pen = wae_penalty_mean(nets.discriminator(mu), lam)
-            name, lr, loss = "decoder", lr_dec(state.step), loss_recon
-        if data > 1:
-            loss = loss / data
-        grads = torch.autograd.grad(loss, _params(nets, name), materialize_grads=True)
+                name, lr, loss = "encoder", lr_enc(state.step), loss_recon + loss_pen
+            else:
+                with torch.no_grad():  # logged only (train_wae_stage3.py:344)
+                    loss_pen = wae_penalty_mean(nets.discriminator(mu), lam)
+                name, lr, loss = "decoder", lr_dec(state.step), loss_recon
+            if data > 1:
+                loss = loss / data
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, _params(nets, name), materialize_grads=True)
         grads = _reduce_grads({name: _named(nets, name, grads)}, mesh)[name]
-        opt.update(grads, state.opt_state[name], nets.group(name), lr)
+        _apply_updates(opt, state, {name: grads}, lr, {name: 1.0})
         bn_extra_ticks(nets.encoder, before, 1)  # the phase-2 recompute's tick
         state.step += 1
         rec, pen, fake, real = _data_sums(mesh, loss_recon, loss_pen, loss_fake, loss_real)
@@ -260,9 +276,7 @@ def make_wae_vgan_step(cfg: Config, mode: str = "vae-gan",
             """The latent-D update on mu, then the penalty against the
             updated D and its cotangent at mu."""
             out["mu"] = mu
-            out["fake"], out["real"] = _latent_d_step(
-                nets.latent_disc, opt, state.opt_state["latent_disc"], mu, z_fake, lam, lr,
-                mesh)
+            out["fake"], out["real"] = _latent_d_step(state, opt, mu, z_fake, lam, lr, mesh)
             mu_p = mu.requires_grad_()
             loss_pen = wae_penalty_sum(nets.latent_disc(mu_p), lam)
             out["pen"] = loss_pen.detach()
@@ -274,9 +288,8 @@ def make_wae_vgan_step(cfg: Config, mode: str = "vae-gan",
         with torch.no_grad():  # the penalty phase's decode of mu: a third tick
             nets.decoder(out["mu"].detach())
         # the reference's optimizer_decoder.step() with zero grads (:417)
-        dec = nets.group("decoder")
-        opt.update({k: torch.zeros_like(p) for k, p in dec.items()},
-                   state.opt_state["decoder"], dec, lr, 1.0)
+        zeros = {k: torch.zeros_like(p) for k, p in nets.group("decoder").items()}
+        _apply_updates(opt, state, {"decoder": zeros}, lr, {"decoder": 1.0})
         means, sums = _head_sums(mesh, terms, h, out["pen"], out["fake"], out["real"])
         dec_gate, dis_gate = (gate_float(g) for g in equilibrium_gate(
             terms, _scalar(equilibrium, dev), _scalar(margin, dev),

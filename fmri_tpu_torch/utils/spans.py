@@ -22,7 +22,12 @@ span" table of ``utils/profile_report.py``):
   ``train.backward.discriminator``, ``.decoder``, ``.encoder``),
   ``train.gate`` (the gradients' reduction, the head sums, the
   equilibrium gate and the learning rate) and ``train.optimizer`` (one
-  ``train.optimizer.<group>`` per trained group);
+  ``train.optimizer.<group>`` per trained group); the WAE steps' phase 1,
+  ``train.latent_disc`` (the latent discriminator's forwards, gradient and
+  its update, ``train.optimizer.latent_disc``). In the WAE/Dual-GAN step
+  phase 1 runs inside ``train.forward`` (``stage1_grads`` calls it from
+  the encoder's forward), so there the forward's host time and the
+  optimizer's both count the latent D's update;
 * ``input.stage``, a batch's copy to the device (``data/pipeline.py``);
 * ``input.augment``, the train-time augmentation (``data/transforms.py``).
 """

@@ -436,13 +436,25 @@ def test_every_preset_call_takes_the_tma_path(s_row, u_row, stride, per, esz):
         _assert_one_tma_path(s_shape, u_shape, stride, esz, p)
 
 
+@pytest.fixture
+def one_thread():
+    """torch's CPU ops on one thread for one test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("preset", sorted(PRESET_SIZES))
 def test_preset_calls_are_the_steps_own(preset, monkeypatch):
     """``PRESET_CALLS`` holds every weight grad of the preset's stage-I
     VAE/GAN step (encoder, decoder twice, discriminator over 3 images per
     row) and of its VoxelDecoder and WaeDecoder, at batch 2 with
     ``pallas_backward``; the WAE paths and the cognitive stages reuse these
-    nets. The voxels feed only fc layers, so they are cut to 64 here."""
+    nets. The voxels feed only fc layers, so they are cut to 64 here. Only
+    the shapes are compared, so torch runs on one thread: on the suite's
+    busy workers a full-size step on every thread took 70-120 s."""
     import dataclasses
 
     from fmri_tpu_torch.configs import presets
